@@ -1,0 +1,9 @@
+"""Data substrate: synthetic datasets, non-IID partitioning, per-node
+batch pipelines."""
+from .partition import dirichlet_partition
+from .pipeline import DeviceDataStream, NodeBatcher, StackedBatcher
+from .synthetic import ImageDataset, make_image_classification, train_test_split
+
+__all__ = ["dirichlet_partition", "DeviceDataStream", "NodeBatcher",
+           "StackedBatcher", "ImageDataset", "make_image_classification",
+           "train_test_split"]

@@ -1,0 +1,158 @@
+"""Decentralized-learning runner — the port of the dense single-device
+path of ``repro.dlrt.runtime`` (the round engine is
+:mod:`repro_torch.dlrt.superstep`).
+
+Per round: a node-batched local SGD step, the Eq.-3 similarity refresh
+every ``sim_every`` rounds, the strategy's graph round, and row-stochastic
+mixing; evaluation of every node on the shared test set at the
+``eval_every`` boundaries and after the last round (paper §IV-A4).
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, vmap
+
+from .. import resolve_device
+from ..core.topology import isolated_nodes
+from ..optim import Optimizer, apply_updates
+from ..tree import stack
+from .metrics import MetricsLog, RoundRecord, internode_variance
+
+
+@dataclass
+class RunnerConfig:
+    """The experiment grid of the reference's ``RunnerConfig`` that the
+    dense single-device path reads."""
+    n_nodes: int                           # population size n
+    rounds: int                            # total training rounds
+    eval_every: int = 20                   # evaluation cadence (rounds)
+    sim_every: int = 1                     # Eq.-3 refresh cadence (rounds)
+    seed: int = 0
+    # Evaluate at most this many test samples per node-batched forward
+    # pass (chunk means recombined by sample-count weights); None = one
+    # pass.  Bounds the [n, b_test, ...] activation footprint.
+    eval_batch_chunk: Optional[int] = None
+
+
+def make_local_step(loss_fn: Callable, optimizer: Optimizer) -> Callable:
+    """Node-batched local step: ``vmap(grad(loss))`` over the node axis of
+    the parameters and the batch, then the optimizer update."""
+    node_grads = vmap(grad(lambda p, b: loss_fn(p, b)[0]))
+
+    def local_step(params, opt_state, batch):
+        grads = node_grads(dict(params), batch)
+        upd, opt_state = optimizer.update(
+            OrderedDict((k, grads[k]) for k in params), opt_state, params)
+        return apply_updates(params, upd), opt_state
+    return local_step
+
+
+def make_evaluator(eval_fn: Callable,
+                   batch_chunk: Optional[int] = None) -> Callable:
+    """Every node on the shared test batch: ``(losses [n], metrics dict of
+    [n])``.  ``batch_chunk`` splits the test batch and recombines the
+    per-chunk means by sample-count weights (``eval_fn`` returns means)."""
+    def evaluate(params, test):
+        per_node = lambda t: vmap(lambda p: eval_fn(p, t))(dict(params))
+        b = next(iter(test.values())).shape[0]
+        if batch_chunk is None or b <= batch_chunk:
+            return per_node(test)
+        losses, metrics = None, None
+        for s in range(0, b, batch_chunk):
+            size = min(batch_chunk, b - s)
+            pl, pm = per_node({k: v[s:s + batch_chunk]
+                               for k, v in test.items()})
+            wl = pl * (size / b)
+            wm = {k: v * (size / b) for k, v in pm.items()}
+            losses = wl if losses is None else losses + wl
+            metrics = wm if metrics is None \
+                else {k: metrics[k] + wm[k] for k in metrics}
+        return losses, metrics
+    return evaluate
+
+
+def stacked_model_bytes(params: Dict[str, torch.Tensor], n_nodes: int) -> int:
+    """Per-transfer payload: one node's slice of the stacked params."""
+    return sum(v.numel() * v.element_size() // n_nodes
+               for v in params.values())
+
+
+def make_round_record(rnd: int, losses, metrics, comm_bytes: int,
+                      edges: np.ndarray) -> RoundRecord:
+    """§IV-A4 metrics for one evaluation point."""
+    acc = np.asarray(metrics["accuracy"])
+    return RoundRecord(
+        rnd=rnd,
+        mean_accuracy=float(acc.mean()),
+        mean_loss=float(np.asarray(losses).mean()),
+        internode_variance=internode_variance(acc),
+        comm_bytes=comm_bytes,
+        isolated=len(isolated_nodes(edges)),
+        per_node_accuracy=acc,
+    )
+
+
+class DecentralizedRunner:
+    """D-PSGD over node-stacked parameters with an in-graph strategy.
+
+    ``init_fn(generator) -> OrderedDict`` makes one node's parameters; the
+    runner draws ``n`` of them from a CPU generator seeded with
+    ``cfg.seed``, unless ``params`` (node-stacked, e.g. carried over from
+    the reference with :func:`repro_torch.tree.params_from_jax`) is given.
+    ``batcher`` is a host :class:`~repro_torch.data.StackedBatcher` or a
+    :class:`~repro_torch.data.DeviceDataStream`.
+    """
+
+    def __init__(self, *, init_fn: Optional[Callable], loss_fn: Callable,
+                 eval_fn: Callable, optimizer: Optimizer, batcher,
+                 test_batch: Dict[str, np.ndarray], strategy,
+                 cfg: RunnerConfig, params=None, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.strategy = strategy
+        self.batcher = batcher
+        self.test_batch = to_device(test_batch, self.device)
+        if params is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            params = stack(init_fn(gen) for _ in range(cfg.n_nodes))
+        self.params = OrderedDict((k, v.to(self.device))
+                                  for k, v in params.items())
+        self.opt = optimizer
+        self.opt_state = optimizer.init(self.params)
+        self._loss_fn = loss_fn
+        self._eval_fn = eval_fn
+        self.log = MetricsLog()
+        self.edge_history: list = []
+
+    def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
+            ) -> MetricsLog:
+        """Run all ``cfg.rounds`` rounds through the dense superstep and
+        return the metrics log (``progress`` sees each record)."""
+        from .superstep import Superstep
+        engine = Superstep(
+            loss_fn=self._loss_fn, eval_fn=self._eval_fn,
+            optimizer=self.opt, batcher=self.batcher,
+            test_batch=self.test_batch, strategy=self.strategy,
+            cfg=self.cfg, params=self.params, opt_state=self.opt_state,
+            device=self.device)
+        self.log = engine.run(progress)
+        self.params, self.opt_state = engine.params, engine.opt_state
+        self.edge_history = engine.edge_history
+        return self.log
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device``; integer labels become int64
+    (the index type of ``gather``)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device)
+    return out

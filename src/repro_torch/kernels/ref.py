@@ -1,0 +1,36 @@
+"""Plain PyTorch versions of the kernels: what the wrappers run for CPU
+tensors, and the oracles the kernels are held against on the card."""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def gram_matrix(x: torch.Tensor) -> torch.Tensor:
+    """``X [n, D] -> X X^T [n, n]`` in f32."""
+    xf = x.float()
+    return xf @ xf.T
+
+
+def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity between all rows of ``X [n, D]``; a zero row
+    gives 0, not NaN (norms clamp at 1e-12)."""
+    g = gram_matrix(x)
+    norms = torch.sqrt(torch.diagonal(g)).clamp_min(_EPS)
+    return g / (norms[:, None] * norms[None, :])
+
+
+def graph_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``W [m, n] @ X [n, D] -> [m, D]`` in f32, cast to ``x.dtype``."""
+    return (w.float() @ x.float()).to(x.dtype)
+
+
+def graph_mix_masked(edges: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Uniform averaging from the in-edge matrix: ``W = (E + I) / rowsum``
+    then ``W @ X``."""
+    n = edges.shape[0]
+    w = edges.float() + torch.eye(n, dtype=torch.float32,
+                                  device=edges.device)
+    w = w / w.sum(dim=1, keepdim=True)
+    return graph_mix(w, x)

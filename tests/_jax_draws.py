@@ -1,0 +1,62 @@
+"""The reference's ``jax.random`` draws, replayed as tensors for the port.
+
+A ``torch.Generator`` cannot give ``jax.random``'s bits, so every port
+function that draws also takes its draw as an argument; these helpers make
+the exact draws the reference makes at the same seed, for the parity
+tests to hand over.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro_torch.core import MorphNoise
+
+
+def _tensor(x):
+    return torch.as_tensor(np.array(x))
+
+
+def morph_draws(seed, n, count):
+    """Draws of the reference Morph controller's first ``count``
+    negotiations from ``PRNGKey(seed)`` (``core/morph.py``: the state key
+    splits into (next, selection, two tie keys); the selection key splits
+    per node, and each node's key into its Eq.-5 and random-injection
+    Gumbel keys)."""
+    key = jax.random.PRNGKey(seed)
+    gumbel = jax.vmap(lambda kk: jax.random.gumbel(kk, (n,), jnp.float32))
+    draws = []
+    for _ in range(count):
+        key, k_sel, k_tie_r, k_tie_s = jax.random.split(key, 4)
+        halves = jax.vmap(jax.random.split)(jax.random.split(k_sel, n))
+        draws.append(MorphNoise(
+            select=_tensor(gumbel(halves[:, 0])),
+            inject=_tensor(gumbel(halves[:, 1])),
+            tie_recv=_tensor(jax.random.uniform(
+                k_tie_r, (n, n), jnp.float32, 0.0, 1e-4)),
+            tie_send=_tensor(jax.random.uniform(
+                k_tie_s, (n, n), jnp.float32, 0.0, 1e-4))))
+    return draws
+
+
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _el_scores(seed, n, rnd):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), rnd)
+    return jax.random.gumbel(key, (n, n), jnp.float32)
+
+
+def el_draw(seed, n, rnd):
+    """The reference EL-Oracle's Gumbel scores for round ``rnd``."""
+    return _tensor(_el_scores(seed, n, rnd))
+
+
+def stream_take(seed, rnd, sizes, batch):
+    """``[n, b]`` shard slots the reference ``DeviceDataStream`` draws in
+    round ``rnd`` (``fold_in(fold_in(PRNGKey(seed), rnd), node)``)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), rnd)
+    rows = [jax.random.randint(jax.random.fold_in(key, i), (batch,), 0,
+                               int(size))
+            for i, size in enumerate(sizes)]
+    return _tensor(jnp.stack(rows))
