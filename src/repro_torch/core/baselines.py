@@ -9,7 +9,8 @@ Every strategy has the reference's in-graph contract:
   the engine mixes with the masked kernel straight from the edges;
 * ``init_graph_state()`` — the state the engine carries between rounds;
 * ``graph_round(gstate, rnd, sim)`` -> ``(gstate, edges [n, n] bool,
-  W [n, n] f32)`` on the strategy's device, ``rnd`` a host int.
+  W [n, n] f32)`` on the strategy's device, ``rnd`` a host int; W is
+  ``None`` where ``uniform_mixing`` holds (the engine never reads it).
 
 Each strategy that draws takes its draw as an optional keyword of
 ``graph_round`` and otherwise uses its own CPU ``torch.Generator``.
@@ -57,13 +58,12 @@ class InGraphMorphStrategy:
         """Negotiate on round ``rnd % delta_r == 0`` (with ``noise`` as the
         draws when given), else reuse the held edges."""
         if rnd % self.delta_r != 0:
-            return gstate, gstate.edges, \
-                mixing.uniform_weights_torch(gstate.edges)
-        new_state, w = update_topology(
-            gstate, None, k=min(self.k, self.n - 1),
+            return gstate, gstate.edges, None
+        new_state = update_topology(
+            gstate, sim, k=min(self.k, self.n - 1),
             view_size=min(self.view_size, self.n - 1), beta=self.beta,
-            sim_fn=lambda _: sim, noise=noise)
-        return new_state, new_state.edges, w
+            noise=noise)
+        return new_state, new_state.edges, None
 
 
 class InGraphStaticStrategy:
@@ -146,4 +146,4 @@ class InGraphEpidemicStrategy:
         _, idx = stable_topk(torch.where(~self._eye, noise, NEG_INF), k)
         out = scatter_or(idx, torch.ones_like(idx, dtype=torch.bool), n)
         edges = out.T.contiguous()          # edges[i, j]: j sends to i
-        return gstate, edges, mixing.uniform_weights_torch(edges)
+        return gstate, edges, None

@@ -16,12 +16,11 @@ graph sequence the same on any device.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .matching import match_dense
-from .mixing import uniform_weights_torch
 from .selection import (gumbel, random_injection, sample_gumbel_topk,
                         scatter_or)
 
@@ -68,28 +67,20 @@ def draw_noise(generator: torch.Generator, n: int, device) -> MorphNoise:
     return MorphNoise(sel, inj, ties[0], ties[1])
 
 
-def update_topology(state: MorphGraphState, stacked_params, k: int,
+def update_topology(state: MorphGraphState, sim: torch.Tensor, k: int,
                     view_size: int, beta: float,
-                    match_rounds: Optional[int] = None,
-                    sim_fn: Optional[Callable] = None,
-                    k_out: Optional[int] = None,
-                    noise: Optional[MorphNoise] = None
-                    ) -> Tuple[MorphGraphState, torch.Tensor]:
-    """One Δ_r negotiation: returns ``(new_state, W)``.
-
-    ``sim_fn(stacked_params)`` gives the ``[n, n]`` Eq.-3 matrix (the
-    engine passes its cached one); ``k_out`` caps per-sender out-degree
-    (default ``k``)."""
+                    noise: Optional[MorphNoise] = None) -> MorphGraphState:
+    """One Δ_r negotiation on the ``[n, n]`` Eq.-3 matrix ``sim``: returns
+    the new state, whose ``edges`` (in-degree and out-degree <= ``k``) the
+    round mixes over uniformly (:func:`~.mixing.uniform_weights_torch`)."""
     n = state.known.shape[0]
     dev = state.known.device
     if noise is None:
         noise = draw_noise(state.generator, n, dev)
-    if sim_fn is None:
-        from .similarity import pairwise_model_similarity as sim_fn
     eye = torch.eye(n, dtype=torch.bool, device=dev)
 
     # Measurements: a node evaluates Eq. 3 on every model it receives.
-    true_sim = sim_fn(stacked_params).float()
+    true_sim = sim.float()
     sim = torch.where(state.edges, true_sim, state.sim)
     sim_valid = state.sim_valid | state.edges
 
@@ -120,8 +111,7 @@ def update_topology(state: MorphGraphState, stacked_params, k: int,
                  + torch.where(fallback, -4.0, 0.0)
                  + noise.tie_recv)
     send_pref = recv_pref.T + noise.tie_send
-    edges = match_dense(recv_pref, send_pref, want | fallback, k,
-                        k if k_out is None else k_out, match_rounds)
+    edges = match_dense(recv_pref, send_pref, want | fallback, k, k)
 
     # Every matched edge delivers a model: a direct measurement.
     sim = torch.where(edges, true_sim, sim)
@@ -132,6 +122,5 @@ def update_topology(state: MorphGraphState, stacked_params, k: int,
     reach = (edges.float() @ (state.known | eye).float()) > 0
     known = (state.known | reach) & ~eye
 
-    new_state = MorphGraphState(known=known, sim=sim, sim_valid=sim_valid,
-                                edges=edges, generator=state.generator)
-    return new_state, uniform_weights_torch(edges)
+    return MorphGraphState(known=known, sim=sim, sim_valid=sim_valid,
+                           edges=edges, generator=state.generator)

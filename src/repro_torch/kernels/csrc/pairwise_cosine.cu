@@ -8,9 +8,11 @@
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s f32 without tensor
 // cores): at the main path's largest leaf, n = 50 and D = 51,200 (conv2),
-// the call reads 10.2 MB (3.1 us) and does 2 n^2 D = 256 MFLOP of f32 FMA
-// (3.8 us), so at full rate it is bound by operations, with the memory time
-// close behind; every other leaf is a few KB and is launch-bound.
+// the call reads 10.25 MB (3.06 us), and since X X^T is symmetric the
+// function needs only n (n + 1) D = 130.6 MFLOP (1.95 us), so it is bound
+// by memory.  This kernel computes every tile, both triangles (2 n^2 D =
+// 256 MFLOP, 3.8 us at full rate); every other leaf is a few KB and is
+// launch-bound.
 //
 // Design.  Blocks cannot carry a sum from one to the next as the TPU grid
 // does, so D is split ("split-K"): block (tx, ty, s) computes the 64 x 64

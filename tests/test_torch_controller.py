@@ -47,14 +47,15 @@ def test_update_topology_identical_under_shared_draws(n, k, view):
     for t, (sim, noise) in enumerate(zip(_sims(n, count, n),
                                          morph_draws(0, n, count))):
         jstate, jw = step(jstate, jnp.asarray(sim))
-        tstate, tw = tcore.update_topology(
-            tstate, None, k=k, view_size=view, beta=500.0,
-            sim_fn=lambda _: torch.as_tensor(sim), noise=noise)
+        tstate = tcore.update_topology(tstate, torch.as_tensor(sim), k=k,
+                                       view_size=view, beta=500.0,
+                                       noise=noise)
         for field in ("known", "sim_valid", "edges"):
             assert np.array_equal(np.asarray(getattr(jstate, field)),
                                   getattr(tstate, field).numpy()), \
                 f"{field} diverged at negotiation {t}"
-        np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jw), tcore.uniform_weights_torch(tstate.edges).numpy())
         # Eq.-4 estimates: einsum contraction order may differ (f32).
         np.testing.assert_allclose(np.asarray(jstate.sim),
                                    tstate.sim.numpy(), atol=1e-6)
@@ -112,8 +113,10 @@ def test_epidemic_round_identical(n, k):
                                     jnp.asarray(rnd), None)
         _, te, tw = port.graph_round((), rnd, None,
                                      noise=el_draw(5, n, rnd))
+        assert tw is None                   # uniform: mixed from the edges
         np.testing.assert_array_equal(te.numpy(), np.asarray(je))
-        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+        np.testing.assert_array_equal(
+            tcore.uniform_weights_torch(te).numpy(), np.asarray(jw))
 
 
 def test_own_draws_follow_the_contract():
@@ -125,7 +128,7 @@ def test_own_draws_follow_the_contract():
     sim = torch.as_tensor(_sims(n, 1, 0)[0])
     state, edges, w = morph.graph_round(morph.init_graph_state(), 0, sim)
     assert (edges.sum(1) <= 3).all() and not edges.diagonal().any()
-    torch.testing.assert_close(w.sum(1), torch.ones(n))
+    assert w is None and torch.equal(state.edges, edges)
     el = tcore.InGraphEpidemicStrategy(n=n, k=3, seed=2, device="cpu")
     a = el.graph_round((), 7, None)[1]
     el.graph_round((), 8, None)
