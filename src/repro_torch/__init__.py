@@ -4,10 +4,14 @@ The package mirrors ``repro``'s subpackages so that every function has an
 obvious counterpart, and is held against it by the ``tests/test_torch_*``
 parity tests.  It imports ``torch`` and numpy only.
 
-Entry points (:class:`repro_torch.dlrt.DecentralizedRunner`, the in-graph
-strategies, :class:`repro_torch.data.DeviceDataStream`) run on the card by
-default (``device="cuda"``) and raise on a host without one unless the
-caller passes ``device="cpu"``.  CUDA tensors go through the hand-written
+Entry points (:class:`repro_torch.dlrt.DecentralizedRunner`, whose
+``RunnerConfig.engine`` picks the dense or the sparse (CSR) engine; the
+dense in-graph strategies in :mod:`repro_torch.core`; the sparse-native
+:class:`repro_torch.sparse.SparseMorphStrategy` and
+:class:`repro_torch.sparse.SparseEpidemicStrategy`;
+:class:`repro_torch.data.DeviceDataStream`) run on the card by default
+(``device="cuda"``) and raise on a host without one unless the caller
+passes ``device="cpu"``.  CUDA tensors go through the hand-written
 kernels in :mod:`repro_torch.kernels`; CPU tensors through their plain
 PyTorch versions.
 """

@@ -1,5 +1,5 @@
-"""Decentralized-learning runtime: the runner, the dense round engine and
-the round-domain metrics."""
+"""Decentralized-learning runtime: the runner, the dense and sparse round
+engines and the round-domain metrics."""
 from .metrics import MetricsLog, RoundRecord, internode_variance
 from .runtime import (DecentralizedRunner, RunnerConfig, make_evaluator,
                       make_local_step, make_round_record,

@@ -1,11 +1,12 @@
-"""Decentralized-learning runner — the port of the dense single-device
-path of ``repro.dlrt.runtime`` (the round engine is
+"""Decentralized-learning runner — the port of the single-device path of
+``repro.dlrt.runtime`` (the round engine, dense or sparse, is
 :mod:`repro_torch.dlrt.superstep`).
 
 Per round: a node-batched local SGD step, the Eq.-3 similarity refresh
-every ``sim_every`` rounds, the strategy's graph round, and row-stochastic
-mixing; evaluation of every node on the shared test set at the
-``eval_every`` boundaries and after the last round (paper §IV-A4).
+every ``sim_every`` rounds (dense strategies), the strategy's graph
+round, and row-stochastic mixing; evaluation of every node on the shared
+test set at the ``eval_every`` boundaries and after the last round (paper
+§IV-A4).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .metrics import MetricsLog, RoundRecord, internode_variance
 @dataclass
 class RunnerConfig:
     """The experiment grid of the reference's ``RunnerConfig`` that the
-    dense single-device path reads."""
+    single-device engines read."""
     n_nodes: int                           # population size n
     rounds: int                            # total training rounds
     eval_every: int = 20                   # evaluation cadence (rounds)
@@ -37,6 +38,40 @@ class RunnerConfig:
     # pass (chunk means recombined by sample-count weights); None = one
     # pass.  Bounds the [n, b_test, ...] activation footprint.
     eval_batch_chunk: Optional[int] = None
+    # Engine: "dense" (the [n, n] path), "sparse" (CSR adjacency, O(n k D)
+    # mixing; a dense strategy there runs in compat mode) or "auto"
+    # (sparse for a sparse-native strategy, dense otherwise).
+    engine: str = "dense"
+    # Compat-mode mixing of a dense strategy under engine="sparse":
+    # "exact" mixes as the dense engine does (bitwise), "gather" converts
+    # each round's edges to CSR and mixes through the sparse kernel.
+    sparse_mix: str = "exact"
+
+
+ENGINES = ("dense", "sparse")
+SPARSE_MIX_MODES = ("exact", "gather")
+
+
+def resolve_engine(cfg: RunnerConfig, strategy) -> str:
+    """The engine ``cfg`` selects for ``strategy``: ``"auto"`` resolved,
+    then the reference's checks (``ValueError`` for an unknown engine or
+    compat mix, ``TypeError`` for a sparse-native strategy under the dense
+    engine)."""
+    sparse_native = bool(getattr(strategy, "sparse", False))
+    engine = cfg.engine
+    if engine == "auto":
+        engine = "sparse" if sparse_native else "dense"
+    if engine not in ENGINES:
+        raise ValueError(f"engine={cfg.engine!r} not in {ENGINES + ('auto',)}")
+    if cfg.sparse_mix not in SPARSE_MIX_MODES:
+        raise ValueError(f"sparse_mix={cfg.sparse_mix!r} not in "
+                         f"{SPARSE_MIX_MODES}")
+    if sparse_native and engine != "sparse":
+        raise TypeError(
+            f"strategy {getattr(strategy, 'name', strategy)!r} returns CSR "
+            "adjacency (sparse=True); select it with "
+            "RunnerConfig.engine='sparse'")
+    return engine
 
 
 def make_local_step(loss_fn: Callable, optimizer: Optimizer) -> Callable:
@@ -83,8 +118,11 @@ def stacked_model_bytes(params: Dict[str, torch.Tensor], n_nodes: int) -> int:
 
 
 def make_round_record(rnd: int, losses, metrics, comm_bytes: int,
-                      edges: np.ndarray) -> RoundRecord:
-    """§IV-A4 metrics for one evaluation point."""
+                      edges: np.ndarray,
+                      isolated: Optional[int] = None) -> RoundRecord:
+    """§IV-A4 metrics for one evaluation point.  ``isolated`` overrides
+    the count from ``edges`` (the sparse engine counts in-degree-0 rows
+    from its CSR mask)."""
     acc = np.asarray(metrics["accuracy"])
     return RoundRecord(
         rnd=rnd,
@@ -92,7 +130,8 @@ def make_round_record(rnd: int, losses, metrics, comm_bytes: int,
         mean_loss=float(np.asarray(losses).mean()),
         internode_variance=internode_variance(acc),
         comm_bytes=comm_bytes,
-        isolated=len(isolated_nodes(edges)),
+        isolated=len(isolated_nodes(edges)) if isolated is None
+        else isolated,
         per_node_accuracy=acc,
     )
 
@@ -115,6 +154,7 @@ class DecentralizedRunner:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
+        self.engine = resolve_engine(cfg, strategy)
         self.batcher = batcher
         self.test_batch = to_device(test_batch, self.device)
         if params is None:
@@ -131,8 +171,8 @@ class DecentralizedRunner:
 
     def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
             ) -> MetricsLog:
-        """Run all ``cfg.rounds`` rounds through the dense superstep and
-        return the metrics log (``progress`` sees each record)."""
+        """Run all ``cfg.rounds`` rounds through the superstep and return
+        the metrics log (``progress`` sees each record)."""
         from .superstep import Superstep
         engine = Superstep(
             loss_fn=self._loss_fn, eval_fn=self._eval_fn,

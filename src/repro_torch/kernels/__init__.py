@@ -1,10 +1,11 @@
-"""Hand-written Hopper kernels (``csrc/*.cu``) for the three TPU kernels on
-the dense Morph path, with their plain PyTorch versions (:mod:`.ref`) and
-the parameter-dict wrappers (:mod:`.ops`)."""
+"""Hand-written Hopper kernels (``csrc/*.cu``) for the TPU kernels on the
+dense and sparse Morph paths, with their plain PyTorch versions
+(:mod:`.ref`) and the parameter-dict wrappers (:mod:`.ops`)."""
 from .graph_mix import graph_mix, graph_mix_masked
+from .graph_mix_sparse import graph_mix_sparse
 from .pairwise_cosine import gram_matrix
 
-KERNELS = (gram_matrix, graph_mix, graph_mix_masked)
+KERNELS = (gram_matrix, graph_mix, graph_mix_masked, graph_mix_sparse)
 
 
 def reset_launches() -> None:
@@ -13,5 +14,5 @@ def reset_launches() -> None:
         kernel.launches = 0
 
 
-__all__ = ["KERNELS", "graph_mix", "graph_mix_masked", "gram_matrix",
-           "reset_launches"]
+__all__ = ["KERNELS", "graph_mix", "graph_mix_masked", "graph_mix_sparse",
+           "gram_matrix", "reset_launches"]

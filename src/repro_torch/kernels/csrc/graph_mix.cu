@@ -14,16 +14,27 @@
 // the call moves 20.5 MB (X read once, Y written once: 6.1 us) and does
 // 2 m n D = 256 MFLOP (3.8 us), so it is bound by memory.
 //
-// Design.  W is tiny and every output column needs all of it, so each block
-// keeps the whole of W in shared memory (n, m <= 128: at most 64 KB) and
-// owns one 64-column tile of D: it stages X[:, tile] in shared memory once
-// (neighbouring threads read neighbouring columns, so every row is one
-// coalesced 256-byte read), and each thread then forms the dot products of
-// its column with a quarter of W's rows in f32.  X is read from device
-// memory exactly once and Y written exactly once, which is all the bound
-// asks.  The masked variant loads E instead of W and normalises the rows
-// in shared memory, so W never exists in device memory.  The ragged D tail
-// is masked; nothing is padded.
+// Design.  W is tiny and every output column needs all of it.  Up to 128
+// nodes (the paper's n = 50 and 100) each block keeps the whole of W in
+// shared memory (at most 64 KB) and owns one 64-column tile of D: it
+// stages X[:, tile] in shared memory once (neighbouring threads read
+// neighbouring columns, so every row is one coalesced 256-byte read), and
+// each thread then forms the dot products of its column with a quarter of
+// W's rows in f32.  X is read from device memory exactly once and Y
+// written exactly once, which is all the bound asks.  The masked variant
+// loads E instead of W and normalises the rows in shared memory, so W
+// never exists in device memory.  The ragged D tail is masked; nothing is
+// padded.
+//
+// Past 128 nodes or rows W no longer fits, and a second route tiles both
+// axes: each block owns 32 output rows x 64 columns and walks the node
+// axis in chunks of 32, staging W[rows, chunk] and X[chunk, cols] in
+// shared memory and keeping its 8 sums per thread in registers.  Each sum
+// takes the same fmaf sequence over j = 0 .. n - 1 as the first route, so
+// the two routes give the same bits; the masked rows are divided by the
+// same exact integer row sums.  X is read once per 32-row tile (ceil(m /
+// 32) times in all), which is the price of any n; a faster kernel for
+// large n is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -94,9 +105,100 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kTileRows = 32;                  // output rows per tiled block
+constexpr int kChunk = 32;                     // node-axis chunk
+constexpr int kRowsPerThread = kTileRows / kGroups;
+constexpr int kSmallNodes = 128;               // W whole in shared memory
+
+template <typename T, bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+    mix_tiled_kernel(const void* __restrict__ wsrc, const T* __restrict__ x,
+                     T* __restrict__ y, int m, int n, long long d,
+                     long long col_tiles) {
+  __shared__ float w_s[kTileRows][kChunk];
+  __shared__ float x_s[kChunk][kCols];
+  __shared__ float rowsum[kTileRows];
+  const long long tile = blockIdx.x;
+  const int i0 = (int)(tile / col_tiles) * kTileRows;
+  const long long c0 = (tile % col_tiles) * kCols;
+  const int c = threadIdx.x % kCols;
+  const int g = threadIdx.x / kCols;  // a warp shares g: w_s reads broadcast
+  const unsigned char* e = static_cast<const unsigned char*>(wsrc);
+  const float* w = static_cast<const float*>(wsrc);
+
+  if (kMasked) {
+    // Row sums of E + I: small integers, exact in any order.
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    for (int r = warp; r < kTileRows; r += kThreads / 32) {
+      const int i = i0 + r;
+      float s = 0.f;
+      if (i < m)
+        for (int j = lane; j < n; j += 32)
+          s += (e[(long long)i * n + j] ? 1.f : 0.f) + (i == j ? 1.f : 0.f);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) rowsum[r] = s;
+    }
+  }
+
+  float acc[kRowsPerThread];
+#pragma unroll
+  for (int t = 0; t < kRowsPerThread; ++t) acc[t] = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kChunk) {
+    __syncthreads();  // the last chunk is consumed (and rowsum is ready)
+    for (int idx = threadIdx.x; idx < kTileRows * kChunk; idx += kThreads) {
+      const int r = idx / kChunk;
+      const int jj = idx % kChunk;
+      const int i = i0 + r;
+      const int j = j0 + jj;
+      float v = 0.f;
+      if (i < m && j < n) {
+        const long long at = (long long)i * n + j;
+        v = kMasked ? ((e[at] ? 1.f : 0.f) + (i == j ? 1.f : 0.f)) / rowsum[r]
+                    : w[at];
+      }
+      w_s[r][jj] = v;
+    }
+    for (int idx = threadIdx.x; idx < kChunk * kCols; idx += kThreads) {
+      const int jj = idx / kCols;
+      const int cc = idx % kCols;
+      const int j = j0 + jj;
+      const long long col = c0 + cc;
+      x_s[jj][cc] =
+          (j < n && col < d) ? to_f32(x[(long long)j * d + col]) : 0.f;
+    }
+    __syncthreads();
+    const int jn = min(kChunk, n - j0);
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t) {
+      const int r = g + t * kGroups;
+      for (int jj = 0; jj < jn; ++jj)
+        acc[t] = fmaf(w_s[r][jj], x_s[jj][c], acc[t]);
+    }
+  }
+  const long long col = c0 + c;
+  if (col >= d) return;
+#pragma unroll
+  for (int t = 0; t < kRowsPerThread; ++t) {
+    const int i = i0 + g + t * kGroups;
+    if (i < m) store(&y[(long long)i * d + col], acc[t]);
+  }
+}
+
 template <typename T, bool kMasked>
 int launch_mix(const void* w, const void* x, void* y, int m, int n,
                long long d, cudaStream_t stream) {
+  const long long col_tiles = (d + kCols - 1) / kCols;
+  if (m > kSmallNodes || n > kSmallNodes) {
+    const long long blocks = (long long)((m + kTileRows - 1) / kTileRows)
+                             * col_tiles;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    mix_tiled_kernel<T, kMasked><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        w, static_cast<const T*>(x), static_cast<T*>(y), m, n, d, col_tiles);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * ((size_t)m * n + (size_t)n * kCols);
   auto kernel = mix_kernel<T, kMasked>;
   if (smem > 48 * 1024) {
@@ -104,8 +206,7 @@ int launch_mix(const void* w, const void* x, void* y, int m, int n,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long blocks = (d + kCols - 1) / kCols;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)col_tiles, kThreads, smem, stream>>>(
       w, static_cast<const T*>(x), static_cast<T*>(y), m, n, d);
   return (int)cudaGetLastError();
 }

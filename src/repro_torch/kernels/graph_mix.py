@@ -23,15 +23,12 @@ _SIGNATURES = {
     "graph_mix_masked_f32": [_P, _P, _P, _I, _L, _P],
     "graph_mix_masked_bf16": [_P, _P, _P, _I, _L, _P],
 }
-MAX_NODES = 128     # W ([m, n] f32) is held whole in shared memory
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_x(what: str, x: torch.Tensor, n: int) -> None:
     if x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"{what}: X must be [{n}, D], got {tuple(x.shape)}")
-    if n > MAX_NODES:
-        raise ValueError(f"{what}: at most {MAX_NODES} nodes, got {n}")
 
 
 def graph_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -44,8 +41,6 @@ def graph_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("graph_mix: W must be a 2-D f32 tensor")
     m, n = w.shape
     _check_x("graph_mix", x, n)
-    if m > MAX_NODES:
-        raise ValueError(f"graph_mix: at most {MAX_NODES} rows, got {m}")
     d = x.shape[1]
     y = torch.empty((m, d), dtype=x.dtype, device=x.device)
     lib = cuda.library(_NAME, _SIGNATURES)

@@ -9,11 +9,12 @@ kernels mask their ragged tails themselves, so nothing is padded here.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from .graph_mix import graph_mix, graph_mix_masked
+from .graph_mix_sparse import graph_mix_sparse
 from .pairwise_cosine import gram_matrix
 
 _EPS = 1e-12
@@ -53,5 +54,41 @@ def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor]
     edges = edges.contiguous()
     return OrderedDict(
         (k, graph_mix_masked(edges, v.reshape(v.shape[0], -1)).reshape(
+            v.shape))
+        for k, v in stacked.items())
+
+
+def _csr_operands(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,
+                  mask: Optional[torch.Tensor]):
+    """The kernel's operands: invalid slots parked on the receiver's own
+    row with weight 0, idx int32, weights f32, all contiguous."""
+    if mask is not None:
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        idx = torch.where(mask, idx, rows)
+        w = torch.where(mask, w, 0.0)
+    return (idx.to(torch.int32).contiguous(), w.float().contiguous(),
+            w_self.float().contiguous())
+
+
+def mix_sparse(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,
+               x: torch.Tensor, mask: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """CSR k-sparse mix ``out[i] = w_self[i] x[i] + sum_s w[i, s]
+    x[idx[i, s]]`` of ``X [n, D]``, O(n k D).  ``mask=None`` trusts
+    ``idx`` / ``w`` to carry invalid slots as own-row / zero-weight
+    already (the :class:`repro_torch.sparse.SparseAdjacency` invariant)."""
+    return graph_mix_sparse(*_csr_operands(idx, w, w_self, mask),
+                            x.contiguous())
+
+
+def mix_sparse_pytree(idx: torch.Tensor, w: torch.Tensor,
+                      w_self: torch.Tensor, stacked: Dict[str, torch.Tensor],
+                      mask: Optional[torch.Tensor] = None
+                      ) -> "OrderedDict[str, torch.Tensor]":
+    """:func:`mix_sparse` over every leaf of node-stacked parameters (the
+    operands are prepared once for all leaves)."""
+    ops = _csr_operands(idx, w, w_self, mask)
+    return OrderedDict(
+        (k, graph_mix_sparse(*ops, v.reshape(v.shape[0], -1)).reshape(
             v.shape))
         for k, v in stacked.items())

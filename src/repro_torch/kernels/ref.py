@@ -34,3 +34,17 @@ def graph_mix_masked(edges: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                                   device=edges.device)
     w = w / w.sum(dim=1, keepdim=True)
     return graph_mix(w, x)
+
+
+def graph_mix_sparse(idx: torch.Tensor, w: torch.Tensor,
+                     w_self: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """CSR mix ``out[i] = sum_s w[i, s] x[idx[i, s]] + w_self[i] x[i]`` in
+    f32, cast to ``x.dtype``: the slots in slot order and then the self
+    term, each product rounded before its add, as the kernel sums."""
+    xf = x.float()
+    idx = idx.long()
+    acc = torch.zeros_like(xf)
+    for s in range(idx.shape[1]):
+        acc = acc + w[:, s:s + 1].float() * xf[idx[:, s]]
+    acc = acc + w_self.float()[:, None] * xf
+    return acc.to(x.dtype)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import MorphNoise
+from repro_torch.sparse import SparseDraws
 
 
 def _tensor(x):
@@ -60,3 +61,32 @@ def stream_take(seed, rnd, sizes, batch):
                                int(size))
             for i, size in enumerate(sizes)]
     return _tensor(jnp.stack(rows))
+
+
+@functools.partial(jax.jit, static_argnums=(0, 2, 3, 4))
+def _sparse_draws(seed, rnd, n, k, c):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), rnd)
+    gossip = random = None
+    if c < n:
+        n_gossip = (c - k) // 2
+        gossip = jax.random.randint(jax.random.fold_in(key, 3),
+                                    (n, n_gossip), 0, k * k)
+        random = jax.random.randint(jax.random.fold_in(key, 4),
+                                    (n, c - k - n_gossip), 0, n,
+                                    dtype=jnp.int32)
+    keys = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.fold_in(key, 5), jnp.arange(n, dtype=jnp.uint32))
+    select = jax.vmap(lambda kk: jax.random.gumbel(kk, (c,), jnp.float32))(
+        keys)
+    return gossip, random, select
+
+
+def sparse_draws(seed, rnd, n, k, c):
+    """The reference sparse strategies' draws for round ``rnd``
+    (``sparse/discovery.py``: gossip picks, random peers and the per-node
+    selection Gumbel noise, keyed ``fold_in(round_key(seed, rnd), 3 / 4 /
+    5)``, the last folded again with the node index)."""
+    gossip, random, select = _sparse_draws(seed, rnd, n, k, c)
+    return SparseDraws(None if gossip is None else _tensor(gossip),
+                       None if random is None else _tensor(random),
+                       _tensor(select))

@@ -9,18 +9,23 @@ Absolute tolerances are ``tests/test_kernels.py``'s f32 ones: cosine
 (f32 sums of D products in other orders).  bf16 inputs convert to f32
 exactly and both sides sum in f32, so bf16 keeps those; the mixes round
 their f32 sums to bf16, so they also allow one bf16 ulp of the value
-(``rtol`` 2^-7).
+(``rtol`` 2^-7).  The CSR mix keeps ``tests/test_kernels.py``'s sparse
+tolerance, 1e-4·√(k+1), with the same bf16 ulp.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (graph_mix, graph_mix_masked,  # noqa: E402
-                                 gram_matrix, ops, ref)
+                                 graph_mix_sparse, gram_matrix, ops, ref)
 
+# n = 129, 200 and 1000 take the dense mixes' tiled route (W past 128).
 SHAPES = [(4, 64), (8, 1000), (16, 8192), (33, 300), (16, 8192 + 7),
           (7, 129), (50, 1000), (50, 51200), (50, 10), (100, 4099),
-          (128, 300)]
+          (128, 300), (129, 129), (200, 1000), (1000, 4099)]
+SPARSE_SHAPES = [(8, 256), (33, 300), (7, 129), (50, 1000), (16, 8192 + 7)]
+SPARSE_CASES = [(n, d, k) for n, d in SPARSE_SHAPES for k in (2, 3, 8)
+                if k < n] + [(1000, 51200, 3)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -64,7 +69,36 @@ def test_cuda_kernels_match_plain(cuda_device, n, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,d", [(1, 8, 512), (3, 10, 300), (77, 128, 129)])
+@pytest.mark.parametrize("n,d,k", SPARSE_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_graph_mix_sparse_matches_plain(cuda_device, n, d, k, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d + k)
+    x = torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype])
+    # k distinct non-self senders per row; some slots invalid (parked).
+    scores = torch.rand((n, n), generator=gen, device=cuda_device)
+    scores.fill_diagonal_(-1.0)
+    idx = scores.topk(k, dim=1).indices
+    w = torch.rand((n, k), generator=gen, device=cuda_device)
+    w_self = torch.rand((n,), generator=gen, device=cuda_device)
+    mask = torch.rand((n, k), generator=gen, device=cuda_device) < 0.9
+    before = graph_mix_sparse.launches
+    got = ops.mix_sparse(idx, w, w_self, x, mask=mask)
+    rows = torch.arange(n, device=cuda_device)[:, None]
+    want = ref.graph_mix_sparse(torch.where(mask, idx, rows),
+                                torch.where(mask, w, 0.0), w_self, x)
+    torch.cuda.synchronize()
+    assert graph_mix_sparse.launches == before + 1
+    assert got.dtype == x.dtype
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=1e-4 * (k + 1) ** 0.5, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(1, 8, 512), (3, 10, 300), (77, 128, 129),
+                                   (129, 200, 300), (1000, 130, 64),
+                                   (5, 1000, 2400)])
 def test_cuda_graph_mix_rectangular(cuda_device, m, n, d):
     gen = torch.Generator(device=cuda_device).manual_seed(m + n + d)
     x = torch.randn((n, d), generator=gen, device=cuda_device)
@@ -78,9 +112,15 @@ def test_cuda_graph_mix_rectangular(cuda_device, m, n, d):
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.randn((129, 64), device=cuda_device)
-    with pytest.raises(ValueError, match="at most 128"):
-        graph_mix_masked(torch.zeros((129, 129), dtype=torch.bool,
-                                     device=cuda_device), x)
+    # 129 nodes: once refused, now the tiled route, held to the plain mix.
+    edges = torch.rand((129, 129), device=cuda_device) < 0.05
+    torch.testing.assert_close(graph_mix_masked(edges, x),
+                               ref.graph_mix_masked(edges, x),
+                               atol=1e-4, rtol=0)
+    idx = torch.zeros((129, 2), dtype=torch.int64, device=cuda_device)
+    w = torch.zeros((129, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        graph_mix_sparse(idx, w, w[:, 0].contiguous(), x)
     with pytest.raises(ValueError, match="contiguous"):
         gram_matrix(torch.randn((64, 8), device=cuda_device).T)
     with pytest.raises(ValueError, match="dtype"):

@@ -18,9 +18,12 @@ from repro_torch.data import (DeviceDataStream,              # noqa: E402
                               make_image_classification)
 from repro_torch.dlrt import DecentralizedRunner, RunnerConfig  # noqa: E402
 from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
-                                 graph_mix_masked, gram_matrix, ref)
+                                 graph_mix_masked, graph_mix_sparse,
+                                 gram_matrix, ref)
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
 from repro_torch.optim import sgd                            # noqa: E402
+from repro_torch.sparse import (SparseEpidemicStrategy,      # noqa: E402
+                                SparseMorphStrategy)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -46,7 +49,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 ENTRY_POINTS = ("runner", "morph", "static", "el-oracle",
-                "fully-connected", "stream")
+                "fully-connected", "stream", "sparse-morph",
+                "sparse-epidemic")
 
 
 def _make_entry_point(name):
@@ -63,6 +67,8 @@ def _make_entry_point(name):
         "el-oracle": lambda: InGraphEpidemicStrategy(n=4, k=2),
         "fully-connected": lambda: InGraphFullyConnectedStrategy(n=4),
         "stream": lambda: DeviceDataStream(ds, parts, 4),
+        "sparse-morph": lambda: SparseMorphStrategy(n=4, k=2),
+        "sparse-epidemic": lambda: SparseEpidemicStrategy(n=4, k=2),
     }[name]
 
 
@@ -78,7 +84,8 @@ def test_entry_points_default_to_the_card(name):
 def plain_calls(monkeypatch):
     """Counts calls of the plain versions."""
     calls = []
-    for fn in ("gram_matrix", "graph_mix", "graph_mix_masked"):
+    for fn in ("gram_matrix", "graph_mix", "graph_mix_masked",
+               "graph_mix_sparse"):
         orig = getattr(ref, fn)
         monkeypatch.setattr(ref, fn, lambda *a, _o=orig, _f=fn:
                             calls.append(_f) or _o(*a))
@@ -91,8 +98,12 @@ def _cuda_path_calls():
     x = torch.empty((5, 70), device="meta")
     w = torch.empty((5, 5), device="meta")
     e = torch.empty((5, 5), dtype=torch.bool, device="meta")
+    idx = torch.empty((5, 3), dtype=torch.int32, device="meta")
+    ws = torch.empty((5, 3), device="meta")
+    w_self = torch.empty((5,), device="meta")
     return [(gram_matrix, (x,)), (graph_mix, (w, x)),
-            (graph_mix_masked, (e, x))]
+            (graph_mix_masked, (e, x)),
+            (graph_mix_sparse, (idx, ws, w_self, x))]
 
 
 def test_kernel_path_raises_instead_of_falling_back(plain_calls):
@@ -116,7 +127,8 @@ def test_kernel_path_launches_and_counts(plain_calls, monkeypatch):
     before = [w.launches for w, _ in _cuda_path_calls()]
     for wrapper, args in _cuda_path_calls():
         wrapper(*args)
-    assert launched == ["gram_f32", "graph_mix_f32", "graph_mix_masked_f32"]
+    assert launched == ["gram_f32", "graph_mix_f32", "graph_mix_masked_f32",
+                        "graph_mix_sparse_f32"]
     assert [w.launches - b for (w, _), b in
-            zip(_cuda_path_calls(), before)] == [1, 1, 1]
+            zip(_cuda_path_calls(), before)] == [1, 1, 1, 1]
     assert plain_calls == []
