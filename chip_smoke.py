@@ -7,15 +7,19 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 
 1. a CUDA device is present; print ``nvidia-smi``'s name and power limit;
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once);
+   (four sources, one ``nvcc`` each, all at once);
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (n = 50; D = 10, 32, 64, 2400, 40960, 51200) and awkward
    ones (n = 7, 33; D = 129, 8199), f32 and bf16; the dense mixes also at
    n = 200 and 1000; the CSR kernel at n = 50 and 1000 over the same D
    with k = 3 and 8, at the awkward shapes, and at k = n - 1 with invalid
-   slots; each kernel timed at the largest main-path leaf (CUDA events,
-   inputs rotated through more than the 50 MB L2 so every call reads from
-   device memory), the CSR kernel at n = 50 and 1000;
+   slots; the selective scan at ``tests/test_kernels.py``'s shapes, a
+   ragged d_inner, L = 1 and 37 and the served shape (2 x 2,048 tokens,
+   d_inner 16,384, d_state 16), in f32, bf16 and apply_mamba's serving
+   mix, and chained halves against one call; each kernel timed at the
+   largest main-path shape (CUDA events, inputs rotated through more than
+   the 50 MB L2 so every call reads from device memory), the CSR kernel at
+   n = 50 and 1000;
 4. the main path at full width: GN-LeNet CIFAR-10 (width 32, 94,858
    parameters per node), n = 50, fig3 settings (k = 3, delta_r = 5,
    beta = 500, Dirichlet 0.1, batch 8, lr 0.05) on a ``DeviceDataStream``,
@@ -25,7 +29,9 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 5. where a Morph round's time goes at that size (host clock around each
    stage, synchronised);
 6. the same tiny runs on the card and on the CPU agree (edges identical,
-   parameters within 1e-4), the two sparse strategies included;
+   parameters within 1e-4), the two sparse strategies included; reduced
+   Jamba without experts (f32) gives the CPU's logits within 1e-4 and its
+   greedy tokens;
 7. the sparse (CSR) engine at full width through
    ``DecentralizedRunner(engine="sparse")``: sparse Morph and sparse
    Epidemic at n = 50 (the fig3 ``morph-sparse`` row), sparse Morph at
@@ -34,12 +40,27 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    CSR kernel, Morph exactly as the dense engine, bitwise); launch counts
    prove each run went through the CSR kernel and nothing else;
 8. where a sparse Morph round's time goes at n = 1000;
+9. the model zoo's serving path at full width: Jamba-1.5-Large at its
+   published widths, one period (7 Mamba layers, 1 attention), dense
+   SwiGLU in place of the experts, bf16, drawn on the card: (a) prefill of
+   two 2,048-token prompts through ``forward(last_only=True)``, exactly
+   7 scan launches each; (b) four requests served as
+   ``examples/serve_decode.py`` does (64-token prompts token by token
+   through ``decode_step``, then 32 greedy tokens on a linear cache of
+   96), no scan launch; ``greedy_generate`` gives the same tokens; (c) the
+   forward's last logits against decode's on the same prompts; (d) where a
+   prefill's time goes; (e) a decode step's transient device memory does
+   not take a copy of the cache as the cache grows from 2,048 to 16,384
+   slots, and the card's LM head (a bf16 product with f32 output) agrees
+   with the f32 product of the same values;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
 cuDNN convolutions and matmuls in every phase, so the card computes in
-full f32 like the plain versions it is compared with.
+full f32 like the plain versions it is compared with, and bf16 products
+reduce in f32.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -53,6 +74,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # f32 outside the tensor cores, same source
 BF16_ULP = 2.0 ** -7             # one bf16 ulp, relative to the value
+SFU_PER_CLOCK_PER_SM = 16        # exp results (CUDA C Programming Guide,
+                                 # throughput table, compute capability 9.0)
+SCAN_TOL = (1e-5, 1e-5)          # selective scan (atol, rtol); see tolerance
 
 
 def tolerance(name, n, bf16, k=None):
@@ -65,7 +89,16 @@ def tolerance(name, n, bf16, k=None):
     sides sum in f32, so bf16 keeps that ``atol``; the mixes then round
     their f32 sums to bf16, where two sums a hair apart can land one bf16
     ulp apart, hence ``rtol`` = one ulp for them.  The Gram output is f32.
+
+    The selective scan keeps ``tests/test_kernels.py``'s f32 atol of 1e-5
+    and adds an rtol of 1e-5 (:data:`SCAN_TOL`), in f32 and bf16 alike:
+    kernel and plain version round the same products and sums in the same
+    order and differ only where their ``exp`` does; a one-ulp ``exp``
+    difference moves ``h``, and ``y`` grows with L where ``dt a`` is near
+    0, so the bound is relative there.  Its outputs are f32.
     """
+    if name == "selective_scan":
+        return SCAN_TOL
     atol = {"gram_matrix": 5e-5, "graph_mix": 1e-4 * math.sqrt(n),
             "graph_mix_masked": 1e-4,
             "graph_mix_sparse": 1e-4 * math.sqrt((k or 0) + 1)}[name]
@@ -190,10 +223,10 @@ def check_sparse(dev, worst):
         f"slots); worst {json.dumps(worst['graph_mix_sparse'])}")
 
 
-def time_ms(fn, args_list, reps=30):
+def time_ms(fn, args_list, reps=30, warmup=3):
     """Mean ms per call over ``reps`` calls cycling through ``args_list``
     (distinct buffers, more bytes than L2 holds), after a warm-up."""
-    for args in args_list[:3]:
+    for args in args_list[:warmup]:
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -300,6 +333,114 @@ def time_sparse(dev):
         log(f"phase 3: graph_mix_sparse at n={n} D={d} k={k} f32: "
             f"{json.dumps(t)}")
     return out
+
+
+# Phase 3, the selective scan: (batch, L, d_inner, d_state) of
+# tests/test_kernels.py's four, a ragged d_inner, one step, an L that is no
+# multiple of the kernel's 32-step tile, and the served shape (two prompts
+# of 2,048 tokens through Jamba's d_inner 16,384 and d_state 16).
+SCAN_SHAPES = [(2, 16, 64, 8), (1, 32, 128, 16), (3, 8, 96, 4),
+               (2, 64, 256, 16), (2, 16, 100, 8), (2, 1, 64, 16),
+               (1, 37, 96, 16)]
+SERVED_SCAN = (2, 2048, 16384, 16)
+# dtypes of (x, dt, b and c): all f32, all bf16, and what apply_mamba
+# passes when serving bf16 (x, b, c bf16; dt f32 after the softplus).
+SCAN_TYPES = {"f32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
+              "serving": (torch.bfloat16, torch.float32, torch.bfloat16)}
+
+
+def scan_inputs(dev, gen, bt, L, di, ds, types):
+    """x, dt (post-softplus), b, c, a = -exp(.) and h0 on the card."""
+    tx, tdt, tbc = types
+    x = torch.randn((bt, L, di), generator=gen, device=dev).to(tx)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (bt, L, di), generator=gen, device=dev)).to(tdt)
+    b = (torch.randn((bt, L, ds), generator=gen, device=dev) * 0.5).to(tbc)
+    c = (torch.randn((bt, L, ds), generator=gen, device=dev) * 0.5).to(tbc)
+    a = -torch.exp(torch.randn((di, ds), generator=gen, device=dev) * 0.3)
+    h0 = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
+    return x, dt, b, c, a, h0
+
+
+def check_scan(dev, worst):
+    """The scan kernel against its plain version at every phase-3 shape and
+    type, and two chained halves against one call at the served shape."""
+    from repro_torch.kernels import ref, selective_scan
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst["selective_scan"] = {"float32": 0.0, "bfloat16": 0.0}
+    count = 0
+    for shape in SCAN_SHAPES + [SERVED_SCAN]:
+        for label, types in SCAN_TYPES.items():
+            args = scan_inputs(dev, gen, *shape, types)
+            key = torch.float32 if label == "f32" else torch.bfloat16
+            (y, h), (yr, hr) = selective_scan(*args), ref.selective_scan(*args)
+            for got, want in ((y, yr), (h, hr)):
+                if got.dtype != torch.float32:
+                    raise AssertionError(f"selective_scan returned "
+                                         f"{got.dtype}, not f32")
+                compare("selective_scan", got, want, shape[0], key,
+                        f"{shape} {label}", worst)
+            count += 1
+    x, dt, b, c, a, h0 = scan_inputs(dev, gen, *SERVED_SCAN,
+                                     SCAN_TYPES["serving"])
+    y, h = selective_scan(x, dt, b, c, a, h0)
+    cut = SERVED_SCAN[1] // 2
+    y1, h1 = selective_scan(*(t[:, :cut].contiguous()
+                              for t in (x, dt, b, c)), a, h0)
+    y2, h2 = selective_scan(*(t[:, cut:].contiguous()
+                              for t in (x, dt, b, c)), a, h1)
+    compare("selective_scan", torch.cat([y1, y2], 1), y, 2, torch.bfloat16,
+            "chained halves (y)", worst)
+    compare("selective_scan", h2, h, 2, torch.bfloat16,
+            "chained halves (h)", worst)
+    log(f"phase 3: {count} scan kernel/plain comparisons within (atol, "
+        f"rtol) {SCAN_TOL} (shapes {SCAN_SHAPES + [SERVED_SCAN]}, types "
+        f"{list(SCAN_TYPES)}), chained halves at {SERVED_SCAN} equal one "
+        f"call; worst {json.dumps(worst['selective_scan'])}")
+
+
+def sm_clock_hz():
+    """The SM clock ``nvidia-smi`` reports as the card's maximum."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def time_scan(dev):
+    """The scan kernel at the served shape with apply_mamba's types, inputs
+    rotated through more than L2; the plain version (a loop of PyTorch
+    operations over L, no yardstick) beside it.  No one PyTorch call
+    computes the S6 recurrence, so there is no library time."""
+    from repro_torch.kernels import ref, selective_scan
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bt, L, di, ds = SERVED_SCAN
+    sets = [scan_inputs(dev, gen, *SERVED_SCAN, SCAN_TYPES["serving"])
+            for _ in range(3)]
+    t = {"ms": time_ms(selective_scan, sets),
+         "plain_ms": time_ms(ref.selective_scan, sets, reps=2, warmup=1),
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the S6 "
+                    "recurrence (a scan with an input-dependent decay)"}
+    # Each input read once, y and the last h written once (f32).
+    nbytes = sum(v.numel() * v.element_size() for v in sets[0]) \
+        + bt * L * di * 4 + bt * di * ds * 4
+    exps = bt * L * di * ds
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "exp": exps / (SFU_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+             # per (t, d, s): dt a, da h, (dt x) b, +, h c, + ; dt x per (t, d)
+             "f32": (6 * exps + bt * L * di) / F32_FLOPS * 1e3}
+    t["bound_ms"] = max(times.values())
+    t["bound_by"] = "bytes" if t["bound_ms"] == times["bytes"] \
+        else "operations"
+    t["bound_parts_ms"] = times
+    t["sm_clock_mhz"], t["sms"] = clock / 1e6, sms
+    t["shape"] = [bt, L, di, ds, "x bf16, dt f32, b/c bf16"]
+    log(f"phase 3: selective_scan at {SERVED_SCAN}: {json.dumps(t)}")
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +792,318 @@ def reference_check(dev):
             f"params max |err| {err:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 9: the model zoo's serving path (Jamba without experts).
+# ---------------------------------------------------------------------------
+
+PROMPT_LEN, PREFILLS = 2048, 3             # phase 9(a): 2 prompts each
+REQUESTS, REQUEST_LEN, NEW_TOKENS = 4, 64, 32   # phase 9(b), (c)
+# Phase 9(c): prefill against decode logits.  In bf16 the two paths take
+# products of other shapes (M = 256 rows against M = 4), so an f32 sum a
+# hair apart now and then rounds to another bf16 value; each such flip
+# (one bf16 ulp, 2^-8) travels through the later layers.  On the CPU at
+# this configuration's widths cut to d_model 512, 1024 and 2048 the largest
+# logit difference was 2.6 to 6.1 bf16 ulps of the largest logit, growing
+# 1.3 to 1.55 times per doubling of width, which put d_model 8192 at
+# 10 to 21.  Two runs on the H100 read 5.6 ulps (the same bits twice), so
+# the bf16 limit is that reading with room for decode's blockwise
+# attention and the LM head's cuBLAS product, which sum in other orders:
+# 16 ulps (2^-4) of the largest logit.  The same weights in f32 remove
+# the rounding: there the two paths must agree within
+# tests/test_arch_smoke.py's prefill/decode tolerance.
+PREFILL_DECODE_BF16 = 16 * 2.0 ** -8
+PREFILL_DECODE_F32 = dict(atol=2e-4, rtol=1e-3)
+# Phase 9(e): cache lengths, and the most a decode step's transient
+# memory may grow per (request, query head, slot) between them: the f32
+# scores, their softmax and the bf16 probabilities of one attention layer
+# take 10 bytes; a copy of one layer's K and V would take
+# 2 x 2 x 8 x 128 / 64 = 64.
+DECODE_CACHE_LENS = (2048, 16384)
+DECODE_TRANSIENT_PER_SLOT = 16
+# Phase 9(e): the card's LM head against the f32 product of the same bf16
+# values: both sum 8,192 exact products in f32, in other orders.
+LM_HEAD_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def jamba_serving_config():
+    """Jamba-1.5-Large at its published widths, one whole period of 8
+    layers (7 Mamba, attention at index 4), and every MoE layer Jamba's
+    dense SwiGLU at d_ff 24,576: four MoE layers of 16 experts do not fit
+    one card (ROADMAP queue 1 item 16 ports MoE on deepseek-moe-16b)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        cfg, num_layers=len(cfg.pattern), moe=None,
+        pattern=tuple(dataclasses.replace(s, moe=False) for s in cfg.pattern))
+
+
+def zoo_reference_check(dev):
+    """Reduced Jamba without experts (f32) on the card and on the CPU from
+    the same parameters and prompts: logits within 1e-4, greedy tokens
+    identical."""
+    from repro_torch import kernels
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = jamba_serving_config().reduced()
+    cpu = model.init_params(cfg, 0, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(6))
+    kernels.reset_launches()
+    got, _ = model.forward(gpu, {"tokens": tokens.to(dev)}, cfg)
+    launches = launch_counts()["selective_scan"]
+    want, _ = model.forward(cpu, {"tokens": tokens}, cfg)
+    err = float((got.cpu() - want).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"reduced jamba: card vs CPU logits {err} > "
+                             f"1e-4")
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern)
+    if launches != n_mamba:
+        raise AssertionError(f"reduced jamba forward: {launches} scan "
+                             f"launches, not {n_mamba}")
+    toks_gpu = model.greedy_generate(gpu, cfg, tokens[:, :8].to(dev), 8)
+    toks_cpu = model.greedy_generate(cpu, cfg, tokens[:, :8], 8)
+    if not torch.equal(toks_gpu.cpu(), toks_cpu):
+        raise AssertionError(f"reduced jamba: greedy tokens differ, card "
+                             f"{toks_gpu.tolist()} CPU {toks_cpu.tolist()}")
+    log(f"phase 6: reduced jamba (no experts, f32) card == CPU: logits max "
+        f"|err| {err:.3g} over [2, 32, {cfg.vocab_size}], {launches} scan "
+        f"launches in the card's forward, 8 greedy tokens identical")
+
+
+def synced(fn, *args, **kw):
+    """``fn``'s result and its ms on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def prefill_breakdown(params, tokens, cfg):
+    """Phase 9(d): one prefill with each stage synchronised on the host
+    clock (the wrappers are put back afterwards)."""
+    from repro_torch.models import (attention, layers, mamba, model,
+                                    transformer)
+    stages = dict.fromkeys(("mamba", "scan", "attention", "mlp", "norms",
+                            "lm_head"), 0.0)
+    patched = [(mamba, "apply_mamba", "mamba"),
+               (mamba, "selective_scan", "scan"),
+               (attention, "self_attention", "attention"),
+               (layers, "apply_mlp", "mlp"), (layers, "apply_norm", "norms"),
+               (transformer, "_lm_logits", "lm_head")]
+    originals = [getattr(mod, name) for mod, name, _ in patched]
+
+    def timed(fn, stage):
+        def run(*args, **kw):
+            out, ms = synced(fn, *args, **kw)
+            stages[stage] += ms
+            return out
+        return run
+
+    try:
+        for (mod, name, stage), fn in zip(patched, originals):
+            setattr(mod, name, timed(fn, stage))
+        _, total = synced(model.forward, params, {"tokens": tokens}, cfg,
+                          last_only=True)
+    finally:
+        for (mod, name, _), fn in zip(patched, originals):
+            setattr(mod, name, fn)
+    out = {"total": total,
+           "mamba_projections_conv_gates": stages["mamba"] - stages["scan"],
+           "scan_kernel": stages["scan"], "attention": stages["attention"],
+           "mlps": stages["mlp"], "norms": stages["norms"],
+           "lm_head": stages["lm_head"]}
+    out["other"] = total - sum(stages.values()) + stages["scan"]
+    return out
+
+
+def prefill_vs_decode(a, b):
+    return {"max_abs_diff": float((a - b).abs().max()),
+            "max_abs_logit": float(a.abs().max()),
+            "same_argmax": int((a.argmax(-1) == b.argmax(-1)).sum())}
+
+
+def decode_memory(params, cfg, dev, gen):
+    """Phase 9(e): one decode step's transient device memory (its peak
+    above what was allocated before it) at two cache lengths."""
+    from repro_torch.models import model
+    tok = torch.randint(0, cfg.vocab_size, (REQUESTS, 1), generator=gen,
+                        device=dev)
+    out = {}
+    for max_len in DECODE_CACHE_LENS:
+        cache = model.init_cache(cfg, REQUESTS, max_len, device=dev)
+        model.decode_step(params, cache, tok, 0, cfg)          # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = synced(model.decode_step, params, cache, tok, max_len - 1,
+                       cfg)
+        out[max_len] = {"transient_bytes":
+                        torch.cuda.max_memory_allocated() - base,
+                        "step_ms": ms}
+        del cache
+    lo, hi = DECODE_CACHE_LENS
+    grew = out[hi]["transient_bytes"] - out[lo]["transient_bytes"]
+    allowed = (hi - lo) * REQUESTS * cfg.num_heads \
+        * DECODE_TRANSIENT_PER_SLOT
+    return out, grew, allowed
+
+
+def lm_head_check(params, cfg, dev, gen):
+    """Phase 9(e): ``_lm_logits`` on the card (bf16 product, f32 output)
+    against the f32 product of the same bf16 values."""
+    from repro_torch.models import transformer
+    x = torch.randn((REQUESTS, 1, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    got = transformer._lm_logits(params, x, cfg)
+    want = x.float() @ params["lm_head"]["w"].float()
+    torch.testing.assert_close(got, want, **LM_HEAD_TOL)
+    return float((got - want).abs().max())
+
+
+def serve_jamba(dev):
+    """Phase 9: the serving path at full width.  Returns the scan kernel's
+    launches over 9(a)'s prefills, the main path's run."""
+    from repro_torch import kernels
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = jamba_serving_config()
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern)
+    di = cfg.ssm.expand * cfg.d_model
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced(model.init_params, cfg, 0, device=dev)
+    count = model.param_count(params)
+    if count != cfg.param_count() + n_mamba * 2 * di + cfg.d_model:
+        raise AssertionError(f"jamba: {count} parameters")
+    log(f"phase 9: {cfg.name} one period, no experts, {cfg.param_dtype}: "
+        f"{count} "
+        f"parameters, {model.param_bytes(params)} bytes, drawn on the card "
+        f"in {init_ms:.1f} ms")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    want = dict.fromkeys(launch_counts(), 0)
+
+    # (a) prefill: two prompts of 2,048 tokens, last-position logits.
+    prompts = torch.randint(0, cfg.vocab_size, (2, PROMPT_LEN),
+                            generator=gen, device=dev)
+    model.forward(params, {"tokens": prompts}, cfg, last_only=True)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    prefill_ms = []
+    for _ in range(PREFILLS):
+        (logits, _), ms = synced(model.forward, params, {"tokens": prompts},
+                                 cfg, last_only=True)
+        prefill_ms.append(ms)
+    got = launch_counts()
+    if got != dict(want, selective_scan=n_mamba * PREFILLS):
+        raise AssertionError(f"prefill launches {got}: want {n_mamba} scan "
+                             f"launches per prefill and nothing else")
+    scan_launches = got["selective_scan"]
+    if logits.shape != (2, 1, cfg.vocab_size) \
+            or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {logits.shape} "
+                             f"{logits.dtype}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    prefill = {"ms_per_prefill": sum(prefill_ms) / PREFILLS,
+               "ms_each": prefill_ms, "prompts": 2, "prompt_len": PROMPT_LEN,
+               "tokens_per_s": 2 * PROMPT_LEN / (sum(prefill_ms) / PREFILLS)
+               * 1e3, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": got}
+    log(f"phase 9(a): prefill 2 x {PROMPT_LEN} tokens (forward, last "
+        f"logits): {json.dumps(prefill)}")
+
+    # (b) serving as examples/serve_decode.py: prompts fed token by token
+    # through the cache, then greedy tokens, on a linear cache of 96.
+    requests = torch.randint(0, cfg.vocab_size, (REQUESTS, REQUEST_LEN),
+                             generator=gen, device=dev)
+    cache = model.init_cache(cfg, REQUESTS, REQUEST_LEN + NEW_TOKENS,
+                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, out = [], []
+    for t in range(REQUEST_LEN + NEW_TOKENS):
+        tok = requests[:, t:t + 1] if t < REQUEST_LEN \
+            else logits.argmax(-1)
+        if t >= REQUEST_LEN:
+            out.append(tok[:, 0])
+        (logits, cache), ms = synced(model.decode_step, params, cache, tok,
+                                     t, cfg)
+        step_ms.append(ms)
+        if t == REQUEST_LEN - 1:
+            after_prompt = logits
+    got = launch_counts()
+    if got != want:
+        raise AssertionError(f"decode launches {got}: want none")
+    tokens = torch.stack(out, dim=1)
+    if tokens.shape != (REQUESTS, NEW_TOKENS) or not torch.isfinite(
+            logits).all() or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"decode: tokens {tokens.shape}, logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    generated = model.greedy_generate(params, cfg, requests, NEW_TOKENS)
+    if not torch.equal(generated, tokens):
+        raise AssertionError("greedy_generate's tokens differ from the "
+                             "decode loop's")
+    decode = {"ms_per_step": sum(step_ms[1:]) / (len(step_ms) - 1),
+              "first_step_ms": step_ms[0], "steps": len(step_ms),
+              "requests": REQUESTS, "cache_len": REQUEST_LEN + NEW_TOKENS,
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "launches": got, "first_tokens": tokens[:, :6].tolist()}
+    log(f"phase 9(b): serving {REQUESTS} requests, {REQUEST_LEN}-token "
+        f"prompts token by token then {NEW_TOKENS} greedy tokens: "
+        f"{json.dumps(decode)}; greedy_generate gives the same tokens")
+
+    # (c) prefill against decode on the same prompts: in bf16, and with
+    # the same weights in f32.
+    kernels.reset_launches()
+    fwd, _ = model.forward(params, {"tokens": requests}, cfg, last_only=True)
+    got = launch_counts()
+    if got != dict(want, selective_scan=n_mamba):
+        raise AssertionError(f"prefill (c) launches {got}")
+    versus = {"bf16": prefill_vs_decode(fwd, after_prompt)}
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    fwd32, _ = model.forward(params32, {"tokens": requests}, f32,
+                             last_only=True)
+    cache = model.init_cache(f32, REQUESTS, REQUEST_LEN, device=dev)
+    for t in range(REQUEST_LEN):
+        dec32, cache = model.decode_step(params32, cache,
+                                         requests[:, t:t + 1], t, f32)
+    del params32, cache
+    versus["f32"] = prefill_vs_decode(fwd32, dec32)
+    versus["bf16_prefill_vs_f32"] = prefill_vs_decode(fwd, fwd32)
+    versus["bf16_decode_vs_f32"] = prefill_vs_decode(after_prompt, dec32)
+    log(f"phase 9(c): last logits over {REQUESTS} x {REQUEST_LEN} tokens, "
+        f"prefill vs decode (and each bf16 path vs the f32 one): "
+        f"{json.dumps(versus)}")
+    if not versus["bf16"]["max_abs_diff"] <= \
+            PREFILL_DECODE_BF16 * versus["bf16"]["max_abs_logit"]:
+        raise AssertionError(f"bf16 prefill vs decode beyond "
+                             f"{PREFILL_DECODE_BF16} of the largest logit")
+    torch.testing.assert_close(dec32, fwd32, **PREFILL_DECODE_F32)
+
+    # (d) where a prefill's time goes.
+    stages = prefill_breakdown(params, prompts, cfg)
+    log(f"phase 9(d): prefill stages, ms (host clock, synchronised): "
+        f"{json.dumps(stages)}")
+
+    # (e) decode's memory against the cache's length, and the LM head.
+    memory, grew, allowed = decode_memory(params, cfg, dev, gen)
+    head_err = lm_head_check(params, cfg, dev, gen)
+    log(f"phase 9(e): decode step at cache lengths {DECODE_CACHE_LENS}: "
+        f"{json.dumps(memory)}; transient grew {grew} bytes (at most "
+        f"{allowed}); LM head on the card vs the f32 product max |err| "
+        f"{head_err:.3g}")
+    if not grew <= allowed:
+        raise AssertionError(f"decode step's transient memory grew {grew} "
+                             f"bytes with the cache, more than {allowed}")
+    return scan_launches, dict(prefill=prefill, decode=decode,
+                               stages=stages, prefill_vs_decode=versus,
+                               decode_memory=memory)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -661,6 +1114,9 @@ def main():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products reduce their split-K partial sums in f32, as the
+    # reference's do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     card = card_line()
     log(f"phase 1: {card}; torch {torch.__version__} cuda "
@@ -677,15 +1133,19 @@ def main():
 
     worst = check_kernels(dev)
     check_sparse(dev, worst)
+    check_scan(dev, worst)
     times = time_kernels(dev)
     sparse_times = time_sparse(dev)
+    times["selective_scan"] = time_scan(dev)
     counts = main_path(dev)
     morph_breakdown(dev)
     reference_check(dev)
+    zoo_reference_check(dev)
     counts["graph_mix_sparse"] = sparse_path(dev)
     sparse_breakdown(dev)
     times["graph_mix_sparse"] = dict(sparse_times[LARGE_N],
                                      at_n50=sparse_times[MAIN_N])
+    counts["selective_scan"], _ = serve_jamba(dev)
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
                                "pairwise_cosine.cu",
@@ -698,11 +1158,14 @@ def main():
                "graph_mix_sparse": ("src/repro_torch/kernels/csrc/"
                                     "graph_mix_sparse.cu",
                                     "src/repro/kernels/graph_mix_sparse.py"
-                                    ":78")}
+                                    ":78"),
+               "selective_scan": ("src/repro_torch/kernels/csrc/"
+                                  "selective_scan.cu",
+                                  "src/repro/kernels/selective_scan.py:75")}
     rows = []
     smallest_n = min(n for n, _ in AWKWARD)     # graph_mix's tightest atol
     for name in ("gram_matrix", "graph_mix_masked", "graph_mix",
-                 "graph_mix_sparse"):
+                 "graph_mix_sparse", "selective_scan"):
         t = times[name]
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
@@ -710,13 +1173,16 @@ def main():
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],
+            "tol_f32": dict(zip(("atol", "rtol"),
+                                tolerance(name, smallest_n, False, K))),
             "tol_bf16": dict(zip(("atol", "rtol"),
                                  tolerance(name, smallest_n, True, K))),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **{key: t[key] for key in ("matmul_ms", "library_max_abs_err",
-                                       "at_n50") if key in t},
+                                       "at_n50", "library", "bound_parts_ms",
+                                       "sm_clock_mhz") if key in t},
             "shape": t["shape"]}
         # ``max_err`` and ``kernel_ms`` are other names for the same two
         # readings, copied from them here so they cannot differ.

@@ -1,11 +1,14 @@
 """Hand-written Hopper kernels (``csrc/*.cu``) for the TPU kernels on the
-dense and sparse Morph paths, with their plain PyTorch versions
-(:mod:`.ref`) and the parameter-dict wrappers (:mod:`.ops`)."""
+dense and sparse Morph paths and on the model zoo's Mamba prefill, with
+their plain PyTorch versions (:mod:`.ref`) and the parameter-dict wrappers
+(:mod:`.ops`)."""
 from .graph_mix import graph_mix, graph_mix_masked
 from .graph_mix_sparse import graph_mix_sparse
 from .pairwise_cosine import gram_matrix
+from .selective_scan import selective_scan
 
-KERNELS = (gram_matrix, graph_mix, graph_mix_masked, graph_mix_sparse)
+KERNELS = (gram_matrix, graph_mix, graph_mix_masked, graph_mix_sparse,
+           selective_scan)
 
 
 def reset_launches() -> None:
@@ -15,4 +18,4 @@ def reset_launches() -> None:
 
 
 __all__ = ["KERNELS", "graph_mix", "graph_mix_masked", "graph_mix_sparse",
-           "gram_matrix", "reset_launches"]
+           "gram_matrix", "reset_launches", "selective_scan"]

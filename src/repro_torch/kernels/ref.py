@@ -48,3 +48,26 @@ def graph_mix_sparse(idx: torch.Tensor, w: torch.Tensor,
         acc = acc + w[:, s:s + 1].float() * xf[idx[:, s]]
     acc = acc + w_self.float()[:, None] * xf
     return acc.to(x.dtype)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
+    """The direct S6 recurrence (``repro.kernels.ref.selective_scan_ref``),
+    in f32: per step ``h = exp(dt a) h + (dt x) b`` and ``y_t = sum_s h c``.
+
+    ``x, dt [batch, L, di]``; ``b, c [batch, L, ds]``; ``a [di, ds]``;
+    ``h0 [batch, di, ds]`` -> ``(y [batch, L, di], h [batch, di, ds])``,
+    both f32.  Each product is rounded before its add and ``y`` sums the
+    states in state order, as the CUDA kernel does, so the two differ only
+    where their ``exp`` does.  No ``D x`` skip term (the caller adds it)."""
+    f32 = torch.float32
+    x, dt, b, c, a, h = (t.to(f32) for t in (x, dt, b, c, a, h0))
+    ys = []
+    for t in range(x.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a)                 # [bt, di, ds]
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        y = h[..., 0] * c[:, t, None, 0]
+        for s in range(1, h.shape[-1]):
+            y = y + h[..., s] * c[:, t, None, s]
+        ys.append(y)
+    return torch.stack(ys, dim=1), h

@@ -1,0 +1,132 @@
+"""Shared building blocks of the model zoo (pure functions over nested-dict
+parameters), the port of ``repro.models.layers``.
+
+Parameters keep the reference's names and layouts (``dense`` weights
+``[d_in, d_out]``, so ``x @ w``), so weights carried over with
+:func:`repro_torch.tree.params_from_jax` are a copy.  Initialisers draw
+from an explicit ``torch.Generator`` on the target device, with the
+reference's distributions (truncated normal at fan-in scale, embeddings at
+0.02); they cannot give ``jax.random``'s bits.  Compute follows ``x``'s
+dtype, so full configs run bf16 and the CPU tests f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _trunc_normal(gen: torch.Generator, shape, std: float, dtype):
+    """Standard normal truncated to [-2, 2], times ``std``: drawn in f32 on
+    the generator's device and cast to ``dtype`` there."""
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(std).to(dtype)
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0):
+    """Truncated normal at ``scale / sqrt(fan_in)``."""
+    return _trunc_normal(gen, shape, scale / math.sqrt(shape[0]), dtype)
+
+
+def dense_params(gen, d_in: int, d_out: int, dtype, bias: bool = False,
+                 scale: float = 1.0):
+    p = {"w": _dense_init(gen, (d_in, d_out), dtype, scale)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense(p, x, dtype=None):
+    """``x @ w`` with ``w`` cast to ``x``'s dtype (or ``dtype``)."""
+    y = x @ p["w"].to(dtype or x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+def norm_params(d: int, kind: str, dtype, device):
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def apply_norm(p, x, kind: str, eps: float = 1e-6):
+    """RMSNorm or LayerNorm computed in f32, cast back to ``x.dtype``."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings.
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs: SwiGLU / GELU / squared-ReLU.
+# ---------------------------------------------------------------------------
+
+def mlp_params(gen, d_model: int, d_ff: int, mlp_type: str, dtype):
+    if mlp_type == "swiglu":
+        return {"gate": dense_params(gen, d_model, d_ff, dtype),
+                "up": dense_params(gen, d_model, d_ff, dtype),
+                "down": dense_params(gen, d_ff, d_model, dtype)}
+    return {"up": dense_params(gen, d_model, d_ff, dtype),
+            "down": dense_params(gen, d_ff, d_model, dtype)}
+
+
+def apply_mlp(p, x, mlp_type: str):
+    if mlp_type == "swiglu":
+        h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    elif mlp_type == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh")
+    elif mlp_type == "sqrelu":
+        h = torch.square(torch.relu(dense(p["up"], x)))
+    else:
+        raise ValueError(mlp_type)
+    return dense(p["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings.
+# ---------------------------------------------------------------------------
+
+def embed_params(gen, vocab: int, d_model: int, dtype):
+    return {"table": _trunc_normal(gen, (vocab, d_model), 0.02, dtype)}
+
+
+def embed(p, tokens):
+    return p["table"][tokens]
+

@@ -1,0 +1,255 @@
+"""Architecture-agnostic transformer stack: the port of
+``repro.models.transformer``.
+
+A model is ``prefix blocks + (pattern blocks x num_periods) + head``, with
+the reference's parameter layout::
+
+  {"embed": ...,
+   "prefix": (block, ...),           # non-repeating leading blocks
+   "body": (block_stacked, ...),     # one entry per pattern position,
+                                     # each leaf stacked [num_periods, ...]
+   "final_norm": ..., "lm_head": ...}
+
+so weights carried over from the reference are a copy.  The reference's
+``lax.scan`` over periods is a loop here that indexes the stacked leaves.
+Caches mirror the layout, and decode updates them in place.  Ported:
+attention and Mamba mixers with dense MLPs (Jamba without experts, the
+dense llamas).  Not yet ported (ROADMAP queue 1 item 16), and refused
+with ``NotImplementedError`` rather than skipped: the RWKV mixer, MoE
+MLPs, Whisper's encoder, cross-attention and learned positions, and the
+stub modality frontends.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .. import resolve_device
+from ..tree import flatten, stack, tree_map, unflatten
+from . import attention, layers, mamba
+
+_WAITS = "not ported yet (ROADMAP queue 1 item 16)"
+
+
+def _dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def _check_supported(cfg):
+    """Refuse what the port does not run yet, rather than skip it."""
+    if cfg.encoder is not None or cfg.learned_pos:
+        raise NotImplementedError(f"{cfg.name}: the encoder, cross-attention "
+                                  f"and learned positions are {_WAITS}")
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} stub "
+                                  f"frontend is {_WAITS}")
+    for spec in cfg.prefix + cfg.pattern:
+        if spec.mixer == "rwkv":
+            raise NotImplementedError(f"{cfg.name}: the RWKV mixer is "
+                                      f"{_WAITS}")
+        if spec.moe:
+            raise NotImplementedError(f"{cfg.name}: MoE MLPs are {_WAITS}")
+
+
+def _index(tree, i: int):
+    """Period ``i`` of a period-stacked tree."""
+    return tree_map(lambda leaf: leaf[i], tree)
+
+
+def _stack(trees):
+    """Stack equal-structured trees on a new leading period axis (a view
+    when there is one period, so nothing is copied)."""
+    if len(trees) == 1:
+        return tree_map(lambda leaf: leaf.unsqueeze(0), trees[0])
+    return unflatten(stack([flatten(t) for t in trees]))
+
+
+# ---------------------------------------------------------------------------
+# Single block.
+# ---------------------------------------------------------------------------
+
+def block_params(gen, cfg, spec, dtype):
+    dev = gen.device
+    p: Dict[str, Any] = {
+        "norm1": layers.norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+        "norm2": layers.norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+    }
+    if spec.mixer == "attn":
+        p["mixer"] = attention.attn_params(gen, cfg, dtype)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba.mamba_params(gen, cfg, dtype)
+    else:
+        raise ValueError(spec.mixer)
+    p["mlp"] = layers.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                                 dtype)
+    return p
+
+
+def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None):
+    """Training/prefill forward through one block. Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
+    if spec.mixer == "attn":
+        mixed = attention.self_attention(p["mixer"], h, cfg,
+                                         positions=positions,
+                                         causal=causal, window=window)
+    else:
+        mixed = mamba.apply_mamba(p["mixer"], h, cfg)
+    x = x + mixed
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
+    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_type), aux
+
+
+# ---------------------------------------------------------------------------
+# Block decode (one token, the cache updated in place).
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg, spec, batch: int, max_len: int, dtype, device):
+    if spec.mixer == "attn":
+        return {"attn": attention.init_cache(cfg, batch, max_len, dtype,
+                                             device)}
+    return {"ssm": mamba.init_mamba_state(cfg, batch, dtype, device)}
+
+
+def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
+    """One-token decode through one block. Returns (x, cache), the cache
+    updated in place."""
+    h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
+    if spec.mixer == "attn":
+        mixed, _ = attention.decode_self_attention(
+            p["mixer"], h, cfg, cache["attn"], pos, window=window)
+    else:
+        mixed, _ = mamba.decode_mamba(p["mixer"], h, cfg, cache["ssm"])
+    x = x + mixed
+    h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
+    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_type), cache
+
+
+# ---------------------------------------------------------------------------
+# Full stack.
+# ---------------------------------------------------------------------------
+
+def init_params(cfg, seed: int = 0, device="cuda"):
+    """Random parameters in the reference's layout, drawn on ``device``
+    (the card unless the caller asks for the CPU) from a
+    ``torch.Generator`` seeded with ``seed``; each leaf is drawn in f32
+    and cast there, so a full-width model is never built on the host."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = _dtype(cfg.param_dtype)
+    p: Dict[str, Any] = {
+        "embed": layers.embed_params(gen, cfg.vocab_size, cfg.d_model,
+                                     dtype),
+        "final_norm": layers.norm_params(cfg.d_model, cfg.norm_type, dtype,
+                                         dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.dense_params(gen, cfg.d_model, cfg.vocab_size,
+                                           dtype)
+    if cfg.prefix:
+        p["prefix"] = tuple(block_params(gen, cfg, s, dtype)
+                            for s in cfg.prefix)
+    p["body"] = tuple(
+        _stack([block_params(gen, cfg, spec, dtype)
+                for _ in range(cfg.num_periods)])
+        for spec in cfg.pattern)
+    return p
+
+
+def _embed_inputs(p, batch, cfg):
+    """Token embedding. Returns (x, positions)."""
+    x = layers.embed(p["embed"], batch["tokens"])
+    b, s, _ = x.shape
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
+def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
+    """Full forward -> (logits [b, S, vocab] f32, aux_loss scalar).
+
+    ``window``: attention window; the sentinel "cfg" uses
+    ``cfg.sliding_window`` (None = full attention).  ``last_only``: logits
+    for the final position only (the serving prefill).
+    """
+    _check_supported(cfg)
+    if window == "cfg":
+        window = cfg.sliding_window
+    x, positions = _embed_inputs(p, batch, cfg)
+    x = x.to(_dtype(cfg.compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, spec in zip(p.get("prefix", ()), cfg.prefix):
+        x, a = apply_block(blk, x, cfg, spec, positions=positions,
+                           window=window)
+        aux = aux + a
+    for i in range(cfg.num_periods):
+        for blk, spec in zip(p["body"], cfg.pattern):
+            x, a = apply_block(_index(blk, i), x, cfg, spec,
+                               positions=positions, window=window)
+            aux = aux + a
+    if last_only:
+        x = x[:, -1:]
+    x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
+    return _lm_logits(p, x, cfg), aux
+
+
+def _lm_logits(p, x, cfg):
+    """Logits in f32 from the compute dtype's values, as the reference's
+    bf16 product with f32 output; a bf16 ``matmul`` would round them to
+    bf16.  On the card that is one cuBLAS product with an f32 output
+    (``out_dtype``) that reads the head as it lies.  The CPU has no such
+    product, so there both operands are upcast: products of bf16 values
+    are exact in f32, so the two differ only in summation order."""
+    cdtype = _dtype(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        w = p["embed"]["table"].T.to(cdtype)
+    else:
+        w = p["lm_head"]["w"].to(cdtype)
+    x2 = x.to(cdtype).reshape(-1, x.shape[-1])
+    if x2.is_cuda and cdtype != torch.float32:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Decode path.
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
+    """Decode cache on ``device`` (the card unless the caller asks for the
+    CPU): ``{"prefix": (...), "body": (...)}`` with body leaves stacked
+    ``[num_periods, ...]``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(dtype or cfg.param_dtype)
+    prefix = tuple(init_block_cache(cfg, s, batch, max_len, dtype, dev)
+                   for s in cfg.prefix)
+    body = tuple(
+        _stack([init_block_cache(cfg, spec, batch, max_len, dtype, dev)
+                for _ in range(cfg.num_periods)])
+        for spec in cfg.pattern)
+    return {"prefix": prefix, "body": body}
+
+
+def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg"):
+    """One-token decode. tokens: [b, 1] int; pos: the position.
+
+    Returns (logits [b, 1, vocab] f32, cache): every block writes its new
+    state into ``cache`` in place (a period's blocks into their index of
+    the stacked leaves), so a step copies no cache.
+    """
+    _check_supported(cfg)
+    if window == "cfg":
+        window = cfg.sliding_window
+    x = layers.embed(p["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    for blk, spec, c in zip(p.get("prefix", ()), cfg.prefix,
+                            cache["prefix"]):
+        x, _ = decode_block(blk, x, cfg, spec, c, pos, window=window)
+    for i in range(cfg.num_periods):
+        for blk, spec, c in zip(p["body"], cfg.pattern, cache["body"]):
+            x, _ = decode_block(_index(blk, i), x, cfg, spec, _index(c, i),
+                                pos, window=window)
+    x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
+    return _lm_logits(p, x, cfg), cache

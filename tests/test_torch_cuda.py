@@ -10,14 +10,21 @@ Absolute tolerances are ``tests/test_kernels.py``'s f32 ones: cosine
 exactly and both sides sum in f32, so bf16 keeps those; the mixes round
 their f32 sums to bf16, so they also allow one bf16 ulp of the value
 (``rtol`` 2^-7).  The CSR mix keeps ``tests/test_kernels.py``'s sparse
-tolerance, 1e-4·√(k+1), with the same bf16 ulp.
+tolerance, 1e-4·√(k+1), with the same bf16 ulp.  The selective scan keeps
+``tests/test_kernels.py``'s f32 atol of 1e-5 and adds an rtol of 1e-5:
+kernel and plain version round the same products and sums in the same
+order, so they can differ only where their ``exp`` does, and a one-ulp
+``exp`` difference moves ``h`` (and ``y``, which grows with L where
+``dt a`` is near 0) relatively; bf16 inputs convert to f32 exactly and the
+outputs are f32, so bf16 keeps the same tolerance.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (graph_mix, graph_mix_masked,  # noqa: E402
-                                 graph_mix_sparse, gram_matrix, ops, ref)
+                                 graph_mix_sparse, gram_matrix, ops, ref,
+                                 selective_scan)
 
 # n = 129, 200 and 1000 take the dense mixes' tiled route (W past 128).
 SHAPES = [(4, 64), (8, 1000), (16, 8192), (33, 300), (16, 8192 + 7),
@@ -27,6 +34,16 @@ SPARSE_SHAPES = [(8, 256), (33, 300), (7, 129), (50, 1000), (16, 8192 + 7)]
 SPARSE_CASES = [(n, d, k) for n, d in SPARSE_SHAPES for k in (2, 3, 8)
                 if k < n] + [(1000, 51200, 3)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (batch, L, d_inner, d_state): tests/test_kernels.py's four, a ragged
+# d_inner, one step, an L that is no multiple of the kernel's 32-step
+# tile, and a width past one block of channels.
+SCAN_SHAPES = [(2, 16, 64, 8), (1, 32, 128, 16), (3, 8, 96, 4),
+               (2, 64, 256, 16), (2, 16, 100, 8), (2, 1, 64, 16),
+               (1, 37, 96, 16), (2, 100, 1000, 16)]
+# dtypes of (x, dt, b and c): all f32, all bf16, and apply_mamba's bf16
+# serving mix (x, b, c bf16; dt f32).
+SCAN_TYPES = {"f32": ("float32",) * 3, "bf16": ("bfloat16",) * 3,
+              "serving": ("bfloat16", "float32", "bfloat16")}
 
 
 @pytest.fixture
@@ -125,3 +142,63 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         gram_matrix(torch.randn((64, 8), device=cuda_device).T)
     with pytest.raises(ValueError, match="dtype"):
         gram_matrix(x.double())
+
+
+def scan_inputs(dev, gen, bt, L, di, ds, types=("float32",) * 3):
+    """x, dt (post-softplus), b, c, a = -exp(.), h0 on the card."""
+    tx, tdt, tbc = (DTYPES[t] for t in types)
+    x = torch.randn((bt, L, di), generator=gen, device=dev).to(tx)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (bt, L, di), generator=gen, device=dev)).to(tdt)
+    b = (torch.randn((bt, L, ds), generator=gen, device=dev) * 0.5).to(tbc)
+    c = (torch.randn((bt, L, ds), generator=gen, device=dev) * 0.5).to(tbc)
+    a = -torch.exp(torch.randn((di, ds), generator=gen, device=dev) * 0.3)
+    h0 = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
+    return x, dt, b, c, a, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,L,di,ds", SCAN_SHAPES)
+@pytest.mark.parametrize("types", sorted(SCAN_TYPES))
+def test_cuda_selective_scan_matches_plain(cuda_device, bt, L, di, ds,
+                                           types):
+    gen = torch.Generator(device=cuda_device).manual_seed(bt * L + di)
+    args = scan_inputs(cuda_device, gen, bt, L, di, ds, SCAN_TYPES[types])
+    before = selective_scan.launches
+    y, h = selective_scan(*args)
+    yr, hr = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_chunk_chaining(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x, dt, b, c, a, h0 = scan_inputs(cuda_device, gen, 2, 96, 300, 16)
+    y, h = selective_scan(x, dt, b, c, a, h0)
+    cut = 37
+    y1, h1 = selective_scan(*(t[:, :cut].contiguous() for t in (x, dt, b, c)),
+                            a, h0)
+    y2, h2 = selective_scan(*(t[:, cut:].contiguous() for t in (x, dt, b, c)),
+                            a, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(h2, h, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, dt, b, c, a, h0 = scan_inputs(cuda_device, gen, 2, 8, 64, 16)
+    with pytest.raises(ValueError, match="d_state"):
+        selective_scan(x, dt, torch.cat([b, b], -1), torch.cat([c, c], -1),
+                       torch.cat([a, a], -1), torch.cat([h0, h0], -1))
+    with pytest.raises(ValueError, match="dtype"):
+        selective_scan(x, dt, b, c.bfloat16(), a, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt,
+                       b, c, a, h0)

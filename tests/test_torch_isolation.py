@@ -3,6 +3,7 @@ its entry points refuse a host without a card unless asked for the CPU,
 and a kernel wrapper given a CUDA tensor launches its kernel or raises —
 it never runs the plain version in the kernel's place."""
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -11,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np                                           # noqa: E402
 
+from repro_torch.configs import get_config                  # noqa: E402
 from repro_torch.core import (InGraphEpidemicStrategy,       # noqa: E402
                               InGraphFullyConnectedStrategy,
                               InGraphMorphStrategy, InGraphStaticStrategy)
@@ -19,11 +21,14 @@ from repro_torch.data import (DeviceDataStream,              # noqa: E402
 from repro_torch.dlrt import DecentralizedRunner, RunnerConfig  # noqa: E402
 from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
-                                 gram_matrix, ref)
+                                 gram_matrix, ref, selective_scan)
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
+from repro_torch.models import mamba as zoo_mamba            # noqa: E402
+from repro_torch.models import model as zoo_model            # noqa: E402
 from repro_torch.optim import sgd                            # noqa: E402
 from repro_torch.sparse import (SparseEpidemicStrategy,      # noqa: E402
                                 SparseMorphStrategy)
+from repro_torch.tree import tree_map                        # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -50,7 +55,14 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 ENTRY_POINTS = ("runner", "morph", "static", "el-oracle",
                 "fully-connected", "stream", "sparse-morph",
-                "sparse-epidemic")
+                "sparse-epidemic", "zoo-init-params", "zoo-init-cache")
+
+
+def _jamba_reduced():
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        cfg, moe=None, pattern=tuple(dataclasses.replace(s, moe=False)
+                                     for s in cfg.pattern)).reduced()
 
 
 def _make_entry_point(name):
@@ -69,6 +81,8 @@ def _make_entry_point(name):
         "stream": lambda: DeviceDataStream(ds, parts, 4),
         "sparse-morph": lambda: SparseMorphStrategy(n=4, k=2),
         "sparse-epidemic": lambda: SparseEpidemicStrategy(n=4, k=2),
+        "zoo-init-params": lambda: zoo_model.init_params(_jamba_reduced(), 0),
+        "zoo-init-cache": lambda: zoo_model.init_cache(_jamba_reduced(), 1, 4),
     }[name]
 
 
@@ -85,7 +99,7 @@ def plain_calls(monkeypatch):
     """Counts calls of the plain versions."""
     calls = []
     for fn in ("gram_matrix", "graph_mix", "graph_mix_masked",
-               "graph_mix_sparse"):
+               "graph_mix_sparse", "selective_scan"):
         orig = getattr(ref, fn)
         monkeypatch.setattr(ref, fn, lambda *a, _o=orig, _f=fn:
                             calls.append(_f) or _o(*a))
@@ -101,9 +115,14 @@ def _cuda_path_calls():
     idx = torch.empty((5, 3), dtype=torch.int32, device="meta")
     ws = torch.empty((5, 3), device="meta")
     w_self = torch.empty((5,), device="meta")
+    seq = torch.empty((2, 9, 70), device="meta")
+    bc = torch.empty((2, 9, 16), device="meta")
+    a = torch.empty((70, 16), device="meta")
+    h0 = torch.empty((2, 70, 16), device="meta")
     return [(gram_matrix, (x,)), (graph_mix, (w, x)),
             (graph_mix_masked, (e, x)),
-            (graph_mix_sparse, (idx, ws, w_self, x))]
+            (graph_mix_sparse, (idx, ws, w_self, x)),
+            (selective_scan, (seq, seq, bc, bc, a, h0))]
 
 
 def test_kernel_path_raises_instead_of_falling_back(plain_calls):
@@ -128,7 +147,20 @@ def test_kernel_path_launches_and_counts(plain_calls, monkeypatch):
     for wrapper, args in _cuda_path_calls():
         wrapper(*args)
     assert launched == ["gram_f32", "graph_mix_f32", "graph_mix_masked_f32",
-                        "graph_mix_sparse_f32"]
+                        "graph_mix_sparse_f32", "selective_scan"]
     assert [w.launches - b for (w, _), b in
-            zip(_cuda_path_calls(), before)] == [1, 1, 1, 1]
+            zip(_cuda_path_calls(), before)] == [1, 1, 1, 1, 1]
+    assert plain_calls == []
+
+
+def test_mamba_prefill_takes_the_kernel_path(plain_calls):
+    """``apply_mamba`` on tensors off the CPU reaches the scan kernel's
+    wrapper, which raises here: it never runs the plain scan instead."""
+    cfg = _jamba_reduced()
+    spec = next(i for i, s in enumerate(cfg.pattern) if s.mixer == "mamba")
+    params = zoo_model.init_params(cfg, 0, device="cpu")
+    mixer = tree_map(lambda t: t[0].to("meta"), params["body"][spec]["mixer"])
+    x = torch.empty((2, 32, cfg.d_model), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        zoo_mamba.apply_mamba(mixer, x, cfg)
     assert plain_calls == []
