@@ -11,21 +11,28 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (n = 50; D = 10, 32, 64, 2400, 40960, 51200) and awkward
    ones (n = 7, 33; D = 129, 8199), f32 and bf16; the dense mixes also at
-   n = 200 and 1000; the CSR kernel at n = 50 and 1000 over the same D
-   with k = 3 and 8, at the awkward shapes, and at k = n - 1 with invalid
-   slots; the selective scan at ``tests/test_kernels.py``'s shapes, a
-   ragged d_inner, L = 1 and 37 and the served shape (2 x 2,048 tokens,
-   d_inner 16,384, d_state 16), in f32, bf16 and apply_mamba's serving
-   mix, and chained halves against one call; each kernel timed at the
-   largest main-path shape (CUDA events, inputs rotated through more than
-   the 50 MB L2 so every call reads from device memory), the CSR kernel at
-   n = 50 and 1000;
+   n = 200 and 1000; the grouped calls over GN-LeNet's ten leaves (n = 50,
+   the Gram also at n = 100 and 129) bit for bit the per-leaf calls, and
+   two Gram calls the same bits; the CSR kernel at n = 50 and 1000 over
+   the same D with k = 3 and 8, at the awkward shapes, and at k = n - 1
+   with invalid slots; the selective scan at ``tests/test_kernels.py``'s
+   shapes, a ragged d_inner, L = 1 and 37 and the served shape (2 x 2,048
+   tokens, d_inner 16,384, d_state 16), in f32, bf16 and apply_mamba's
+   serving mix, and chained halves against one call; each kernel timed at
+   the largest main-path shape (inputs rotated through more than the 50 MB
+   L2 so every call reads from device memory), the CSR kernel at n = 50
+   and 1000: ``ms`` is CUDA events around 30 calls made from Python,
+   ``device_ms`` the same calls replayed from a CUDA graph (no host work
+   between launches), ``host_enqueue_us`` the host clock per call without
+   a synchronise, and each library call is timed the same two ways; each
+   grouped call over the whole GN-LeNet tree at n = 50 beside a per-leaf
+   loop of the library call; the dense mixes at n = 1000 (tiled route);
 4. the main path at full width: GN-LeNet CIFAR-10 (width 32, 94,858
    parameters per node), n = 50, fig3 settings (k = 3, delta_r = 5,
    beta = 500, Dirichlet 0.1, batch 8, lr 0.05) on a ``DeviceDataStream``,
    ten rounds each of Morph, Static, EL-Oracle and fully-connected through
    ``DecentralizedRunner``; launch counts prove the rounds went through
-   the kernels;
+   the kernels, one grouped launch per call site per round;
 5. where a Morph round's time goes at that size (host clock around each
    stage, synchronised);
 6. the same tiny runs on the card and on the CPU agree (edges identical,
@@ -106,6 +113,8 @@ def tolerance(name, n, bf16, k=None):
 
 
 MAIN_N, MAIN_D = 50, (10, 32, 64, 2400, 40960, 51200)
+# GN-LeNet CIFAR-10 at width 32: its ten leaves' widths per node, in order.
+GN_LENET_LEAVES = (32, 2400, 64, 51200, 10, 40960, 32, 32, 64, 64)
 AWKWARD = [(7, 129), (7, 8199), (33, 129), (33, 8199)]
 ROUNDS, K, DELTA_R = 10, 3, 5
 LARGE_N = 1000                   # the sparse slice's second population
@@ -225,7 +234,9 @@ def check_sparse(dev, worst):
 
 def time_ms(fn, args_list, reps=30, warmup=3):
     """Mean ms per call over ``reps`` calls cycling through ``args_list``
-    (distinct buffers, more bytes than L2 holds), after a warm-up."""
+    (distinct buffers, more bytes than L2 holds), after a warm-up: CUDA
+    events around the calls as Python makes them, so once a call's device
+    work is shorter than its host cost this measures the host."""
     for args in args_list[:warmup]:
         fn(*args)
     torch.cuda.synchronize()
@@ -237,6 +248,61 @@ def time_ms(fn, args_list, reps=30, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, args_list, reps=30):
+    """Mean device ms per call: the same ``reps`` calls as :func:`time_ms`
+    captured in one CUDA graph, the graph replayed three times between
+    CUDA events (after one untimed replay), so no host work lies between
+    the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the default
+        for args in args_list[:2]:               # stream, as capture asks
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (3 * reps)
+
+
+def enqueue_us(fn, args_list, reps=30):
+    """Mean host microseconds to enqueue one call: the host clock around
+    ``reps`` calls with no synchronise between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(*args_list[i % len(args_list)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def timings(kernel, library, reps=30):
+    """A kernel's ``ms``, ``device_ms`` and ``host_enqueue_us``, and its
+    library call's ``library_ms`` and ``library_device_ms`` (None without
+    one), each ``(fn, args_list)``."""
+    t = {"ms": time_ms(*kernel, reps=reps),
+         "device_ms": device_ms(*kernel, reps=reps),
+         "host_enqueue_us": enqueue_us(*kernel, reps=reps),
+         "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        t["library_ms"] = time_ms(*library, reps=reps)
+        t["library_device_ms"] = device_ms(*library, reps=reps)
+    return t
 
 
 def bound(nbytes, flops):
@@ -282,14 +348,153 @@ def time_kernels(dev):
     }
     out = {}
     for name, r in rows.items():
-        t = {"ms": time_ms(*r["kernel"]), "plain_ms": time_ms(*r["plain"]),
-             "library_ms": time_ms(*r["library"]) if r["library"] else None}
+        t = timings(r["kernel"], r["library"])
+        t["plain_ms"] = time_ms(*r["plain"])
         if "matmul" in r:
             t["matmul_ms"] = time_ms(*r["matmul"])
+            t["matmul_device_ms"] = device_ms(*r["matmul"])
         t["bound_ms"], t["bound_by"] = bound(r["bytes"], r["flops"])
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
         t["shape"] = [n, d, "float32"]
         out[name] = t
         log(f"phase 3: {name} at n={n} D={d} f32: {json.dumps(t)}")
+    return out
+
+
+def tree_inputs(dev, gen, n, dtype=torch.float32):
+    """GN-LeNet's ten leaves at ``n`` nodes (``[n, D]`` each), a
+    row-stochastic W and an in-edge matrix with about 3 in-edges a row."""
+    xs = [torch.randn((n, d), generator=gen, device=dev).to(dtype)
+          for d in GN_LENET_LEAVES]
+    w = torch.softmax(torch.randn((n, n), generator=gen, device=dev), 1)
+    e = torch.rand((n, n), generator=gen, device=dev) < 3.0 / n
+    e.fill_diagonal_(False)
+    return xs, w, e
+
+
+def check_grouped(dev, worst):
+    """Grouped calls over GN-LeNet's ten leaves (n = 50, and n = 100 and
+    129 for the Gram past one tile) give each leaf the bits of its own
+    call, within tolerance of the plain version; two Gram calls on the
+    same input give the same bits."""
+    from repro_torch.kernels import (graph_mix, graph_mix_leaves,
+                                     graph_mix_masked,
+                                     graph_mix_masked_leaves, gram_matrices,
+                                     gram_matrix, ref)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    count = 0
+    for n in (MAIN_N, 100, 129):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, w, e = tree_inputs(dev, gen, n, dtype)
+            g, again = gram_matrices(xs), gram_matrices(xs)
+            ys = graph_mix_leaves(w, xs) if n == MAIN_N else None
+            zs = graph_mix_masked_leaves(e, xs) if n == MAIN_N else None
+            if not torch.equal(g, again):
+                raise AssertionError(f"gram n={n} {dtype}: two calls differ")
+            for i, x in enumerate(xs):
+                what = f"grouped n={n} D={x.shape[1]}"
+                if not torch.equal(g[i], gram_matrix(x)):
+                    raise AssertionError(f"{what} {dtype}: grouped gram is "
+                                         f"not the per-leaf call")
+                compare("gram_matrix", _cosine(g[i]), ref.pairwise_cosine(x),
+                        n, dtype, what, worst)
+                if ys is None:
+                    continue
+                if not (torch.equal(ys[i], graph_mix(w, x)) and torch.equal(
+                        zs[i], graph_mix_masked(e, x))):
+                    raise AssertionError(f"{what} {dtype}: grouped mix is "
+                                         f"not the per-leaf call")
+                compare("graph_mix", ys[i], ref.graph_mix(w, x), n, dtype,
+                        what, worst)
+                compare("graph_mix_masked", zs[i],
+                        ref.graph_mix_masked(e, x), n, dtype, what, worst)
+                count += 1
+    log(f"phase 3: grouped calls over GN-LeNet's {len(GN_LENET_LEAVES)} "
+        f"leaves (n = 50; the Gram also at n = 100, 129; f32, bf16) equal "
+        f"the per-leaf calls bit for bit, two Gram calls give the same bits; "
+        f"{count} grouped leaves of the mixes within tolerance")
+
+
+def _cosine(g):
+    """The cosine epilogue of ``ops.pairwise_cosine`` on a Gram matrix."""
+    norms = torch.sqrt(torch.diagonal(g)).clamp_min(1e-12)
+    return g / (norms[:, None] * norms[None, :])
+
+
+def time_tree(dev):
+    """One grouped call over GN-LeNet's whole tree at n = 50 per kernel,
+    beside a per-leaf loop of the library call, with the tree's bound."""
+    from repro_torch.kernels import (graph_mix_leaves, graph_mix_masked_leaves,
+                                     gram_matrices)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, total = MAIN_N, sum(GN_LENET_LEAVES)
+    copies = max(3, math.ceil(120e6 / (n * total * 4)))
+    sets = [tree_inputs(dev, gen, n) for _ in range(copies)]
+    uniform = []
+    for xs, _, e in sets:
+        a = e.float() + torch.eye(n, device=dev)
+        uniform.append((a / a.sum(1, keepdim=True), xs))
+    leaves, es = len(GN_LENET_LEAVES), 4
+    nnz = sum(int(e.sum()) + n for _, _, e in sets) / len(sets)
+    loop_mm = lambda w, xs: [torch.matmul(w, x) for x in xs]
+    rows = {
+        "gram_matrix": ((gram_matrices, [(xs,) for xs, _, _ in sets]),
+                        (lambda xs: [x @ x.T for x in xs],
+                         [(xs,) for xs, _, _ in sets]),
+                        n * total * es + leaves * n * n * 4,
+                        n * (n + 1) * total),
+        "graph_mix": ((graph_mix_leaves, [(w, xs) for xs, w, _ in sets]),
+                      (loop_mm, [(w, xs) for xs, w, _ in sets]),
+                      n * n * 4 + 2 * n * total * es, 2 * n * n * total),
+        "graph_mix_masked": ((graph_mix_masked_leaves,
+                              [(e, xs) for xs, _, e in sets]),
+                             (loop_mm, uniform),
+                             n * n + 2 * n * total * es, 2 * nnz * total),
+    }
+    out = {}
+    for name, (kernel, library, nbytes, flops) in rows.items():
+        t = timings(kernel, library)
+        t["library"] = ("per-leaf loop of x @ x.T" if name == "gram_matrix"
+                        else "per-leaf loop of torch.matmul")
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        t["shape"] = [n, f"GN-LeNet's {leaves} leaves, {total} columns",
+                      "float32"]
+        out[name] = t
+        log(f"phase 3: {name} grouped over the GN-LeNet tree at n={n} f32: "
+            f"{json.dumps(t)}")
+    return out
+
+
+def time_dense_large(dev):
+    """The dense mixes at n = 1000, D = 51,200 (the tiled route) beside
+    ``torch.matmul`` of the same W, with the bound."""
+    from repro_torch.kernels import graph_mix, graph_mix_masked
+    inputs, _ = kernel_cases(dev)
+    n, d = LARGE_N, MAIN_D[-1]
+    sets = [inputs(n, d, torch.float32) for _ in range(2)]
+    uniform = []
+    for x, _, e in sets:
+        a = e.float() + torch.eye(n, device=dev)
+        uniform.append((a / a.sum(1, keepdim=True), x))
+    out = {}
+    for name, kernel in (("graph_mix", (graph_mix, [(w, x) for x, w, _ in
+                                                    sets])),
+                         ("graph_mix_masked", (graph_mix_masked,
+                                               [(e, x) for x, _, e in
+                                                sets]))):
+        library = (torch.matmul, [(w, x) for x, w, _ in sets]) \
+            if name == "graph_mix" else (torch.matmul, uniform)
+        t = timings(kernel, library, reps=6)
+        # X read once, Y written once, W read once; 2 n^2 D operations
+        # (the dense product, whatever W's zeros).
+        t["bound_ms"], t["bound_by"] = bound(n * n * 4 + 2 * n * d * 4,
+                                             2 * n * n * d)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        t["shape"] = [n, d, "float32"]
+        out[name] = t
+        log(f"phase 3: {name} at n={n} D={d} f32 (tiled route): "
+            f"{json.dumps(t)}")
     return out
 
 
@@ -314,14 +519,14 @@ def time_sparse(dev):
                              torch.cat([idx.reshape(-1), diag])]),
                 torch.cat([w.reshape(-1), w_self]), (n, n))
             library.append((coo.coalesce().to_sparse_csr(), x))
-        t = {"ms": time_ms(graph_mix_sparse, sets),
-             "plain_ms": time_ms(ref.graph_mix_sparse, sets),
-             "library_ms": None}
+        t = timings((graph_mix_sparse, sets), None)
+        t["plain_ms"] = time_ms(ref.graph_mix_sparse, sets)
         try:          # a yardstick only: report its absence, do not fail
             t["library_max_abs_err"] = float(
                 (torch.sparse.mm(*library[0])
                  - graph_mix_sparse(*sets[0])).abs().max())
             t["library_ms"] = time_ms(torch.sparse.mm, library)
+            t["library_device_ms"] = device_ms(torch.sparse.mm, library)
         except RuntimeError as err:
             log(f"phase 3: torch.sparse.mm at n={n} failed: {err}")
         # idx, w, w_self and X read once, Y written once; 2 (k + 1) n D
@@ -418,9 +623,8 @@ def time_scan(dev):
     bt, L, di, ds = SERVED_SCAN
     sets = [scan_inputs(dev, gen, *SERVED_SCAN, SCAN_TYPES["serving"])
             for _ in range(3)]
-    t = {"ms": time_ms(selective_scan, sets),
+    t = {**timings((selective_scan, sets), None, reps=10),
          "plain_ms": time_ms(ref.selective_scan, sets, reps=2, warmup=1),
-         "library_ms": None,
          "library": "none: no single PyTorch call computes the S6 "
                     "recurrence (a scan with an input-dependent decay)"}
     # Each input read once, y and the last h written once (f32).
@@ -525,7 +729,6 @@ def run_strategy(name, n, dev, rounds, eval_every, engine="dense",
 def main_path(dev):
     from repro_torch import kernels
     from repro_torch.kernels import graph_mix, graph_mix_masked, gram_matrix
-    leaves = 10
     # One-time costs (cuDNN and CUDA context set-up, first calls of each
     # operator) land in a two-round warm-up, not in the first strategy.
     run_strategy("morph", MAIN_N, dev, 2, DELTA_R)
@@ -537,10 +740,10 @@ def main_path(dev):
         got = tuple(b - a for a, b in zip(before, (
             gram_matrix.launches, graph_mix_masked.launches,
             graph_mix.launches)))
+        # One grouped launch per call site per round, over all ten leaves.
         uniform = name in ("morph", "el-oracle")
-        want = (leaves * ROUNDS if name == "morph" else 0,
-                leaves * ROUNDS if uniform else 0,
-                0 if uniform else leaves * ROUNDS)
+        want = (ROUNDS if name == "morph" else 0, ROUNDS if uniform else 0,
+                0 if uniform else ROUNDS)
         if got != want:
             raise AssertionError(f"{name}: launches (gram, masked, mix) "
                                  f"{got} != {want}")
@@ -1132,9 +1335,14 @@ def main():
     log(f"phase 2: build wall {time.perf_counter() - t0:.1f} s")
 
     worst = check_kernels(dev)
+    check_grouped(dev, worst)
     check_sparse(dev, worst)
     check_scan(dev, worst)
     times = time_kernels(dev)
+    for name, t in time_tree(dev).items():
+        times[name]["tree_n50"] = t
+    for name, t in time_dense_large(dev).items():
+        times[name]["at_n1000"] = t
     sparse_times = time_sparse(dev)
     times["selective_scan"] = time_scan(dev)
     counts = main_path(dev)
@@ -1180,9 +1388,13 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{key: t[key] for key in ("matmul_ms", "library_max_abs_err",
-                                       "at_n50", "library", "bound_parts_ms",
-                                       "sm_clock_mhz") if key in t},
+            **{key: t[key] for key in ("device_ms", "library_device_ms",
+                                       "host_enqueue_us", "share_of_bound",
+                                       "matmul_ms", "matmul_device_ms",
+                                       "library_max_abs_err", "at_n50",
+                                       "tree_n50", "at_n1000", "library",
+                                       "bound_parts_ms", "sm_clock_mhz")
+               if key in t},
             "shape": t["shape"]}
         # ``max_err`` and ``kernel_ms`` are other names for the same two
         # readings, copied from them here so they cannot differ.

@@ -2,9 +2,10 @@
 dense and sparse Morph paths and on the model zoo's Mamba prefill, with
 their plain PyTorch versions (:mod:`.ref`) and the parameter-dict wrappers
 (:mod:`.ops`)."""
-from .graph_mix import graph_mix, graph_mix_masked
+from .graph_mix import (graph_mix, graph_mix_leaves, graph_mix_masked,
+                        graph_mix_masked_leaves)
 from .graph_mix_sparse import graph_mix_sparse
-from .pairwise_cosine import gram_matrix
+from .pairwise_cosine import gram_matrices, gram_matrix
 from .selective_scan import selective_scan
 
 KERNELS = (gram_matrix, graph_mix, graph_mix_masked, graph_mix_sparse,
@@ -17,5 +18,6 @@ def reset_launches() -> None:
         kernel.launches = 0
 
 
-__all__ = ["KERNELS", "graph_mix", "graph_mix_masked", "graph_mix_sparse",
+__all__ = ["KERNELS", "graph_mix", "graph_mix_leaves", "graph_mix_masked",
+           "graph_mix_masked_leaves", "graph_mix_sparse", "gram_matrices",
            "gram_matrix", "reset_launches", "selective_scan"]

@@ -18,7 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from functools import lru_cache
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -30,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Callable] = {}
+_counters: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -41,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to."""
+    """Where ``csrc/<name>.cu`` is built to (named by a hash of it, the
+    shared headers ``csrc/*.cuh`` and the flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -95,6 +100,18 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, fn: str, signatures: Dict[str, list]) -> Callable:
+    """The C function ``fn`` of ``csrc/<name>.cu`` (see :func:`library`),
+    resolved once per loaded library."""
+    got = _functions.get((name, fn))
+    if got is None:
+        lib = library(name, signatures)
+        got = getattr(lib, fn)
+        if _loaded.get(name) is lib:
+            _functions[name, fn] = got
+    return got
+
+
 def check(lib: ctypes.CDLL, name: str, status: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if status != 0:
@@ -107,9 +124,22 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors on ``device``."""
+    """Streaming multiprocessors on ``device`` (asked once per device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def counters(device: torch.device, key: str, count: int) -> torch.Tensor:
+    """At least ``count`` zeroed int32 counters on ``device`` for the
+    kernel ``key``, kept from call to call: a kernel that takes them leaves
+    them zeroed again, so calls that share them must run one after another
+    (on one stream)."""
+    buf = _counters.get((device, key))
+    if buf is None or buf.numel() < count:
+        buf = _counters[device, key] = torch.zeros(
+            max(count, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def require(what: str, *tensors: torch.Tensor, dtypes=None) -> None:

@@ -5,6 +5,8 @@ Eq. 3 is the per-leaf cosine averaged over leaves in leaf order; the
 cosine is the Gram matrix divided by ``max(sqrt(diag), 1e-12)`` on both
 sides, so a zero leaf (biases at initialization) gives 0, not NaN.  The
 kernels mask their ragged tails themselves, so nothing is padded here.
+On the card one launch takes the Gram matrix of every leaf, and one mixes
+every leaf; on the CPU each leaf goes through the plain versions in turn.
 """
 from __future__ import annotations
 
@@ -13,9 +15,9 @@ from typing import Dict, Optional
 
 import torch
 
-from .graph_mix import graph_mix, graph_mix_masked
+from .graph_mix import graph_mix_leaves, graph_mix_masked_leaves
 from .graph_mix_sparse import graph_mix_sparse
-from .pairwise_cosine import gram_matrix
+from .pairwise_cosine import gram_matrices, gram_matrix
 
 _EPS = 1e-12
 
@@ -28,13 +30,24 @@ def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
 
 
 def model_pairwise_cosine(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Eq. 3 on node-stacked parameters: per-leaf cosine, averaged."""
+    """Eq. 3 on node-stacked parameters: per-leaf cosine, averaged in leaf
+    order.  On the card the Gram matrices of all leaves come from one
+    launch and the epilogue runs on their stack, with the same operations
+    per element as :func:`pairwise_cosine`, so the result is the bits of
+    the leaf-by-leaf loop the CPU runs."""
     leaves = list(stacked.values())
     n = leaves[0].shape[0]
-    acc = torch.zeros((n, n), dtype=torch.float32, device=leaves[0].device)
-    for leaf in leaves:
-        acc += pairwise_cosine(leaf.reshape(n, -1))
-    return acc / len(leaves)
+    if leaves[0].device.type == "cpu":
+        acc = torch.zeros((n, n), dtype=torch.float32)
+        for leaf in leaves:
+            acc += pairwise_cosine(leaf.reshape(n, -1))
+        return acc / len(leaves)
+    g = gram_matrices([leaf.reshape(n, -1) for leaf in leaves])
+    norms = torch.sqrt(torch.diagonal(g, dim1=1, dim2=2)).clamp_min(_EPS)
+    cos = g / (norms[:, :, None] * norms[:, None, :])
+    # A running sum along the leaves adds them one after another from 0,
+    # as the loop does, in one launch.
+    return torch.cumsum(cos, dim=0)[-1] / len(leaves)
 
 
 def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor]
@@ -42,20 +55,20 @@ def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor]
     """Apply ``W [m, n]`` to every leaf (``[n, ...]`` -> ``[m, ...]``)."""
     w = w.float().contiguous()
     m = w.shape[0]
-    return OrderedDict(
-        (k, graph_mix(w, v.reshape(v.shape[0], -1)).reshape(
-            (m,) + v.shape[1:]))
-        for k, v in stacked.items())
+    ys = graph_mix_leaves(w, [v.reshape(v.shape[0], -1)
+                              for v in stacked.values()])
+    return OrderedDict((k, y.reshape((m,) + v.shape[1:]))
+                       for (k, v), y in zip(stacked.items(), ys))
 
 
 def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor]
                       ) -> "OrderedDict[str, torch.Tensor]":
     """Uniform-average mixing from the raw in-edge matrix, every leaf."""
     edges = edges.contiguous()
-    return OrderedDict(
-        (k, graph_mix_masked(edges, v.reshape(v.shape[0], -1)).reshape(
-            v.shape))
-        for k, v in stacked.items())
+    ys = graph_mix_masked_leaves(edges, [v.reshape(v.shape[0], -1)
+                                         for v in stacked.values()])
+    return OrderedDict((k, y.reshape(v.shape))
+                       for (k, v), y in zip(stacked.items(), ys))
 
 
 def _csr_operands(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,

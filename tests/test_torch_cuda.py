@@ -22,9 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (graph_mix, graph_mix_masked,  # noqa: E402
-                                 graph_mix_sparse, gram_matrix, ops, ref,
-                                 selective_scan)
+from repro_torch.kernels import (graph_mix, graph_mix_leaves,  # noqa: E402
+                                 graph_mix_masked, graph_mix_masked_leaves,
+                                 graph_mix_sparse, gram_matrices, gram_matrix,
+                                 ops, ref, selective_scan)
 
 # n = 129, 200 and 1000 take the dense mixes' tiled route (W past 128).
 SHAPES = [(4, 64), (8, 1000), (16, 8192), (33, 300), (16, 8192 + 7),
@@ -34,6 +35,11 @@ SPARSE_SHAPES = [(8, 256), (33, 300), (7, 129), (50, 1000), (16, 8192 + 7)]
 SPARSE_CASES = [(n, d, k) for n, d in SPARSE_SHAPES for k in (2, 3, 8)
                 if k < n] + [(1000, 51200, 3)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Grouped calls: GN-LeNet's ten leaf widths at the paper's n = 50, ragged
+# widths, and past one Gram tile and the small mix route (n = 129).
+GN_LENET = [32, 2400, 64, 51200, 10, 40960, 32, 32, 64, 64]
+GROUPED = {"gn_lenet_n50": (50, GN_LENET),
+           "ragged_n7": (7, [1, 10, 129, 8199]), "n100": (100, [64, 2400, 10]), "n129": (129, [64, 129, 2400])}
 # (batch, L, d_inner, d_state): tests/test_kernels.py's four, a ragged
 # d_inner, one step, an L that is no multiple of the kernel's 32-step
 # tile, and a width past one block of channels.
@@ -83,6 +89,98 @@ def test_cuda_kernels_match_plain(cuda_device, n, d, dtype):
     after = (gram_matrix.launches, graph_mix.launches,
              graph_mix_masked.launches)
     assert [b - a for a, b in zip(before, after)] == [2, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_grouped_calls_are_the_per_leaf_calls(cuda_device, case, dtype):
+    n, ds = GROUPED[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    xs = [torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype]) for d in ds]
+    w = torch.rand((n, n), generator=gen, device=cuda_device)
+    edges = torch.rand((n, n), generator=gen, device=cuda_device) < 0.1
+    before = (gram_matrix.launches, graph_mix.launches,
+              graph_mix_masked.launches)
+    g = gram_matrices(xs)
+    ys = graph_mix_leaves(w, xs)
+    zs = graph_mix_masked_leaves(edges, xs)
+    torch.cuda.synchronize()
+    per_call = 1 if n <= 128 else len(ds)          # the tiled route: per leaf
+    assert (gram_matrix.launches - before[0], graph_mix.launches - before[1],
+            graph_mix_masked.launches - before[2]) == (1, per_call, per_call)
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    for i, x in enumerate(xs):
+        assert torch.equal(g[i], gram_matrix(x))
+        assert torch.equal(ys[i], graph_mix(w, x))
+        assert torch.equal(zs[i], graph_mix_masked(edges, x))
+        torch.testing.assert_close(g[i], ref.gram_matrix(x),
+                                   atol=2e-6 * x.shape[1], rtol=1e-5)
+        torch.testing.assert_close(ys[i].float(), ref.graph_mix(w, x).float(),
+                                   atol=1e-4 * n ** 0.5, rtol=rtol)
+        torch.testing.assert_close(zs[i].float(),
+                                   ref.graph_mix_masked(edges, x).float(),
+                                   atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 100, 129])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_gram_gives_the_same_bits_twice(cuda_device, n, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    xs = [torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype]) for d in (51200, 2400, 10)]
+    first, second = gram_matrices(xs), gram_matrices(xs)
+    assert torch.equal(first, second)
+    assert torch.equal(first, first.transpose(1, 2))     # mirrored tiles
+    stacked = {str(i): x for i, x in enumerate(xs)}
+    assert torch.equal(ops.model_pairwise_cosine(stacked),
+                       ops.model_pairwise_cosine(stacked))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 129])
+@pytest.mark.parametrize("d", [10, 2400, 51200])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_gram_past_one_tile(cuda_device, n, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * d)
+    x = torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype])
+    torch.testing.assert_close(gram_matrix(x), ref.gram_matrix(x),
+                               atol=2e-6 * d, rtol=1e-5)
+    torch.testing.assert_close(ops.pairwise_cosine(x),
+                               ref.pairwise_cosine(x), atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_parameter_dict_ops_at_the_gn_lenet_leaves(cuda_device, dtype):
+    """The grouped paths of ``ops`` against the plain versions leaf by
+    leaf, and the grouped cosine against the card's leaf-by-leaf loop."""
+    n = 50
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    stacked = {f"leaf{i}": torch.randn((n, d), generator=gen,
+                                       device=cuda_device).to(DTYPES[dtype])
+               for i, d in enumerate(GN_LENET)}
+    w = torch.softmax(torch.randn((n, n), generator=gen,
+                                  device=cuda_device), 1)
+    edges = torch.rand((n, n), generator=gen, device=cuda_device) < 3.0 / n
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    mixed = ops.mix_pytree(w, stacked)
+    averaged = ops.mix_masked_pytree(edges, stacked)
+    for k, x in stacked.items():
+        torch.testing.assert_close(mixed[k].float(),
+                                   ref.graph_mix(w, x).float(),
+                                   atol=1e-4 * n ** 0.5, rtol=rtol)
+        torch.testing.assert_close(averaged[k].float(),
+                                   ref.graph_mix_masked(edges, x).float(),
+                                   atol=1e-4, rtol=rtol)
+    loop = torch.zeros((n, n), device=cuda_device)
+    for x in stacked.values():
+        loop += ops.pairwise_cosine(x)
+    assert torch.equal(ops.model_pairwise_cosine(stacked),
+                       loop / len(stacked))
 
 
 @pytest.mark.cuda
