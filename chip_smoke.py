@@ -11,13 +11,17 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (n = 50; D = 10, 32, 64, 2400, 40960, 51200) and awkward
    ones (n = 7, 33; D = 129, 8199), f32 and bf16; the dense mixes also at
-   n = 200 and 1000; the grouped calls over GN-LeNet's ten leaves (n = 50,
-   the Gram also at n = 100 and 129) bit for bit the per-leaf calls, and
-   two Gram calls the same bits; the CSR kernel at n = 50 and 1000 over
-   the same D with k = 3 and 8, at the awkward shapes, and at k = n - 1
-   with invalid slots; the selective scan at ``tests/test_kernels.py``'s
-   shapes, a ragged d_inner, L = 1 and 37 and the served shape (2 x 2,048
-   tokens, d_inner 16,384, d_state 16), in f32, bf16 and apply_mamba's
+   n = 200 and 1000 (the tiled route); the grouped calls over GN-LeNet's
+   ten leaves (the Gram at n = 50, 100 and 129, the mixes at n = 50, 129,
+   200 and 1000) bit for bit the per-leaf calls, and two calls the same
+   bits; the CSR kernel bit for bit its plain version at n = 50 and 1000
+   over the same D with k = 3 and 8, at the awkward shapes, and at
+   k = n - 1 with invalid slots, and one grouped CSR call over the ten
+   leaves (n = 50 and 1000, k = 3 and n - 1) the per-leaf calls and the
+   plain version bit for bit; the selective scan at
+   ``tests/test_kernels.py``'s shapes, a ragged d_inner, L = 1 and 37 and
+   the served shape (2 x 2,048 tokens, d_inner 16,384, d_state 16), in
+   f32, bf16 and apply_mamba's
    serving mix, and chained halves against one call; each kernel timed at
    the largest main-path shape (inputs rotated through more than the 50 MB
    L2 so every call reads from device memory), the CSR kernel at n = 50
@@ -27,6 +31,8 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    a synchronise, and each library call is timed the same two ways; each
    grouped call over the whole GN-LeNet tree at n = 50 beside a per-leaf
    loop of the library call; the dense mixes at n = 1000 (tiled route);
+   each grouped mix (dense, masked, CSR) over the whole tree at n = 1000
+   (``tree_n1000``) beside a per-leaf loop of the library call;
 4. the main path at full width: GN-LeNet CIFAR-10 (width 32, 94,858
    parameters per node), n = 50, fig3 settings (k = 3, delta_r = 5,
    beta = 500, Dirichlet 0.1, batch 8, lr 0.05) on a ``DeviceDataStream``,
@@ -45,8 +51,12 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    n = 1000 (fig12's middle population; equal shards of 12,000 samples,
    256 test images), and the compat modes at n = 50 (Static through the
    CSR kernel, Morph exactly as the dense engine, bitwise); launch counts
-   prove each run went through the CSR kernel and nothing else;
-8. where a sparse Morph round's time goes at n = 1000;
+   prove each run went through the CSR kernel, one grouped launch a
+   round, and nothing else;
+8. where a sparse Morph round's time goes at n = 1000; then fig12's dense
+   row: dense Morph at n = 1000 on the same set-up, five rounds through
+   ``DecentralizedRunner`` (one grouped Gram launch and one grouped masked
+   mix a round, on the tiled route), and where its round's time goes;
 9. the model zoo's serving path at full width: Jamba-1.5-Large at its
    published widths, one period (7 Mamba layers, 1 attention), dense
    SwiGLU in place of the experts, bf16, drawn on the card: (a) prefill of
@@ -224,12 +234,55 @@ def check_sparse(dev, worst):
             rows = torch.arange(n, device=dev)[:, None]
             want = ref.graph_mix_sparse(torch.where(mask, idx, rows),
                                         torch.where(mask, w, 0.0), w_self, x)
-            compare("graph_mix_sparse", ops.mix_sparse(idx, w, w_self, x,
-                                                       mask=mask),
-                    want, n, dtype, f"n={n} D={d} k={k}", worst, k=k)
-    log(f"phase 3: {len(cases) * 2} CSR kernel/plain comparisons within "
-        f"tolerance (n = 50, 1000, 7, 33; k = 3, 8, n - 1 with invalid "
-        f"slots); worst {json.dumps(worst['graph_mix_sparse'])}")
+            got = ops.mix_sparse(idx, w, w_self, x, mask=mask)
+            compare("graph_mix_sparse", got, want, n, dtype,
+                    f"n={n} D={d} k={k}", worst, k=k)
+            if not torch.equal(got, want):
+                raise AssertionError(f"graph_mix_sparse n={n} D={d} k={k} "
+                                     f"{dtype}: not the plain version's bits")
+    log(f"phase 3: {len(cases) * 2} CSR kernel/plain comparisons bit for "
+        f"bit (n = 50, 1000, 7, 33; k = 3, 8, n - 1 with invalid slots); "
+        f"worst {json.dumps(worst['graph_mix_sparse'])}")
+    check_sparse_grouped(dev, gen)
+
+
+def check_sparse_grouped(dev, gen):
+    """One grouped CSR call over GN-LeNet's ten leaves is the per-leaf
+    calls and the plain version bit for bit, and two calls give the same
+    bits: n = 50 and 1000, k = 3 and k = n - 1 with invalid slots."""
+    from repro_torch.kernels import (graph_mix_sparse,
+                                     graph_mix_sparse_leaves, ref)
+    count = 0
+    for n in (MAIN_N, LARGE_N):
+        for k, invalid in ((K, 0.0), (n - 1, 0.3)):
+            for dtype in (torch.float32, torch.bfloat16):
+                _, idx, w, w_self, mask = sparse_inputs(dev, gen, n, 1, k,
+                                                        dtype, invalid)
+                xs = [torch.randn((n, d), generator=gen, device=dev).to(dtype)
+                      for d in GN_LENET_LEAVES]
+                rows = torch.arange(n, device=dev)[:, None]
+                idx32 = torch.where(mask, idx, rows).to(torch.int32)
+                parked = (idx32.contiguous(), torch.where(mask, w, 0.0),
+                          w_self)
+                before = graph_mix_sparse.launches
+                ys = graph_mix_sparse_leaves(*parked, xs)
+                if graph_mix_sparse.launches - before != 1:
+                    raise AssertionError("grouped CSR call: not one launch")
+                again = graph_mix_sparse_leaves(*parked, xs)
+                for y, y2, x in zip(ys, again, xs):
+                    if not (torch.equal(y, y2)
+                            and torch.equal(y, graph_mix_sparse(*parked, x))
+                            and torch.equal(y, ref.graph_mix_sparse(
+                                *parked, x))):
+                        raise AssertionError(
+                            f"grouped CSR n={n} k={k} D={x.shape[1]} {dtype}:"
+                            f" not the per-leaf call, the plain version and "
+                            f"the same bits twice")
+                    count += 1
+    log(f"phase 3: grouped CSR calls over GN-LeNet's leaves (n = 50, 1000; "
+        f"k = 3 and n - 1 with invalid slots; f32, bf16) are one launch each "
+        f"and {count} leaves equal the per-leaf calls and the plain version "
+        f"bit for bit, the same twice")
 
 
 def time_ms(fn, args_list, reps=30, warmup=3):
@@ -372,34 +425,48 @@ def tree_inputs(dev, gen, n, dtype=torch.float32):
     return xs, w, e
 
 
+GRAM_GROUPED_N = (MAIN_N, 100, 129)          # past one 64-row Gram tile
+MIX_GROUPED_N = (MAIN_N, 129, 200, LARGE_N)  # the tiled route past 128
+
+
 def check_grouped(dev, worst):
-    """Grouped calls over GN-LeNet's ten leaves (n = 50, and n = 100 and
-    129 for the Gram past one tile) give each leaf the bits of its own
-    call, within tolerance of the plain version; two Gram calls on the
-    same input give the same bits."""
+    """Grouped calls over GN-LeNet's ten leaves give each leaf the bits of
+    its own call, within tolerance of the plain version, and two calls on
+    the same input give the same bits: the Gram at n = 50, 100 and 129,
+    the dense mixes at n = 50 and on the tiled route at n = 129, 200 and
+    1000."""
     from repro_torch.kernels import (graph_mix, graph_mix_leaves,
                                      graph_mix_masked,
                                      graph_mix_masked_leaves, gram_matrices,
                                      gram_matrix, ref)
     gen = torch.Generator(device=dev).manual_seed(8)
     count = 0
-    for n in (MAIN_N, 100, 129):
+    for n in sorted(set(GRAM_GROUPED_N + MIX_GROUPED_N)):
         for dtype in (torch.float32, torch.bfloat16):
             xs, w, e = tree_inputs(dev, gen, n, dtype)
-            g, again = gram_matrices(xs), gram_matrices(xs)
-            ys = graph_mix_leaves(w, xs) if n == MAIN_N else None
-            zs = graph_mix_masked_leaves(e, xs) if n == MAIN_N else None
-            if not torch.equal(g, again):
-                raise AssertionError(f"gram n={n} {dtype}: two calls differ")
+            if n in GRAM_GROUPED_N:
+                g = gram_matrices(xs)
+                if not torch.equal(g, gram_matrices(xs)):
+                    raise AssertionError(f"gram n={n} {dtype}: two calls "
+                                         f"differ")
+                for i, x in enumerate(xs):
+                    what = f"grouped n={n} D={x.shape[1]}"
+                    if not torch.equal(g[i], gram_matrix(x)):
+                        raise AssertionError(f"{what} {dtype}: grouped gram "
+                                             f"is not the per-leaf call")
+                    compare("gram_matrix", _cosine(g[i]),
+                            ref.pairwise_cosine(x), n, dtype, what, worst)
+            if n not in MIX_GROUPED_N:
+                continue
+            ys = graph_mix_leaves(w, xs)
+            zs = graph_mix_masked_leaves(e, xs)
+            again = (graph_mix_leaves(w, xs), graph_mix_masked_leaves(e, xs))
             for i, x in enumerate(xs):
                 what = f"grouped n={n} D={x.shape[1]}"
-                if not torch.equal(g[i], gram_matrix(x)):
-                    raise AssertionError(f"{what} {dtype}: grouped gram is "
-                                         f"not the per-leaf call")
-                compare("gram_matrix", _cosine(g[i]), ref.pairwise_cosine(x),
-                        n, dtype, what, worst)
-                if ys is None:
-                    continue
+                if not (torch.equal(ys[i], again[0][i])
+                        and torch.equal(zs[i], again[1][i])):
+                    raise AssertionError(f"{what} {dtype}: two grouped mixes "
+                                         f"differ")
                 if not (torch.equal(ys[i], graph_mix(w, x)) and torch.equal(
                         zs[i], graph_mix_masked(e, x))):
                     raise AssertionError(f"{what} {dtype}: grouped mix is "
@@ -410,9 +477,10 @@ def check_grouped(dev, worst):
                         ref.graph_mix_masked(e, x), n, dtype, what, worst)
                 count += 1
     log(f"phase 3: grouped calls over GN-LeNet's {len(GN_LENET_LEAVES)} "
-        f"leaves (n = 50; the Gram also at n = 100, 129; f32, bf16) equal "
-        f"the per-leaf calls bit for bit, two Gram calls give the same bits; "
-        f"{count} grouped leaves of the mixes within tolerance")
+        f"leaves (the Gram at n = {GRAM_GROUPED_N}, the mixes at n = "
+        f"{MIX_GROUPED_N}; f32, bf16) equal the per-leaf calls bit for bit "
+        f"and two calls give the same bits; {count} grouped leaves of the "
+        f"mixes within tolerance")
 
 
 def _cosine(g):
@@ -486,6 +554,8 @@ def time_dense_large(dev):
         library = (torch.matmul, [(w, x) for x, w, _ in sets]) \
             if name == "graph_mix" else (torch.matmul, uniform)
         t = timings(kernel, library, reps=6)
+        t["library"] = "torch.matmul" + (" of the built uniform W"
+                                         if name == "graph_mix_masked" else "")
         # X read once, Y written once, W read once; 2 n^2 D operations
         # (the dense product, whatever W's zeros).
         t["bound_ms"], t["bound_by"] = bound(n * n * 4 + 2 * n * d * 4,
@@ -494,6 +564,76 @@ def time_dense_large(dev):
         t["shape"] = [n, d, "float32"]
         out[name] = t
         log(f"phase 3: {name} at n={n} D={d} f32 (tiled route): "
+            f"{json.dumps(t)}")
+    return out
+
+
+def csr_matrix(idx, w, w_self):
+    """The CSR slots as a ``torch.sparse_csr`` matrix W (self weight on
+    the diagonal), for ``torch.sparse.mm``."""
+    n, k = idx.shape
+    diag = torch.arange(n, device=idx.device)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([diag.repeat_interleave(k), diag]),
+                     torch.cat([idx.long().reshape(-1), diag])]),
+        torch.cat([w.reshape(-1), w_self]), (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_tree_large(dev):
+    """One grouped call over GN-LeNet's whole tree at n = 1000 for each
+    mix (dense, masked, CSR with k = 3), beside a per-leaf loop of the
+    library call (``torch.matmul``; of the built uniform W for the masked
+    mix; ``torch.sparse.mm`` for the CSR mix), with the tree's bound."""
+    from repro_torch.kernels import (graph_mix_leaves, graph_mix_masked_leaves,
+                                     graph_mix_sparse_leaves)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n, total, k = LARGE_N, sum(GN_LENET_LEAVES), K
+    sets = [tree_inputs(dev, gen, n) for _ in range(2)]
+    uniform, csr = [], []
+    for xs, _, e in sets:
+        a = e.float() + torch.eye(n, device=dev)
+        uniform.append((a / a.sum(1, keepdim=True), xs))
+        _, idx, w, w_self, _ = sparse_inputs(dev, gen, n, 1, k,
+                                             torch.float32)
+        csr.append(((idx.to(torch.int32).contiguous(), w, w_self, xs),
+                    (csr_matrix(idx, w, w_self), xs)))
+    loop_mm = lambda w, xs: [torch.matmul(w, x) for x in xs]
+    loop_sp = lambda w, xs: [torch.sparse.mm(w, x) for x in xs]
+    rows = {
+        # X read once, Y written once, W (or E) read once; the dense mixes
+        # count the dense product's 2 n^2 D operations, whatever W's zeros,
+        # as at_n1000 does.
+        "graph_mix": ((graph_mix_leaves, [(w, xs) for xs, w, _ in sets]),
+                      (loop_mm, [(w, xs) for xs, w, _ in sets]),
+                      "per-leaf loop of torch.matmul",
+                      n * n * 4 + 2 * n * total * 4, 2 * n * n * total),
+        "graph_mix_masked": ((graph_mix_masked_leaves,
+                              [(e, xs) for xs, _, e in sets]),
+                             (loop_mm, uniform),
+                             "per-leaf loop of torch.matmul of the built "
+                             "uniform W",
+                             n * n + 2 * n * total * 4, 2 * n * n * total),
+        # idx, w, w_self and X read once, Y written once; 2 (k + 1) n D.
+        "graph_mix_sparse": ((graph_mix_sparse_leaves,
+                              [c[0] for c in csr]),
+                             (loop_sp, [c[1] for c in csr]),
+                             "per-leaf loop of torch.sparse.mm",
+                             n * k * 8 + n * 4 + 2 * n * total * 4,
+                             2 * (k + 1) * n * total),
+    }
+    out = {}
+    for name, (kernel, library, label, nbytes, flops) in rows.items():
+        t = timings(kernel, library, reps=6)
+        t["library"] = label
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        t["shape"] = [n, f"GN-LeNet's {len(GN_LENET_LEAVES)} leaves, "
+                      f"{total} columns", "float32"]
+        if name == "graph_mix_sparse":
+            t["shape"].insert(2, k)
+        out[name] = t
+        log(f"phase 3: {name} grouped over the GN-LeNet tree at n={n} f32: "
             f"{json.dumps(t)}")
     return out
 
@@ -513,12 +653,7 @@ def time_sparse(dev):
             x, idx, w, w_self, _ = sparse_inputs(dev, gen, n, d, k,
                                                  torch.float32)
             sets.append((idx.to(torch.int32).contiguous(), w, w_self, x))
-            diag = torch.arange(n, device=dev)
-            coo = torch.sparse_coo_tensor(
-                torch.stack([torch.cat([diag.repeat_interleave(k), diag]),
-                             torch.cat([idx.reshape(-1), diag])]),
-                torch.cat([w.reshape(-1), w_self]), (n, n))
-            library.append((coo.coalesce().to_sparse_csr(), x))
+            library.append((csr_matrix(idx, w, w_self), x))
         t = timings((graph_mix_sparse, sets), None)
         t["plain_ms"] = time_ms(ref.graph_mix_sparse, sets)
         try:          # a yardstick only: report its absence, do not fail
@@ -779,25 +914,27 @@ def main_path(dev):
             "graph_mix_masked": graph_mix_masked.launches}
 
 
-def morph_breakdown(dev, rounds=10):
-    """Host-clock time of each stage of a full-width Morph round (every
-    stage ends in a synchronise, so stages do not overlap)."""
+def morph_breakdown(dev, n=MAIN_N, rounds=10, phase=5, **setup):
+    """Host-clock time of each stage of a full-width Morph round at ``n``
+    nodes (every stage ends in a synchronise, so stages do not overlap)."""
     from repro_torch.dlrt import RunnerConfig, Superstep
     from repro_torch.dlrt.runtime import to_device
     from repro_torch.models import cnn_loss
     from repro_torch.optim import sgd
     from repro_torch.kernels import ops
     from repro_torch.tree import stack
-    batcher, test, init = paper_setup(MAIN_N, dev)
+    batcher, test, init = paper_setup(n, dev, **setup)
     gen = torch.Generator().manual_seed(0)
-    params = stack(init(gen) for _ in range(MAIN_N))
+    params = stack(init(gen) for _ in range(n))
     params = type(params)((k, v.to(dev)) for k, v in params.items())
     opt = sgd(0.05)
-    strategy = make_strategy("morph", MAIN_N, dev)
+    strategy = make_strategy("morph", n, dev)
     eng = Superstep(loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=opt,
                     batcher=batcher, test_batch=to_device(test, dev),
                     strategy=strategy,
-                    cfg=RunnerConfig(n_nodes=MAIN_N, rounds=rounds),
+                    cfg=RunnerConfig(n_nodes=n, rounds=rounds,
+                                     eval_batch_chunk=16 if n > MAIN_N
+                                     else None),
                     params=params, opt_state=opt.init(params), device=dev)
     stages = {"batch": 0.0, "local_step": 0.0, "similarity": 0.0,
               "graph_round": 0.0, "mix": 0.0}
@@ -828,8 +965,8 @@ def morph_breakdown(dev, rounds=10):
     torch.cuda.synchronize()
     out = {k: v / rounds * 1e3 for k, v in stages.items()}
     out["evaluate_ms_once"] = (time.perf_counter() - t_eval) * 1e3
-    log(f"phase 5: morph round stages, ms per round (negotiation every "
-        f"{DELTA_R}th): {json.dumps(out)}")
+    log(f"phase {phase}: morph n={n} round stages, ms per round "
+        f"(negotiation every {DELTA_R}th): {json.dumps(out)}")
     return out
 
 
@@ -844,7 +981,7 @@ def sparse_path(dev):
     over the phase."""
     from repro_torch import kernels
     from repro_torch.dlrt import stacked_model_bytes
-    leaves, sparse_launches = 10, 0
+    sparse_launches = 0
     runs = [("sparse-morph", MAIN_N, dict(engine="sparse")),
             ("sparse-epidemic", MAIN_N, dict(engine="sparse")),
             ("static", MAIN_N, dict(engine="sparse", sparse_mix="gather")),
@@ -856,7 +993,7 @@ def sparse_path(dev):
         runner, wall = run_strategy(name, n, dev, ROUNDS, DELTA_R, **kw)
         got = launch_counts()
         want = dict.fromkeys(got, 0)
-        want["graph_mix_sparse"] = leaves * ROUNDS
+        want["graph_mix_sparse"] = ROUNDS        # one grouped launch a round
         if got != want:
             raise AssertionError(f"{name} n={n}: launches {got} != {want}")
         sparse_launches += got["graph_mix_sparse"]
@@ -971,6 +1108,47 @@ def sparse_breakdown(dev, rounds=10):
     log(f"phase 8: sparse morph n={n} round stages, ms per round "
         f"(negotiation every {DELTA_R}th): {json.dumps(out)}")
     return out
+
+
+DENSE_LARGE_ROUNDS = 5
+
+
+def dense_large(dev):
+    """Phase 8, fig12's dense row: dense Morph at n = 1000 on the sparse
+    n = 1000 run's set-up through ``DecentralizedRunner``, with its counts
+    set to 0 just before and read just after (one grouped Gram launch and
+    one grouped masked mix a round, on the tiled route), then where its
+    round's time goes."""
+    from repro_torch import kernels
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runner, wall = run_strategy("morph", LARGE_N, dev, DENSE_LARGE_ROUNDS,
+                                DELTA_R, eval_chunk=16, **LARGE)
+    got = launch_counts()
+    want = dict(dict.fromkeys(got, 0), gram_matrix=DENSE_LARGE_ROUNDS,
+                graph_mix_masked=DENSE_LARGE_ROUNDS)
+    if got != want:
+        raise AssertionError(f"dense morph n={LARGE_N}: launches {got} != "
+                             f"{want}")
+    recs = runner.log.records
+    indeg = np.stack(runner.edge_history).sum(axis=2)
+    if not all(np.isfinite(r.mean_loss) for r in recs) or not all(
+            torch.isfinite(p).all() for p in runner.params.values()):
+        raise AssertionError(f"dense morph n={LARGE_N}: non-finite values")
+    if indeg.max() > K:
+        raise AssertionError(f"dense morph n={LARGE_N}: in-degree "
+                             f"{indeg.max()} > {K}")
+    summary = {"engine": "dense",
+               "ms_per_round_incl_eval": wall / DENSE_LARGE_ROUNDS * 1e3,
+               "accuracy": recs[-1].mean_accuracy, "loss": recs[-1].mean_loss,
+               "isolated": recs[-1].isolated,
+               "max_in_degree": int(indeg.max()),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": got}
+    log(f"phase 8: morph n={LARGE_N} {DENSE_LARGE_ROUNDS} rounds (dense, "
+        f"fig12's dense row): {json.dumps(summary)}")
+    return morph_breakdown(dev, LARGE_N, rounds=DENSE_LARGE_ROUNDS, phase=8,
+                           **LARGE)
 
 
 def reference_check(dev):
@@ -1343,6 +1521,9 @@ def main():
         times[name]["tree_n50"] = t
     for name, t in time_dense_large(dev).items():
         times[name]["at_n1000"] = t
+    tree_large = time_tree_large(dev)
+    for name in ("graph_mix", "graph_mix_masked"):
+        times[name]["tree_n1000"] = tree_large[name]
     sparse_times = time_sparse(dev)
     times["selective_scan"] = time_scan(dev)
     counts = main_path(dev)
@@ -1351,8 +1532,10 @@ def main():
     zoo_reference_check(dev)
     counts["graph_mix_sparse"] = sparse_path(dev)
     sparse_breakdown(dev)
+    dense_large(dev)
     times["graph_mix_sparse"] = dict(sparse_times[LARGE_N],
-                                     at_n50=sparse_times[MAIN_N])
+                                     at_n50=sparse_times[MAIN_N],
+                                     tree_n1000=tree_large["graph_mix_sparse"])
     counts["selective_scan"], _ = serve_jamba(dev)
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
@@ -1392,7 +1575,8 @@ def main():
                                        "host_enqueue_us", "share_of_bound",
                                        "matmul_ms", "matmul_device_ms",
                                        "library_max_abs_err", "at_n50",
-                                       "tree_n50", "at_n1000", "library",
+                                       "tree_n50", "at_n1000",
+                                       "tree_n1000", "library",
                                        "bound_parts_ms", "sm_clock_mhz")
                if key in t},
             "shape": t["shape"]}

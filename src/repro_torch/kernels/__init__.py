@@ -4,7 +4,7 @@ their plain PyTorch versions (:mod:`.ref`) and the parameter-dict wrappers
 (:mod:`.ops`)."""
 from .graph_mix import (graph_mix, graph_mix_leaves, graph_mix_masked,
                         graph_mix_masked_leaves)
-from .graph_mix_sparse import graph_mix_sparse
+from .graph_mix_sparse import graph_mix_sparse, graph_mix_sparse_leaves
 from .pairwise_cosine import gram_matrices, gram_matrix
 from .selective_scan import selective_scan
 
@@ -19,5 +19,6 @@ def reset_launches() -> None:
 
 
 __all__ = ["KERNELS", "graph_mix", "graph_mix_leaves", "graph_mix_masked",
-           "graph_mix_masked_leaves", "graph_mix_sparse", "gram_matrices",
+           "graph_mix_masked_leaves", "graph_mix_sparse",
+           "graph_mix_sparse_leaves", "gram_matrices",
            "gram_matrix", "reset_launches", "selective_scan"]

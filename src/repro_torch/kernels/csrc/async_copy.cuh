@@ -41,6 +41,16 @@ __device__ __forceinline__ void copy16(void* dst, const void* src,
                :: "r"(s), "l"(src), "r"(valid) : "memory");
 }
 
+// Copy `valid` (0 or 4) bytes from `src` to `dst` and zero the rest of
+// the 4; both addresses 4-byte aligned.  With valid == 0 nothing is read,
+// but `src` must still be a device address.
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      int valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid) : "memory");
+}
+
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

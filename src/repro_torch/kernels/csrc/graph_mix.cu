@@ -52,16 +52,51 @@
 // of shared memory for its 28 FMAs a node, and the 10 MB of Y leave at
 // the end with little left to overlap them.
 //
-// Past 128 nodes or rows W no longer fits, and a second route tiles both
-// axes, one launch per leaf: each block owns 32 output rows x 64 columns
-// and walks the node axis in chunks of 32, staging W[rows, chunk] and
-// X[chunk, cols] in shared memory and keeping its 8 sums per thread in
-// registers.  Each sum takes the same fmaf sequence over j = 0 .. n - 1 as
-// the first route, so the two routes give the same bits; the masked rows
-// are divided by the same exact integer row sums (the first route's
-// reciprocals give the same quotients).  X is read once per
-// 32-row tile (ceil(m / 32) times in all); at n = 1000 the route is bound
-// by its 102 GFLOP (1.5 ms at 67 TFLOP/s) and is not redesigned yet.
+// The tiled route (n or m past 128, where W no longer fits in shared
+// memory): fig12's dense engine at n = 1000, and the rectangular products
+// (a shard's [n_local, n] row block, the [n, n S] staleness contraction).
+// Bound at n = m = 1000, conv2 (D = 51,200), f32: 102.4 GFLOP (1.53 ms at
+// 67 TFLOP/s) against 413.6 MB (0.12 ms), so it is bound by operations;
+// the whole GN-LeNet tree is 189.7 GFLOP (2.83 ms).
+//
+// What held its first design back (11.25 ms at that shape, masked 12.45,
+// 5.1x and 5.6x torch.matmul, H100 80GB HBM3 at 700 W): a block of 256
+// threads owned 32 rows x 64 columns, one column and 8 rows a thread, so
+// every FMA took two shared-memory loads in a loop that was not unrolled;
+// staging was load, barrier, compute with nothing in flight; X was read
+// once per 32-row tile (32 times at m = 1000), and each leaf took a launch
+// of its own.
+//
+// Design.  One launch covers every leaf through the same table, an item
+// being 128 output rows x 128 columns of one leaf, numbered leaf after
+// leaf and, inside a leaf, column stripe after column stripe with the
+// ceil(m / 128) row tiles of a stripe next to each other
+// (graph_mix.py's plan_tiled), so the blocks working at one time share X's
+// stripe and read it from L2: X comes from device memory about once.
+// Persistent blocks of 256 threads, two to an SM (a multiple of the row
+// tiles, so a block keeps its row tile), take every gridDim.x-th item.  A
+// thread holds 8 x 8 sums in registers (rows 4 ty .. + 3 and 64 + 4 ty ..
+// + 3, the same for columns): per node it reads two vectors of W and two
+// of X from shared memory for 64 FMAs.  The node axis goes in chunks of
+// 16 through two stages filled by cp.async one chunk ahead: X by 16-byte
+// copies (zero-filled past n and D; plain loads where rows are not
+// aligned), W transposed by 4-byte copies; the masked variant loads its 8
+// entries of E a chunk into registers, keeps them raw until the current
+// chunk's products are done, and stores (E + I) times the row's
+// reciprocal sum (computed once per block, exact as on the small route).
+// Each output is still the fmaf chain over j = 0 .. n - 1 from 0 (a
+// partial last chunk stops at n), so this route gives its first design's
+// bits and the small route's; no split of the node axis and no tensor
+// cores, which would change them.
+//
+// What holds it back (chip_smoke.py phase 3, device time in a CUDA graph,
+// H100 80GB HBM3 at 700 W; PERF.md has the numbers): about 2.5 ms at
+// n = 1000, conv2, 62% of its bound and some 12% slower than
+// torch.matmul; masked about 2.9 ms.  3,200 items on 264 block slots run
+// as 13 rounds where 12.1 would do, and inside a round the FMAs reach
+// about two thirds of the peak rate (the barrier a chunk and the copies'
+// address work are the likely losses); the masked variant adds E's loads,
+// the conversion and a few register spills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,14 +109,10 @@ using async_copy::load4;
 using async_copy::to_f32;
 
 constexpr int kItemCols = 64;   // small route: D columns per tile
-constexpr int kCols = 64;       // tiled route: D columns per tile
-constexpr int kThreads = 256;   // tiled route: threads per block
-constexpr int kGroups = kThreads / kCols;   // tiled route: row groups
 constexpr int kWarpsPerSm = 16;   // small route: resident warps per SM
 constexpr int kMaxLeaves = 64;
 constexpr int kSmallNodes = 128;            // W whole in shared memory
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
@@ -111,8 +142,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4],
 }
 
 // One leaf of a grouped call: X [n, d], Y [m, d], the number of its first
-// 64-column tile among all the call's tiles, and whether X's and Y's rows
-// all start 16-byte aligned.
+// item among all the call's items (64-column tiles on the small route,
+// 128 x 128 tiles on the tiled one), and whether X's and Y's rows all
+// start 16-byte aligned.
 struct MixLeaf {
   const void* x;
   void* y;
@@ -315,84 +347,236 @@ __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
   }
 }
 
-constexpr int kTileRows = 32;                  // output rows per tiled block
-constexpr int kChunk = 32;                     // node-axis chunk
-constexpr int kRowsPerThread = kTileRows / kGroups;
+// The tiled route (m or n past 128).  A tile is 128 output rows x 128
+// columns of one leaf; the items are numbered leaf after leaf and, inside
+// a leaf, column stripe after column stripe with the row tiles of a stripe
+// next to each other, so the blocks working at one time share X's stripe
+// and read it from L2.  Persistent blocks of 256 threads, two to an SM,
+// take the items in turn (item blockIdx.x, then every gridDim.x-th).
+constexpr int kTileRows = 128;   // output rows per tile
+constexpr int kTileCols = 128;   // D columns per tile
+constexpr int kDepth = 16;       // nodes per staged chunk
+constexpr int kTiledThreads = 256;
+constexpr int kTiledPerSm = 2;   // resident blocks per SM
+constexpr int kWLd = kTileRows + 4;   // w_s row stride: 16-byte rows
+constexpr int kWRows = kTiledThreads / kDepth;   // W staging: row step
+constexpr int kWPer = kTileRows / kWRows;          // W values a thread
 
+// One chunk of the node axis for the thread's 8 x 8 outputs: rows
+// 4 ty .. 4 ty + 3 and 64 + 4 ty .. 64 + 4 ty + 3, columns 4 tx .. 4 tx + 3
+// and 64 + 4 tx .. 64 + 4 tx + 3.  Per node two vectors of W (transposed)
+// and two of X for 64 FMAs, in node order; a partial last chunk
+// (!kFull) stops at `depth`, so every output is the fmaf chain over
+// j = 0 .. n - 1 and nothing else.
+template <typename T, bool kFull>
+__device__ __forceinline__ void tiled_chunk(const float (*ws)[kWLd],
+                                            const T (*xs)[kTileCols],
+                                            int depth, int tx, int ty,
+                                            float (&acc)[8][8]) {
+#pragma unroll
+  for (int kk = 0; kk < kDepth; ++kk) {
+    if (!kFull && kk >= depth) break;
+    const float4 a0 = *reinterpret_cast<const float4*>(&ws[kk][4 * ty]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&ws[kk][64 + 4 * ty]);
+    const float4 b0 = load4(&xs[kk][4 * tx]);
+    const float4 b1 = load4(&xs[kk][64 + 4 * tx]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
+}
+
+// Shared memory (static, 34 KB in f32): two stages of W's chunk
+// transposed (w_s[stage][node][row]) and of X's chunk (x_s[stage][node]
+// [column], in X's type), and the masked variant's reciprocal row sums.
+// X's chunk arrives by cp.async (16-byte copies where the leaf's rows are
+// aligned, zero-filled past n and D; plain loads elsewhere), and so does
+// W's, transposed by 4-byte copies; the masked variant loads E's chunk
+// into registers, 8 entries a thread, and stores (E + I) / rowsum
+// transposed once the current chunk's products are done.  Both stages
+// are one chunk ahead of the products.
 template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-    mix_tiled_kernel(const void* __restrict__ wsrc, const T* __restrict__ x,
-                     T* __restrict__ y, int m, int n, long long d,
-                     long long col_tiles) {
-  __shared__ float w_s[kTileRows][kChunk];
-  __shared__ float x_s[kChunk][kCols];
-  __shared__ float rowsum[kTileRows];
-  const long long tile = blockIdx.x;
-  const int i0 = (int)(tile / col_tiles) * kTileRows;
-  const long long c0 = (tile % col_tiles) * kCols;
-  const int c = threadIdx.x % kCols;
-  const int g = threadIdx.x / kCols;  // a warp shares g: w_s reads broadcast
+__global__ void __launch_bounds__(kTiledThreads, kTiledPerSm)
+    mix_tiled_kernel(const void* __restrict__ wsrc,
+                     const __grid_constant__ MixTable table, int m, int n) {
+  constexpr int kPer = 16 / (int)sizeof(T);          // X elements a copy
+  constexpr int kCopies = kTileCols / kPer;          // copies a node
+  constexpr int kXPer = kDepth * kCopies / kTiledThreads;   // a thread
+  static_assert(kXPer * kTiledThreads == kDepth * kCopies, "X copies");
+  __shared__ __align__(16) float w_s[2][kDepth][kWLd];
+  __shared__ __align__(16) unsigned char x_raw[2 * kDepth * kTileCols
+                                              * sizeof(T)];
+  auto x_s = reinterpret_cast<T (*)[kDepth][kTileCols]>(x_raw);
+  __shared__ float inv_s[kTileRows];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int wk = tid % kDepth;    // W staging: node j0 + wk,
+  const int wr = tid / kDepth;    // rows wr + kWRows q for q < kWPer
+  const long long row_tiles = (m + kTileRows - 1) / kTileRows;
+  const int chunks = (n + kDepth - 1) / kDepth;
   const unsigned char* e = static_cast<const unsigned char*>(wsrc);
   const float* w = static_cast<const float*>(wsrc);
 
-  if (kMasked) {
-    // Row sums of E + I: small integers, exact in any order.
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    for (int r = warp; r < kTileRows; r += kThreads / 32) {
-      const int i = i0 + r;
-      float s = 0.f;
-      if (i < m)
-        for (int j = lane; j < n; j += 32)
-          s += (e[(long long)i * n + j] ? 1.f : 0.f) + (i == j ? 1.f : 0.f);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) rowsum[r] = s;
-    }
-  }
+  int inv_i0 = -1;    // the row tile whose reciprocals inv_s holds
+  for (long long item = blockIdx.x; item < table.items; item += gridDim.x) {
+    int l = 0;
+    while (l + 1 < table.count && table.leaf[l + 1].item0 <= item) ++l;
+    const MixLeaf& lf = table.leaf[l];
+    const long long local = item - lf.item0;
+    const int i0 = (int)(local % row_tiles) * kTileRows;
+    const long long c0 = local / row_tiles * kTileCols;
+    const T* x = static_cast<const T*>(lf.x);
+    const long long d = lf.d;
 
-  float acc[kRowsPerThread];
+    if (kMasked && i0 != inv_i0) {
+      // 1 / rowsum(E + I) for the tile's rows: the sums are small
+      // integers, exact in any order, and (E + I) times the reciprocal is
+      // the quotient (E + I) / rowsum exactly for entries 0, 1 and 2.
+      // Every leaf's first item is a multiple of the row tiles, and the
+      // grid is too where it can be, so a block keeps its row tile.
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      for (int r = warp; r < kTileRows; r += kTiledThreads / 32) {
+        const int i = i0 + r;
+        float s = 0.f;
+        if (i < m)
+          for (int j = lane; j < n; j += 32)
+            s += e[(long long)i * n + j] ? 1.f : 0.f;
 #pragma unroll
-  for (int t = 0; t < kRowsPerThread; ++t) acc[t] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kChunk) {
-    __syncthreads();  // the last chunk is consumed (and rowsum is ready)
-    for (int idx = threadIdx.x; idx < kTileRows * kChunk; idx += kThreads) {
-      const int r = idx / kChunk;
-      const int jj = idx % kChunk;
-      const int i = i0 + r;
-      const int j = j0 + jj;
-      float v = 0.f;
-      if (i < m && j < n) {
-        const long long at = (long long)i * n + j;
-        v = kMasked ? ((e[at] ? 1.f : 0.f) + (i == j ? 1.f : 0.f)) / rowsum[r]
-                    : w[at];
+        for (int off = 16; off > 0; off /= 2)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) inv_s[r] = i < m ? 1.f / (s + 1.f) : 0.f;
       }
-      w_s[r][jj] = v;
+      __syncthreads();
+      inv_i0 = i0;
     }
-    for (int idx = threadIdx.x; idx < kChunk * kCols; idx += kThreads) {
-      const int jj = idx / kCols;
-      const int cc = idx % kCols;
-      const int j = j0 + jj;
-      const long long col = c0 + cc;
-      x_s[jj][cc] =
-          (j < n && col < d) ? to_f32(x[(long long)j * d + col]) : 0.f;
+
+    // W (or E) staging: this thread's entries are rows i0 + wr + kWRows q
+    // (those below m: bit q of w_rows) of node j0 + wk.
+    const long long w_at = (long long)(i0 + wr) * n + wk;
+    const long long w_step = (long long)kWRows * n;
+    unsigned w_rows = 0;
+#pragma unroll
+    for (int q = 0; q < kWPer; ++q)
+      w_rows |= (i0 + wr + kWRows * q < m ? 1u : 0u) << q;
+    // The masked variant loads E's entries raw and uses them only after
+    // the current chunk's products, so the products never wait for them.
+    unsigned char eb[kMasked ? kWPer : 1];
+    auto stage_w = [&](int j0, int stage) {
+      const bool in_n = j0 + wk < n;
+#pragma unroll
+      for (int q = 0; q < kWPer; ++q) {
+        const bool live = in_n && (w_rows >> q & 1u);
+        if constexpr (kMasked)
+          eb[q] = live ? e[w_at + q * w_step + j0] : 0;
+        else
+          async_copy::copy4(&w_s[stage][wk][wr + kWRows * q],
+                            live ? w + w_at + q * w_step + j0 : w,
+                            live ? 4 : 0);
+      }
+    };
+    auto store_w = [&](int j0, int stage) {
+      if constexpr (kMasked) {
+        // i == j for entry q where j0 + wk - (i0 + wr) == kWRows q.
+        const int diag = j0 + wk - (i0 + wr);
+        const bool in_n = j0 + wk < n;
+#pragma unroll
+        for (int q = 0; q < kWPer; ++q)
+          w_s[stage][wk][wr + kWRows * q] =
+              in_n && (w_rows >> q & 1u)
+                  ? ((eb[q] ? 1.f : 0.f) + (diag == kWRows * q ? 1.f : 0.f))
+                        * inv_s[wr + kWRows * q]
+                  : 0.f;
+      }
+    };
+    // X's copies of this thread (aligned leaves): node r_p of the chunk,
+    // columns from x_col[p], x_bytes[p] of them inside D.
+    int x_node[kXPer], x_bytes[kXPer];
+    long long x_at[kXPer];
+#pragma unroll
+    for (int p = 0; p < kXPer; ++p) {
+      const int c = tid + p * kTiledThreads;
+      const long long col = c0 + (c % kCopies) * kPer;
+      const long long left = d - col;
+      x_node[p] = c / kCopies;
+      x_at[p] = (long long)x_node[p] * d + col;
+      x_bytes[p] = left <= 0 ? 0
+                   : (left >= kPer ? 16 : (int)left * (int)sizeof(T));
     }
+    auto issue_x = [&](int j0, int stage) {
+      if (lf.aligned) {
+        const T* base = x + (long long)j0 * d;
+#pragma unroll
+        for (int p = 0; p < kXPer; ++p) {
+          const int c = tid + p * kTiledThreads;
+          const int valid = j0 + x_node[p] < n ? x_bytes[p] : 0;
+          async_copy::copy16(&x_s[stage][x_node[p]][(c % kCopies) * kPer],
+                             valid ? base + x_at[p] : x, valid);
+        }
+      } else {
+        for (int c = tid; c < kDepth * kTileCols; c += kTiledThreads) {
+          const int r = c / kTileCols;
+          const int j = j0 + r;
+          const long long col = c0 + c % kTileCols;
+          if (j < n && col < d)
+            x_s[stage][r][c % kTileCols] = x[(long long)j * d + col];
+          else
+            async_copy::set_zero(&x_s[stage][r][c % kTileCols]);
+        }
+      }
+    };
+
+    float acc[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    // Stage 0 holds chunk 0 before the loop; each step then starts the
+    // next chunk's copies (and E loads), runs this chunk's products, and
+    // stores the next W transposed (masked).  The one barrier a step also
+    // tells the next tile that both stages are free.
+    stage_w(0, 0);
+    store_w(0, 0);
+    issue_x(0, 0);
+    async_copy::commit();
+    async_copy::wait<0>();
     __syncthreads();
-    const int jn = min(kChunk, n - j0);
-#pragma unroll
-    for (int t = 0; t < kRowsPerThread; ++t) {
-      const int r = g + t * kGroups;
-      for (int jj = 0; jj < jn; ++jj)
-        acc[t] = fmaf(w_s[r][jj], x_s[jj][c], acc[t]);
+    for (int c = 0; c < chunks; ++c) {
+      const int stage = c & 1;
+      const bool more = c + 1 < chunks;
+      if (more) {
+        issue_x((c + 1) * kDepth, stage ^ 1);
+        stage_w((c + 1) * kDepth, stage ^ 1);
+      }
+      async_copy::commit();
+      const int depth = n - c * kDepth;
+      if (depth >= kDepth)
+        tiled_chunk<T, true>(w_s[stage], x_s[stage], kDepth, tx, ty, acc);
+      else
+        tiled_chunk<T, false>(w_s[stage], x_s[stage], depth, tx, ty, acc);
+      if (more) store_w((c + 1) * kDepth, stage ^ 1);
+      async_copy::wait<0>();
+      __syncthreads();
     }
-  }
-  const long long col = c0 + c;
-  if (col >= d) return;
+
+    T* y = static_cast<T*>(lf.y);
 #pragma unroll
-  for (int t = 0; t < kRowsPerThread; ++t) {
-    const int i = i0 + g + t * kGroups;
-    if (i < m) store(&y[(long long)i * d + col], acc[t]);
+    for (int r = 0; r < 8; ++r) {
+      const int i = i0 + (r < 4 ? 4 * ty + r : 64 + 4 * ty + r - 4);
+      if (i >= m) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long col = c0 + 64 * h + 4 * tx;
+        const float v[4] = {acc[r][4 * h], acc[r][4 * h + 1],
+                            acc[r][4 * h + 2], acc[r][4 * h + 3]};
+        if (d - col > 0)
+          store4(y + (long long)i * d + col, v, d - col, lf.aligned != 0);
+      }
+    }
   }
 }
 
@@ -426,29 +610,27 @@ int launch_small(const void* w, const MixTable& table, int m, int n, int sms,
   return (int)cudaGetLastError();
 }
 
-// leaves: `count` rows of (X pointer, Y pointer, D, first tile) as int64.
+// The tiled route's launch: kTiledPerSm blocks per SM, rounded down to a
+// multiple of the row tiles where there are more slots than row tiles (so
+// each block keeps one row tile), never more than the items.
+template <typename T, bool kMasked>
+int launch_tiled(const void* w, const MixTable& table, int m, int n, int sms,
+                 cudaStream_t stream) {
+  if (table.items == 0) return (int)cudaSuccess;
+  const long long row_tiles = (m + kTileRows - 1) / kTileRows;
+  long long slots = (long long)kTiledPerSm * sms;
+  if (slots >= row_tiles) slots -= slots % row_tiles;
+  const long long blocks = table.items < slots ? table.items : slots;
+  mix_tiled_kernel<T, kMasked>
+      <<<(unsigned)blocks, kTiledThreads, 0, stream>>>(w, table, m, n);
+  return (int)cudaGetLastError();
+}
+
+// leaves: `count` rows of (X pointer, Y pointer, D, first item) as int64.
 template <typename T, bool kMasked>
 int launch_mix(const void* w, const long long* leaves, int count, int m,
                int n, int sms, int* sched, cudaStream_t stream) {
   if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
-  if (m > kSmallNodes || n > kSmallNodes) {
-    // The tiled route: one launch per leaf.
-    for (int l = 0; l < count; ++l) {
-      const long long* row = leaves + 4 * l;
-      const long long d = row[2];
-      const long long col_tiles = (d + kCols - 1) / kCols;
-      const long long blocks = (long long)((m + kTileRows - 1) / kTileRows)
-                               * col_tiles;
-      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-      if (blocks == 0) continue;
-      mix_tiled_kernel<T, kMasked><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          w, reinterpret_cast<const T*>(row[0]), reinterpret_cast<T*>(row[1]),
-          m, n, d, col_tiles);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaSuccess;
-  }
   MixTable table;
   table.count = count;
   for (int l = 0; l < count; ++l) {
@@ -462,6 +644,12 @@ int launch_mix(const void* w, const long long* leaves, int count, int m,
                  && ((row[2] * (long long)sizeof(T)) % 16 == 0);
   }
   const MixLeaf& last = table.leaf[count - 1];
+  if (m > kSmallNodes || n > kSmallNodes) {
+    // The tiled route: ceil(m / 128) items per 128-column stripe.
+    table.items = last.item0 + (m + kTileRows - 1) / kTileRows
+                                   * ((last.d + kTileCols - 1) / kTileCols);
+    return launch_tiled<T, kMasked>(w, table, m, n, sms, stream);
+  }
   table.items = last.item0 + (last.d + kItemCols - 1) / kItemCols;
   // Rows per thread: 8, or 7 where that covers m (m = 50 takes 8 x 7 rows,
   // not 8 x 8).
@@ -481,9 +669,10 @@ int launch_mix(const void* w, const long long* leaves, int count, int m,
 }  // namespace
 
 // w: [m, n] f32; leaves: `count` rows of int64 (X [n, d] pointer, Y [m, d]
-// pointer in X's type, d, index of the leaf's first 64-column tile among
-// the call's tiles); sms: the device's SM count; sched: two int32 counters,
-// 0 before the call and left 0 by it (the small route's tile scheduler).
+// pointer in X's type, d, index of the leaf's first item among the call's
+// items: graph_mix.py's plan_mix up to 128 nodes and rows, plan_tiled
+// past); sms: the device's SM count; sched: two int32 counters, 0 before
+// the call and left 0 by it (the small route's tile scheduler).
 extern "C" int graph_mix_f32(const void* w, const long long* leaves,
                              int count, int m, int n, int sms, void* sched,
                              void* stream) {

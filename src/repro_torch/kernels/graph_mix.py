@@ -3,9 +3,9 @@
 and :func:`graph_mix_masked` (uniform averaging built from the in-edge
 matrix inside the kernel), and their grouped forms
 :func:`graph_mix_leaves` and :func:`graph_mix_masked_leaves`, which mix
-every leaf of a parameter dict in one launch (one per leaf past 128 nodes,
-where the tiled route runs).  The one-tensor wrappers are the one-leaf case
-of the same launch.
+every leaf of a parameter dict in one launch, on the small route (up to
+128 nodes and rows) and on the tiled one past it alike.  The one-tensor
+wrappers are the one-leaf case of the same launch.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version in :mod:`repro_torch.kernels.ref` (leaf by leaf) for CPU tensors,
@@ -33,6 +33,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 COLS = 64            # D columns per tile of the small route (kItemCols)
 SMALL_NODES = 128    # past this many nodes or rows: the tiled route
+TILE = 128           # the tiled route's tiles: TILE rows x TILE columns
 MAX_LEAVES = 64      # leaves per launch (kMaxLeaves)
 
 
@@ -58,6 +59,37 @@ def mix_items(ds: Sequence[int], firsts: Sequence[int]
             leaf += 1
         c0 = (item - firsts[leaf]) * COLS
         yield leaf, c0, min(ds[leaf], c0 + COLS)
+
+
+def plan_tiled(m: int, ds: Sequence[int]) -> List[int]:
+    """The tiled route's plan: the number of each leaf's first item among
+    a grouped call's items, an item being ``TILE`` output rows x ``TILE``
+    columns of one leaf, ``ceil(m / TILE)`` of them per column stripe;
+    numbered leaf after leaf, it depends only on m and the widths of the
+    leaves before it."""
+    firsts, at = [], 0
+    for d in ds:
+        firsts.append(at)
+        at += -(-m // TILE) * -(-d // TILE)
+    return firsts
+
+
+def tiled_items(m: int, ds: Sequence[int], firsts: Sequence[int]
+                ) -> Iterator[Tuple[int, int, int, int, int]]:
+    """``(leaf, first row, end row, first column, end column)`` of every
+    item of a grouped call on the tiled route, in item order, found from
+    the item's number as the kernel finds it: inside a leaf the row tiles
+    of one column stripe follow each other, so the blocks working at one
+    time share that stripe of X."""
+    row_tiles = -(-m // TILE)
+    total = firsts[-1] + row_tiles * -(-ds[-1] // TILE) if ds else 0
+    for item in range(total):
+        leaf = 0
+        while leaf + 1 < len(ds) and firsts[leaf + 1] <= item:
+            leaf += 1
+        stripe, tile = divmod(item - firsts[leaf], row_tiles)
+        r0, c0 = tile * TILE, stripe * TILE
+        yield leaf, r0, min(m, r0 + TILE), c0, min(ds[leaf], c0 + TILE)
 
 
 def _check_leaves(what: str, xs: Sequence[torch.Tensor], n: int) -> None:
@@ -88,14 +120,14 @@ def _launch(kernel, what: str, src: torch.Tensor, xs: Sequence[torch.Tensor],
         chunk = range(start, min(start + MAX_LEAVES, len(xs)))
         widths = ds[chunk.start:chunk.stop]
         rows = []
-        for i, first in zip(chunk, plan_mix(widths)):
+        plan = plan_tiled(m, widths) if tiled else plan_mix(widths)
+        for i, first in zip(chunk, plan):
             rows += [xs[i].data_ptr(), ys[i].data_ptr(), xs[i].shape[1],
                      first]
         status = fn(src.data_ptr(), (ctypes.c_longlong * len(rows))(*rows),
                     len(widths), *shape, sms, sched, stream)
         cuda.check(cuda.library(_NAME, _SIGNATURES), _NAME, status, what)
-        live = sum(1 for d in widths if d > 0)
-        kernel.launches += live if tiled else int(live > 0)
+        kernel.launches += int(any(d > 0 for d in widths))
     return ys
 
 
@@ -103,7 +135,7 @@ def graph_mix_leaves(w: torch.Tensor, xs: Sequence[torch.Tensor]
                      ) -> List[torch.Tensor]:
     """``W [m, n]`` (f32) ``@ X [n, D]`` for every ``X`` in ``xs`` (f32 or
     bf16, one dtype, any D each) -> ``[m, D]`` in X's dtype, accumulated
-    in f32; one launch up to 128 nodes and rows."""
+    in f32; one launch (up to :data:`MAX_LEAVES` leaves)."""
     if not xs:
         return []
     if xs[0].device.type == "cpu":

@@ -6,7 +6,8 @@ cosine is the Gram matrix divided by ``max(sqrt(diag), 1e-12)`` on both
 sides, so a zero leaf (biases at initialization) gives 0, not NaN.  The
 kernels mask their ragged tails themselves, so nothing is padded here.
 On the card one launch takes the Gram matrix of every leaf, and one mixes
-every leaf; on the CPU each leaf goes through the plain versions in turn.
+every leaf (dense or CSR); on the CPU each leaf goes through the plain
+versions in turn.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from .graph_mix import graph_mix_leaves, graph_mix_masked_leaves
-from .graph_mix_sparse import graph_mix_sparse
+from .graph_mix_sparse import graph_mix_sparse, graph_mix_sparse_leaves
 from .pairwise_cosine import gram_matrices, gram_matrix
 
 _EPS = 1e-12
@@ -98,10 +99,11 @@ def mix_sparse_pytree(idx: torch.Tensor, w: torch.Tensor,
                       w_self: torch.Tensor, stacked: Dict[str, torch.Tensor],
                       mask: Optional[torch.Tensor] = None
                       ) -> "OrderedDict[str, torch.Tensor]":
-    """:func:`mix_sparse` over every leaf of node-stacked parameters (the
-    operands are prepared once for all leaves)."""
-    ops = _csr_operands(idx, w, w_self, mask)
-    return OrderedDict(
-        (k, graph_mix_sparse(*ops, v.reshape(v.shape[0], -1)).reshape(
-            v.shape))
-        for k, v in stacked.items())
+    """:func:`mix_sparse` over every leaf of node-stacked parameters: the
+    operands are prepared once, and on the card one launch mixes every
+    leaf."""
+    ys = graph_mix_sparse_leaves(*_csr_operands(idx, w, w_self, mask),
+                                 [v.reshape(v.shape[0], -1).contiguous()
+                                  for v in stacked.values()])
+    return OrderedDict((k, y.reshape(v.shape))
+                       for (k, v), y in zip(stacked.items(), ys))

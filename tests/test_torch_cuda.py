@@ -24,8 +24,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (graph_mix, graph_mix_leaves,  # noqa: E402
                                  graph_mix_masked, graph_mix_masked_leaves,
-                                 graph_mix_sparse, gram_matrices, gram_matrix,
-                                 ops, ref, selective_scan)
+                                 graph_mix_sparse, graph_mix_sparse_leaves,
+                                 gram_matrices, gram_matrix, ops, ref,
+                                 selective_scan)
 
 # n = 129, 200 and 1000 take the dense mixes' tiled route (W past 128).
 SHAPES = [(4, 64), (8, 1000), (16, 8192), (33, 300), (16, 8192 + 7),
@@ -36,10 +37,14 @@ SPARSE_CASES = [(n, d, k) for n, d in SPARSE_SHAPES for k in (2, 3, 8)
                 if k < n] + [(1000, 51200, 3)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Grouped calls: GN-LeNet's ten leaf widths at the paper's n = 50, ragged
-# widths, and past one Gram tile and the small mix route (n = 129).
+# widths, and past one Gram tile and the small mix route (n = 129; GN-LeNet
+# on the tiled route at n = 129, 200 and 1000).
 GN_LENET = [32, 2400, 64, 51200, 10, 40960, 32, 32, 64, 64]
 GROUPED = {"gn_lenet_n50": (50, GN_LENET),
-           "ragged_n7": (7, [1, 10, 129, 8199]), "n100": (100, [64, 2400, 10]), "n129": (129, [64, 129, 2400])}
+           "ragged_n7": (7, [1, 10, 129, 8199]),
+           "n100": (100, [64, 2400, 10]), "n129": (129, [64, 129, 2400]),
+           "gn_lenet_n129": (129, GN_LENET), "gn_lenet_n200": (200, GN_LENET),
+           "gn_lenet_n1000": (1000, GN_LENET)}
 # (batch, L, d_inner, d_state): tests/test_kernels.py's four, a ragged
 # d_inner, one step, an L that is no multiple of the kernel's 32-step
 # tile, and a width past one block of channels.
@@ -107,14 +112,17 @@ def test_cuda_grouped_calls_are_the_per_leaf_calls(cuda_device, case, dtype):
     ys = graph_mix_leaves(w, xs)
     zs = graph_mix_masked_leaves(edges, xs)
     torch.cuda.synchronize()
-    per_call = 1 if n <= 128 else len(ds)          # the tiled route: per leaf
+    # One launch a call, on the tiled route past 128 nodes too.
     assert (gram_matrix.launches - before[0], graph_mix.launches - before[1],
-            graph_mix_masked.launches - before[2]) == (1, per_call, per_call)
+            graph_mix_masked.launches - before[2]) == (1, 1, 1)
+    again = (graph_mix_leaves(w, xs), graph_mix_masked_leaves(edges, xs))
     rtol = 0.0 if dtype == "float32" else 2.0 ** -7
     for i, x in enumerate(xs):
         assert torch.equal(g[i], gram_matrix(x))
         assert torch.equal(ys[i], graph_mix(w, x))
         assert torch.equal(zs[i], graph_mix_masked(edges, x))
+        assert torch.equal(ys[i], again[0][i])
+        assert torch.equal(zs[i], again[1][i])
         torch.testing.assert_close(g[i], ref.gram_matrix(x),
                                    atol=2e-6 * x.shape[1], rtol=1e-5)
         torch.testing.assert_close(ys[i].float(), ref.graph_mix(w, x).float(),
@@ -208,6 +216,39 @@ def test_cuda_graph_mix_sparse_matches_plain(cuda_device, n, d, k, dtype):
     rtol = 0.0 if dtype == "float32" else 2.0 ** -7
     torch.testing.assert_close(got.float(), want.float(),
                                atol=1e-4 * (k + 1) ** 0.5, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,invalid", [(50, 3, 0.0), (50, 49, 0.3),
+                                         (1000, 3, 0.0), (1000, 999, 0.3)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_grouped_csr_is_the_per_leaf_calls_and_plain(cuda_device, n, k,
+                                                          invalid, dtype):
+    """One grouped CSR call over GN-LeNet's leaves is one launch, and each
+    leaf is the per-leaf call and the plain version bit for bit, the same
+    bits twice (invalid slots parked on their own row)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + k)
+    xs = [torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype]) for d in GN_LENET]
+    scores = torch.rand((n, n), generator=gen, device=cuda_device)
+    scores.fill_diagonal_(-1.0)
+    idx = scores.topk(k, dim=1).indices
+    w = torch.rand((n, k), generator=gen, device=cuda_device)
+    w_self = torch.rand((n,), generator=gen, device=cuda_device)
+    mask = torch.rand((n, k), generator=gen, device=cuda_device) >= invalid
+    rows = torch.arange(n, device=cuda_device)[:, None]
+    parked = (torch.where(mask, idx, rows).to(torch.int32).contiguous(),
+              torch.where(mask, w, 0.0).contiguous(), w_self)
+    before = graph_mix_sparse.launches
+    ys = graph_mix_sparse_leaves(*parked, xs)
+    torch.cuda.synchronize()
+    assert graph_mix_sparse.launches == before + 1
+    again = graph_mix_sparse_leaves(*parked, xs)
+    for y, y2, x in zip(ys, again, xs):
+        assert y.dtype == x.dtype
+        assert torch.equal(y, ref.graph_mix_sparse(*parked, x))
+        assert torch.equal(y, graph_mix_sparse(*parked, x))
+        assert torch.equal(y, y2)
 
 
 @pytest.mark.cuda

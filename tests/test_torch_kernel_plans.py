@@ -1,14 +1,18 @@
-"""Launch planning of the grouped graph-mix and Gram kernels, on the CPU.
+"""Launch planning of the grouped graph-mix, CSR-mix and Gram kernels, on
+the CPU.
 
 A grouped call numbers the work of every leaf in one launch.  These tests
-hold the pure-Python plans (``plan_mix``, ``plan_gram``) to what the
-kernels rely on: every column of every leaf is mixed exactly once, every
-Gram tile ``i <= j`` is computed exactly once and its splits cover D
-exactly once, and a leaf's plan does not depend on the other leaves of the
-call (so a grouped call gives each leaf the bits of a call of its own).
-They also check the tables the wrappers hand to the C functions, with the
-library faked, and that the CPU forms of the grouped wrappers are the
-per-leaf plain versions, bit for bit.
+hold the pure-Python plans (``plan_mix``, ``plan_tiled``, ``plan_sparse``,
+``plan_gram``) to what the kernels rely on: every column of every leaf is
+mixed exactly once (every row too past 128 nodes, every receiver in the
+CSR mix), the tiled route's row tiles of a column stripe and the CSR
+mix's receiver groups of a stripe come one after another, every Gram tile
+``i <= j`` is computed exactly once and its splits cover D exactly once,
+and a leaf's plan does not depend on the other leaves of the call (so a
+grouped call gives each leaf the bits of a call of its own).  They also
+check the tables the wrappers hand to the C functions, with the library
+faked, and that the CPU forms of the grouped wrappers are the per-leaf
+plain versions, bit for bit.
 """
 import importlib
 
@@ -19,11 +23,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (  # noqa: E402
     cuda, graph_mix, graph_mix_leaves, graph_mix_masked,
-    graph_mix_masked_leaves, gram_matrices, gram_matrix, ops, ref)
+    graph_mix_masked_leaves, graph_mix_sparse, graph_mix_sparse_leaves,
+    gram_matrices, gram_matrix, ops, ref)
 from repro_torch.kernels import pairwise_cosine as pc  # noqa: E402
 
-# The package's ``graph_mix`` is the wrapper; its module holds the plan.
+# The package's ``graph_mix`` and ``graph_mix_sparse`` are the wrappers;
+# their modules hold the plans.
 gm_mod = importlib.import_module("repro_torch.kernels.graph_mix")
+gs_mod = importlib.import_module("repro_torch.kernels.graph_mix_sparse")
 
 # GN-LeNet CIFAR-10 at width 32: its ten leaves' widths per node.
 GN_LENET = [32, 2400, 64, 51200, 10, 40960, 32, 32, 64, 64]
@@ -32,6 +39,11 @@ LEAF_SETS = {"gn_lenet": GN_LENET, "ragged": RAGGED,
              "mixed": [0, 129, 1, 64, 65, 8199, 0]}
 NODES = [7, 50, 100, 129]
 SMS = [132, 114, 8]
+# Rows (m) of the tiled route: past 128, one row tile, several, ragged.
+TILED_ROWS = [129, 200, 1000]
+# CSR populations and element sizes (f32, bf16).
+SPARSE_NODES = [7, 50, 1000]
+ITEMSIZES = [4, 2]
 
 
 def _cover(spans, d):
@@ -64,6 +76,101 @@ def test_mix_plan_of_a_leaf_does_not_depend_on_the_others(leaves):
         grouped = [(c0, c1) for leaf, c0, c1 in gm_mod.mix_items(ds, firsts)
                    if leaf == i]
         assert grouped == [(c0, c1) for _, c0, c1 in alone]
+
+
+@pytest.mark.parametrize("m", TILED_ROWS)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_tiled_items_cover_every_row_and_column_once(leaves, m):
+    ds = LEAF_SETS[leaves]
+    firsts = gm_mod.plan_tiled(m, ds)
+    seen = [np.zeros((m, d), dtype=int) for d in ds]
+    for leaf, r0, r1, c0, c1 in gm_mod.tiled_items(m, ds, firsts):
+        assert r1 > r0 and c1 > c0
+        assert r0 % gm_mod.TILE == 0 and c0 % gm_mod.TILE == 0
+        seen[leaf][r0:r1, c0:c1] += 1
+    for cover in seen:
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("m", TILED_ROWS)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_tiled_items_run_the_row_tiles_of_a_stripe_together(leaves, m):
+    """Leaf after leaf, stripe after stripe, and inside a stripe its row
+    tiles in row order: the items of one stripe are consecutive."""
+    ds = LEAF_SETS[leaves]
+    order = [(leaf, c0, r0) for leaf, r0, _, c0, _ in
+             gm_mod.tiled_items(m, ds, gm_mod.plan_tiled(m, ds))]
+    assert order == sorted(order)
+    row_tiles = -(-m // gm_mod.TILE)
+    for at in range(0, len(order), row_tiles):
+        stripe = order[at:at + row_tiles]
+        assert len({(leaf, c0) for leaf, c0, _ in stripe}) == 1
+        assert [r0 for _, _, r0 in stripe] == \
+            [t * gm_mod.TILE for t in range(row_tiles)]
+
+
+@pytest.mark.parametrize("m", TILED_ROWS)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_tiled_plan_of_a_leaf_does_not_depend_on_the_others(leaves, m):
+    ds = LEAF_SETS[leaves]
+    firsts = gm_mod.plan_tiled(m, ds)
+    grouped = list(gm_mod.tiled_items(m, ds, firsts))
+    for i, d in enumerate(ds):
+        alone = [item[1:] for item in
+                 gm_mod.tiled_items(m, [d], gm_mod.plan_tiled(m, [d]))]
+        assert [item[1:] for item in grouped if item[0] == i] == alone
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("n", SPARSE_NODES)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_sparse_items_cover_every_receiver_and_column_once(leaves, n,
+                                                           itemsize):
+    ds = LEAF_SETS[leaves]
+    firsts = gs_mod.plan_sparse(n, ds, itemsize)
+    width = gs_mod.stripe_cols(itemsize)
+    assert width * itemsize == 32 * 16
+    seen = [np.zeros((n, d), dtype=int) for d in ds]
+    for leaf, c0, c1, r0, r1 in gs_mod.sparse_items(n, ds, firsts,
+                                                    itemsize):
+        assert c1 > c0 and c0 % width == 0
+        assert 0 < r1 - r0 <= gs_mod.RECEIVERS
+        seen[leaf][r0:r1, c0:c1] += 1
+    for cover in seen:
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("n", SPARSE_NODES)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_sparse_items_come_in_stripe_order(leaves, n, itemsize):
+    """Every receiver group of a stripe comes before the next stripe: the
+    items are sorted by (leaf, stripe, receiver), and each stripe's run
+    of items holds all n receivers."""
+    ds = LEAF_SETS[leaves]
+    items = list(gs_mod.sparse_items(n, ds, gs_mod.plan_sparse(
+        n, ds, itemsize), itemsize))
+    order = [(leaf, c0, r0) for leaf, c0, _, r0, _ in items]
+    assert order == sorted(order)
+    groups = -(-n // gs_mod.RECEIVERS)
+    for at in range(0, len(items), groups):
+        stripe = items[at:at + groups]
+        assert len({(leaf, c0) for leaf, c0, _, _, _ in stripe}) == 1
+        assert sum(r1 - r0 for _, _, _, r0, r1 in stripe) == n
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("n", SPARSE_NODES)
+@pytest.mark.parametrize("leaves", sorted(LEAF_SETS))
+def test_sparse_plan_of_a_leaf_does_not_depend_on_the_others(leaves, n,
+                                                             itemsize):
+    ds = LEAF_SETS[leaves]
+    grouped = list(gs_mod.sparse_items(
+        n, ds, gs_mod.plan_sparse(n, ds, itemsize), itemsize))
+    for i, d in enumerate(ds):
+        alone = [item[1:] for item in gs_mod.sparse_items(
+            n, [d], gs_mod.plan_sparse(n, [d], itemsize), itemsize)]
+        assert [item[1:] for item in grouped if item[0] == i] == alone
 
 
 @pytest.mark.parametrize("n", NODES)
@@ -159,13 +266,91 @@ def test_grouped_mix_is_one_launch_with_the_planned_table(fake_cuda):
         assert table[:, 3].tolist() == gm_mod.plan_mix(ds)
 
 
-def test_grouped_mix_past_128_nodes_counts_a_launch_per_leaf(fake_cuda):
-    xs = [torch.empty((200, d), device="meta") for d in (64, 0, 10)]
-    w = torch.empty((200, 200), device="meta")
-    before = graph_mix.launches
+@pytest.mark.parametrize("n", TILED_ROWS)
+def test_grouped_mix_past_128_nodes_counts_a_launch_per_leaf(fake_cuda, n):
+    """Past 128 nodes (the tiled route) a grouped call is one launch over
+    every leaf too, counted once, with the tiled route's plan in its
+    table; the name is from when that route launched once per leaf."""
+    ds = GN_LENET + [0]
+    xs = [torch.empty((n, d), device="meta") for d in ds]
+    w = torch.empty((n, n), device="meta")
+    e = torch.empty((n, n), dtype=torch.bool, device="meta")
+    before = (graph_mix.launches, graph_mix_masked.launches)
     graph_mix_leaves(w, xs)
-    assert graph_mix.launches - before == 2        # the D = 0 leaf: none
-    assert len(fake_cuda.calls) == 1
+    graph_mix_masked_leaves(e, xs)
+    assert (graph_mix.launches - before[0],
+            graph_mix_masked.launches - before[1]) == (1, 1)
+    (fn1, args1), (fn2, args2) = fake_cuda.calls
+    assert (fn1, fn2) == ("graph_mix_f32", "graph_mix_masked_f32")
+    assert args1[2:5] == (len(ds), n, n) and args2[2:4] == (len(ds), n)
+    for args in (args1, args2):
+        table = _table(args[1], len(ds), 4)
+        assert table[:, 2].tolist() == ds
+        assert table[:, 3].tolist() == gm_mod.plan_tiled(n, ds)
+
+
+def test_grouped_mix_of_empty_leaves_launches_nothing(fake_cuda):
+    xs = [torch.empty((200, 0), device="meta")] * 3
+    before = graph_mix.launches
+    ys = graph_mix_leaves(torch.empty((200, 200), device="meta"), xs)
+    assert [tuple(y.shape) for y in ys] == [(200, 0)] * 3
+    assert graph_mix.launches == before
+    assert len(fake_cuda.calls) == 1     # the C side finds no item
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [50, 1000])
+def test_grouped_csr_is_one_launch_with_the_planned_table(fake_cuda, n,
+                                                          dtype):
+    ds, k = GN_LENET, 3
+    xs = [torch.empty((n, d), dtype=getattr(torch, dtype), device="meta")
+          for d in ds]
+    idx = torch.empty((n, k), dtype=torch.int32, device="meta")
+    w = torch.empty((n, k), device="meta")
+    w_self = torch.empty((n,), device="meta")
+    before = graph_mix_sparse.launches
+    ys = graph_mix_sparse_leaves(idx, w, w_self, xs)
+    assert [(tuple(y.shape), y.dtype) for y in ys] == \
+        [((n, d), xs[0].dtype) for d in ds]
+    assert graph_mix_sparse.launches - before == 1
+    ((fn, args),) = fake_cuda.calls
+    suffix = "f32" if dtype == "float32" else "bf16"
+    assert fn == f"graph_mix_sparse_{suffix}"
+    assert args[4:8] == (len(ds), n, k, 132)
+    table = _table(args[3], len(ds), 4)
+    assert table[:, 2].tolist() == ds
+    assert table[:, 3].tolist() == gs_mod.plan_sparse(
+        n, ds, xs[0].element_size())
+
+
+def test_grouped_csr_splits_past_max_leaves(fake_cuda):
+    n, k = 9, 2
+    xs = [torch.empty((n, 64), device="meta")] * (gs_mod.MAX_LEAVES + 3)
+    idx = torch.empty((n, k), dtype=torch.int32, device="meta")
+    w = torch.empty((n, k), device="meta")
+    before = graph_mix_sparse.launches
+    graph_mix_sparse_leaves(idx, w, torch.empty((n,), device="meta"), xs)
+    assert graph_mix_sparse.launches - before == 2
+    assert [args[4] for _, args in fake_cuda.calls] == [gs_mod.MAX_LEAVES,
+                                                        3]
+
+
+def test_sparse_parameter_dict_mix_is_one_grouped_call(fake_cuda):
+    n, k = 50, 3
+    stacked = {f"leaf{i}": torch.empty((n, d), device="meta")
+               for i, d in enumerate(GN_LENET)}
+    stacked["conv"] = torch.empty((n, 4, 3, 5), device="meta")
+    idx = torch.empty((n, k), dtype=torch.int64, device="meta")
+    w = torch.empty((n, k), device="meta")
+    before = graph_mix_sparse.launches
+    mixed = ops.mix_sparse_pytree(idx, w, torch.empty((n,), device="meta"),
+                                  stacked)
+    assert graph_mix_sparse.launches - before == 1
+    assert {k: v.shape for k, v in mixed.items()} == \
+        {k: v.shape for k, v in stacked.items()}
+    ((fn, args),) = fake_cuda.calls
+    table = _table(args[3], len(stacked), 4)
+    assert table[:, 2].tolist() == GN_LENET + [60]
 
 
 def test_grouped_gram_is_one_launch_with_the_planned_table(fake_cuda):
@@ -220,6 +405,41 @@ def test_cpu_grouped_forms_are_the_per_leaf_plain_versions(n, ds, dtype):
     assert tuple(g.shape) == (len(ds), n, n)
     for got, x in zip(g, xs):
         assert torch.equal(got, ref.gram_matrix(x))
+
+
+def _csr(n, k, seed, invalid=0.0):
+    """Slots of k distinct non-self senders per receiver, weights, and a
+    mask with a share ``invalid`` of invalid slots."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(np.delete(np.arange(n), i), k, replace=False)
+                    for i in range(n)])
+    w = rng.random((n, k)).astype(np.float32)
+    w_self = rng.random(n).astype(np.float32)
+    mask = rng.random((n, k)) >= invalid
+    return (torch.as_tensor(idx), torch.as_tensor(w),
+            torch.as_tensor(w_self), torch.as_tensor(mask))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k,invalid", [(7, 3, 0.0), (20, 19, 0.3),
+                                         (50, 3, 0.1)])
+def test_cpu_grouped_csr_is_the_per_leaf_plain_version(n, k, invalid,
+                                                       dtype):
+    xs = _leaves(n, RAGGED + GN_LENET[:4], getattr(torch, dtype), n + k)
+    idx, w, w_self, mask = _csr(n, k, n * k, invalid)
+    rows = torch.arange(n)[:, None]
+    parked = (torch.where(mask, idx, rows).to(torch.int32),
+              torch.where(mask, w, 0.0), w_self)
+    for got, x in zip(graph_mix_sparse_leaves(*parked, xs), xs):
+        assert got.dtype == x.dtype
+        assert torch.equal(got, ref.graph_mix_sparse(*parked, x))
+        assert torch.equal(got, graph_mix_sparse(*parked, x))
+    stacked = {str(i): x for i, x in enumerate(xs)}
+    mixed = ops.mix_sparse_pytree(idx, w, w_self, stacked, mask=mask)
+    for key, x in stacked.items():
+        assert torch.equal(mixed[key], ops.mix_sparse(idx, w, w_self, x,
+                                                      mask=mask))
+        assert torch.equal(mixed[key], ref.graph_mix_sparse(*parked, x))
 
 
 def test_cpu_parameter_dict_ops_keep_the_leaf_by_leaf_bits():
