@@ -19,20 +19,25 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    k = n - 1 with invalid slots, and one grouped CSR call over the ten
    leaves (n = 50 and 1000, k = 3 and n - 1) the per-leaf calls and the
    plain version bit for bit; the selective scan at
-   ``tests/test_kernels.py``'s shapes, a ragged d_inner, L = 1 and 37 and
-   the served shape (2 x 2,048 tokens, d_inner 16,384, d_state 16), in
-   f32, bf16 and apply_mamba's
-   serving mix, and chained halves against one call; each kernel timed at
-   the largest main-path shape (inputs rotated through more than the 50 MB
-   L2 so every call reads from device memory), the CSR kernel at n = 50
-   and 1000: ``ms`` is CUDA events around 30 calls made from Python,
+   ``tests/test_kernels.py``'s shapes, ragged and odd d_inner, L = 1, 33,
+   37 and 65 and the served shape (2 x 2,048 tokens, d_inner 16,384,
+   d_state 16), in f32, bf16 and apply_mamba's serving mix, and chained
+   halves against one call; the Gram at n = 1000 (one leaf, D = 51,200, and
+   grouped over the tree, bit for bit the per-leaf calls); each kernel
+   timed at the largest main-path shape (inputs rotated through more than
+   the 50 MB L2 so every call reads from device memory), the CSR kernel at
+   n = 50 and 1000: ``ms`` is CUDA events around 30 calls made from Python,
    ``device_ms`` the same calls replayed from a CUDA graph (no host work
    between launches), ``host_enqueue_us`` the host clock per call without
    a synchronise, and each library call is timed the same two ways; each
    grouped call over the whole GN-LeNet tree at n = 50 beside a per-leaf
-   loop of the library call; the dense mixes at n = 1000 (tiled route);
-   each grouped mix (dense, masked, CSR) over the whole tree at n = 1000
-   (``tree_n1000``) beside a per-leaf loop of the library call;
+   loop of the library call; the dense mixes and the Gram at n = 1000
+   (``at_n1000``); each grouped mix (dense, masked, CSR) and the grouped
+   Gram over the whole tree at n = 1000 (``tree_n1000``) beside a
+   per-leaf loop of the library call; the scan's bound from the bytes,
+   the exponentials and the FP32 and all instructions the recurrence
+   needs, beside the instructions its inner step issues, counted in the
+   built library's SASS (``cuobjdump``);
 4. the main path at full width: GN-LeNet CIFAR-10 (width 32, 94,858
    parameters per node), n = 50, fig3 settings (k = 3, delta_r = 5,
    beta = 500, Dirichlet 0.1, batch 8, lr 0.05) on a ``DeviceDataStream``,
@@ -80,6 +85,7 @@ reduce in f32.
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +99,19 @@ F32_FLOPS = 67e12                # f32 outside the tensor cores, same source
 BF16_ULP = 2.0 ** -7             # one bf16 ulp, relative to the value
 SFU_PER_CLOCK_PER_SM = 16        # exp results (CUDA C Programming Guide,
                                  # throughput table, compute capability 9.0)
+# Lane-instructions an SM issues a clock: 4 schedulers, one warp
+# instruction each; the FP32 pipe takes as many (128 FP32 lanes), so an
+# unfused FMUL or FADD costs a whole slot (same source).
+ISSUE_PER_CLOCK_PER_SM = 128
+FP32_PER_CLOCK_PER_SM = 128
+# What the S6 step needs per (t, channel, state) element, with its bits
+# (each product rounded before its add, the accurate expf), whatever the
+# kernel: 12 FP32-pipe instructions, namely dt a, da h, (dt x) b, their sum,
+# h c and its add into y (dt x once a channel, the sum over the states one
+# add fewer than states: 6 an element), and the 6 that expf issues around
+# its exponential (4 FFMA, an FADD, an FMUL); and one MUFU.EX2.
+SCAN_FP32_PER_ELEMENT = 12
+SCAN_MUFU_PER_ELEMENT = 1
 SCAN_TOL = (1e-5, 1e-5)          # selective scan (atol, rtol); see tolerance
 
 
@@ -534,13 +553,18 @@ def time_tree(dev):
     return out
 
 
-def time_dense_large(dev):
+def time_dense_large(dev, worst):
     """The dense mixes at n = 1000, D = 51,200 (the tiled route) beside
-    ``torch.matmul`` of the same W, with the bound."""
-    from repro_torch.kernels import graph_mix, graph_mix_masked
+    ``torch.matmul`` of the same W, and the Gram beside ``x @ x.T`` (held
+    to its plain version there first), each with its bound."""
+    from repro_torch.kernels import (graph_mix, graph_mix_masked,
+                                     gram_matrix, ref)
     inputs, _ = kernel_cases(dev)
     n, d = LARGE_N, MAIN_D[-1]
     sets = [inputs(n, d, torch.float32) for _ in range(2)]
+    x = sets[0][0]
+    compare("gram_matrix", _cosine(gram_matrix(x)), ref.pairwise_cosine(x),
+            n, torch.float32, f"n={n} D={d}", worst)
     uniform = []
     for x, _, e in sets:
         a = e.float() + torch.eye(n, device=dev)
@@ -565,6 +589,17 @@ def time_dense_large(dev):
         out[name] = t
         log(f"phase 3: {name} at n={n} D={d} f32 (tiled route): "
             f"{json.dumps(t)}")
+    t = timings((gram_matrix, [(x,) for x, _, _ in sets]),
+                (lambda x: x @ x.T, [(x,) for x, _, _ in sets]), reps=6)
+    t["library"] = "x @ x.T"
+    # X read once, the Gram written once; the kernel computes the tiles
+    # i <= j only: n (n + 1) / 2 dot products of length D, an FMA a term.
+    t["bound_ms"], t["bound_by"] = bound(n * d * 4 + n * n * 4,
+                                         n * (n + 1) * d)
+    t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    t["shape"] = [n, d, "float32"]
+    out["gram_matrix"] = t
+    log(f"phase 3: gram_matrix at n={n} D={d} f32: {json.dumps(t)}")
     return out
 
 
@@ -580,16 +615,27 @@ def csr_matrix(idx, w, w_self):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_tree_large(dev):
+def time_tree_large(dev, worst):
     """One grouped call over GN-LeNet's whole tree at n = 1000 for each
-    mix (dense, masked, CSR with k = 3), beside a per-leaf loop of the
-    library call (``torch.matmul``; of the built uniform W for the masked
-    mix; ``torch.sparse.mm`` for the CSR mix), with the tree's bound."""
+    mix (dense, masked, CSR with k = 3) and the Gram, beside a per-leaf
+    loop of the library call (``torch.matmul``; of the built uniform W for
+    the masked mix; ``torch.sparse.mm`` for the CSR mix; ``x @ x.T`` for
+    the Gram), with the tree's bound.  The grouped Gram is first held to
+    the per-leaf calls (bit for bit) and the plain version."""
     from repro_torch.kernels import (graph_mix_leaves, graph_mix_masked_leaves,
-                                     graph_mix_sparse_leaves)
+                                     graph_mix_sparse_leaves, gram_matrices,
+                                     gram_matrix, ref)
     gen = torch.Generator(device=dev).manual_seed(10)
     n, total, k = LARGE_N, sum(GN_LENET_LEAVES), K
     sets = [tree_inputs(dev, gen, n) for _ in range(2)]
+    g = gram_matrices(sets[0][0])
+    for i, x in enumerate(sets[0][0]):
+        what = f"grouped n={n} D={x.shape[1]}"
+        if not torch.equal(g[i], gram_matrix(x)):
+            raise AssertionError(f"{what}: grouped gram is not the per-leaf "
+                                 f"call")
+        compare("gram_matrix", _cosine(g[i]), ref.pairwise_cosine(x), n,
+                torch.float32, what, worst)
     uniform, csr = [], []
     for xs, _, e in sets:
         a = e.float() + torch.eye(n, device=dev)
@@ -621,6 +667,13 @@ def time_tree_large(dev):
                              "per-leaf loop of torch.sparse.mm",
                              n * k * 8 + n * 4 + 2 * n * total * 4,
                              2 * (k + 1) * n * total),
+        # X read once, each leaf's Gram written once; tiles i <= j only.
+        "gram_matrix": ((gram_matrices, [(xs,) for xs, _, _ in sets]),
+                        (lambda xs: [x @ x.T for x in xs],
+                         [(xs,) for xs, _, _ in sets]),
+                        "per-leaf loop of x @ x.T",
+                        n * total * 4 + len(GN_LENET_LEAVES) * n * n * 4,
+                        n * (n + 1) * total),
     }
     out = {}
     for name, (kernel, library, label, nbytes, flops) in rows.items():
@@ -676,12 +729,14 @@ def time_sparse(dev):
 
 
 # Phase 3, the selective scan: (batch, L, d_inner, d_state) of
-# tests/test_kernels.py's four, a ragged d_inner, one step, an L that is no
-# multiple of the kernel's 32-step tile, and the served shape (two prompts
-# of 2,048 tokens through Jamba's d_inner 16,384 and d_state 16).
+# tests/test_kernels.py's four, a ragged d_inner (its bf16 rows not 16-byte
+# aligned), one step, an L that is no multiple of the kernel's 32-step
+# tile, an odd d_inner (bf16 rows not 4-byte aligned) with odd L, a width
+# past two blocks of channels at d_state 8, and the served shape (two
+# prompts of 2,048 tokens through Jamba's d_inner 16,384 and d_state 16).
 SCAN_SHAPES = [(2, 16, 64, 8), (1, 32, 128, 16), (3, 8, 96, 4),
                (2, 64, 256, 16), (2, 16, 100, 8), (2, 1, 64, 16),
-               (1, 37, 96, 16)]
+               (1, 37, 96, 16), (3, 33, 37, 4), (1, 65, 300, 8)]
 SERVED_SCAN = (2, 2048, 16384, 16)
 # dtypes of (x, dt, b and c): all f32, all bf16, and what apply_mamba
 # passes when serving bf16 (x, b, c bf16; dt f32 after the softplus).
@@ -748,11 +803,75 @@ def sm_clock_hz():
     return float(out.strip().splitlines()[0]) * 1e6
 
 
+# The scan kernel's instantiation for the served types (d_state 16; x, b
+# and c bf16, dt f32), as its mangled name shows it in the SASS.
+SCAN_SERVED_SASS = ("scan_kernelILi16E", "13__nv_bfloat16fS")
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)")
+
+
+def scan_sass():
+    """Instructions per (t, channel, state) element in the scan kernel's
+    inner step, read from the built library's SASS (``cuobjdump -sass``):
+    in the served instantiation, the largest straight-line block (the
+    unrolled full-tile steps with their loop's own count and branch) holds
+    one ``MUFU.EX2`` per element, so its counts over its ``MUFU.EX2`` count
+    are per element.  ``fp32`` counts FFMA, FADD and FMUL (the FP32 pipe);
+    the per-tile staging outside that block is left out."""
+    from repro_torch.kernels import cuda
+    tool = Path(cuda._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(cuda.library_path("selective_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    functions, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            functions[name] = []
+        elif name is not None:
+            functions[name].append(line)
+    served = [f for f in functions if all(p in f for p in SCAN_SERVED_SASS)]
+    if len(served) != 1:
+        raise AssertionError(f"scan SASS: {len(served)} functions match "
+                             f"{SCAN_SERVED_SASS}")
+    blocks, block = [], []
+    for line in functions[served[0]]:
+        if re.match(r"\s*\.L_x_\d+:", line):
+            blocks.append(block)
+            block = []
+            continue
+        op = SASS_LINE.search(line)
+        if op:
+            block.append(op.group(1))
+            if op.group(1).startswith(("BRA", "EXIT")):
+                blocks.append(block)
+                block = []
+    step = max(blocks + [block], key=len)
+    elements = step.count("MUFU.EX2")
+    if elements == 0:
+        raise AssertionError("scan SASS: no MUFU.EX2 in the inner step")
+    ops = {}
+    for op in step:
+        ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+    fp32 = sum(ops.get(k, 0) for k in ("FFMA", "FADD", "FMUL"))
+    return {"function": served[0], "block_instructions": len(step),
+            "elements": elements, "all": len(step) / elements,
+            "fp32": fp32 / elements, "mufu": ops.get("MUFU", 0) / elements,
+            "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
 def time_scan(dev):
     """The scan kernel at the served shape with apply_mamba's types, inputs
     rotated through more than L2; the plain version (a loop of PyTorch
     operations over L, no yardstick) beside it.  No one PyTorch call
-    computes the S6 recurrence, so there is no library time."""
+    computes the S6 recurrence, so there is no library time.  The bound is
+    the largest of four parts, each counted from the function and not from
+    this kernel: the bytes; the exponentials on the special-function unit;
+    the FP32-pipe instructions (``SCAN_FP32_PER_ELEMENT``) at 128 lanes a
+    clock per SM; and their issue together with the exponentials', one
+    warp-instruction a clock per scheduler.  ``kernel_issue_ms`` prices
+    every instruction the kernel's inner step issues (:func:`scan_sass`)
+    the same way; it is this kernel's own cost, not a bound."""
     from repro_torch.kernels import ref, selective_scan
     gen = torch.Generator(device=dev).manual_seed(5)
     bt, L, di, ds = SERVED_SCAN
@@ -765,17 +884,26 @@ def time_scan(dev):
     # Each input read once, y and the last h written once (f32).
     nbytes = sum(v.numel() * v.element_size() for v in sets[0]) \
         + bt * L * di * 4 + bt * di * ds * 4
-    exps = bt * L * di * ds
+    elements = bt * L * di * ds
     clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = scan_sass()
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "exp": exps / (SFU_PER_CLOCK_PER_SM * sms * clock) * 1e3,
-             # per (t, d, s): dt a, da h, (dt x) b, +, h c, + ; dt x per (t, d)
-             "f32": (6 * exps + bt * L * di) / F32_FLOPS * 1e3}
+             "mufu": elements * SCAN_MUFU_PER_ELEMENT
+             / (SFU_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+             "f32_issue": elements * SCAN_FP32_PER_ELEMENT
+             / (FP32_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+             "issue": elements
+             * (SCAN_FP32_PER_ELEMENT + SCAN_MUFU_PER_ELEMENT)
+             / (ISSUE_PER_CLOCK_PER_SM * sms * clock) * 1e3}
     t["bound_ms"] = max(times.values())
-    t["bound_by"] = "bytes" if t["bound_ms"] == times["bytes"] \
-        else "operations"
+    t["bound_part"] = max(times, key=times.get)
+    t["bound_by"] = "bytes" if t["bound_part"] == "bytes" else "operations"
     t["bound_parts_ms"] = times
+    t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    t["kernel_issue_ms"] = elements * per["all"] \
+        / (ISSUE_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    t["sass_per_element"] = per
     t["sm_clock_mhz"], t["sms"] = clock / 1e6, sms
     t["shape"] = [bt, L, di, ds, "x bf16, dt f32, b/c bf16"]
     log(f"phase 3: selective_scan at {SERVED_SCAN}: {json.dumps(t)}")
@@ -1493,6 +1621,9 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import cuda
 
+    # The runner clears cuDNN's TF32 around its own local step and
+    # evaluation; these global settings keep every other f32 product and
+    # convolution of the run (the plain versions, the zoo in f32) in f32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # bf16 products reduce their split-K partial sums in f32, as the
@@ -1519,10 +1650,10 @@ def main():
     times = time_kernels(dev)
     for name, t in time_tree(dev).items():
         times[name]["tree_n50"] = t
-    for name, t in time_dense_large(dev).items():
+    for name, t in time_dense_large(dev, worst).items():
         times[name]["at_n1000"] = t
-    tree_large = time_tree_large(dev)
-    for name in ("graph_mix", "graph_mix_masked"):
+    tree_large = time_tree_large(dev, worst)
+    for name in ("gram_matrix", "graph_mix", "graph_mix_masked"):
         times[name]["tree_n1000"] = tree_large[name]
     sparse_times = time_sparse(dev)
     times["selective_scan"] = time_scan(dev)
@@ -1577,7 +1708,9 @@ def main():
                                        "library_max_abs_err", "at_n50",
                                        "tree_n50", "at_n1000",
                                        "tree_n1000", "library",
-                                       "bound_parts_ms", "sm_clock_mhz")
+                                       "bound_part", "bound_parts_ms",
+                                       "kernel_issue_ms", "sass_per_element",
+                                       "sm_clock_mhz")
                if key in t},
             "shape": t["shape"]}
         # ``max_err`` and ``kernel_ms`` are other names for the same two

@@ -8,6 +8,8 @@ Every strategy has the reference's in-graph contract:
 * ``uniform_mixing`` — W is the uniform average over self + senders, so
   the engine mixes with the masked kernel straight from the edges;
 * ``init_graph_state()`` — the state the engine carries between rounds;
+  a stateful strategy also has ``set_graph_state(gstate, sim)``, which the
+  engine calls after each chunk so a later run continues from it;
 * ``graph_round(gstate, rnd, sim)`` -> ``(gstate, edges [n, n] bool,
   W [n, n] f32)`` on the strategy's device, ``rnd`` a host int; W is
   ``None`` where ``uniform_mixing`` holds (the engine never reads it).
@@ -49,9 +51,15 @@ class InGraphMorphStrategy:
                                 seed)
 
     def init_graph_state(self):
-        """The :class:`MorphGraphState` the engine carries (bootstrap ring
-        overlay, empty estimates)."""
+        """The :class:`MorphGraphState` the engine carries: the bootstrap
+        ring overlay with empty estimates, or the state an engine handed
+        back."""
         return self.state
+
+    def set_graph_state(self, gstate, sim: Optional[torch.Tensor] = None):
+        """Adopt the state an engine evolved, so a follow-up run continues
+        from its topology (and its draws) instead of the bootstrap ring."""
+        self.state = gstate
 
     def graph_round(self, gstate, rnd: int, sim: torch.Tensor,
                     noise: Optional[MorphNoise] = None):

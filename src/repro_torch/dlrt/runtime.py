@@ -11,6 +11,7 @@ test set at the ``eval_every`` boundaries and after the last round (paper
 from __future__ import annotations
 
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -74,13 +75,29 @@ def resolve_engine(cfg: RunnerConfig, strategy) -> str:
     return engine
 
 
+@contextmanager
+def f32_convolutions():
+    """A context in which cuDNN convolutions compute in full f32, not TF32
+    (torch's default for them), as the reference does.  Only the TF32 flag
+    is touched, and the caller's value comes back on exit."""
+    cudnn = torch.backends.cudnn
+    caller = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = caller
+
+
 def make_local_step(loss_fn: Callable, optimizer: Optimizer) -> Callable:
     """Node-batched local step: ``vmap(grad(loss))`` over the node axis of
-    the parameters and the batch, then the optimizer update."""
+    the parameters and the batch, then the optimizer update, with f32
+    convolutions (:func:`f32_convolutions`)."""
     node_grads = vmap(grad(lambda p, b: loss_fn(p, b)[0]))
 
     def local_step(params, opt_state, batch):
-        grads = node_grads(dict(params), batch)
+        with f32_convolutions():
+            grads = node_grads(dict(params), batch)
         upd, opt_state = optimizer.update(
             OrderedDict((k, grads[k]) for k in params), opt_state, params)
         return apply_updates(params, upd), opt_state
@@ -90,9 +107,14 @@ def make_local_step(loss_fn: Callable, optimizer: Optimizer) -> Callable:
 def make_evaluator(eval_fn: Callable,
                    batch_chunk: Optional[int] = None) -> Callable:
     """Every node on the shared test batch: ``(losses [n], metrics dict of
-    [n])``.  ``batch_chunk`` splits the test batch and recombines the
-    per-chunk means by sample-count weights (``eval_fn`` returns means)."""
+    [n])``, with f32 convolutions (:func:`f32_convolutions`).
+    ``batch_chunk`` splits the test batch and recombines the per-chunk
+    means by sample-count weights (``eval_fn`` returns means)."""
     def evaluate(params, test):
+        with f32_convolutions():
+            return _evaluate(params, test)
+
+    def _evaluate(params, test):
         per_node = lambda t: vmap(lambda p: eval_fn(p, t))(dict(params))
         b = next(iter(test.values())).shape[0]
         if batch_chunk is None or b <= batch_chunk:

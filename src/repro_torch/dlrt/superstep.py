@@ -178,10 +178,15 @@ class Superstep:
 
     def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
             ) -> MetricsLog:
-        """All ``cfg.rounds`` rounds, evaluating at each chunk end."""
+        """All ``cfg.rounds`` rounds, evaluating at each chunk end; after
+        each chunk the strategy adopts the evolved graph state (where it
+        has ``set_graph_state``), as the reference's engine hands it
+        back."""
         for start, end in eval_boundaries(self.cfg.rounds,
                                           self.cfg.eval_every):
             edges_np = self._run_chunk(start, end)
+            if hasattr(self.strategy, "set_graph_state"):
+                self.strategy.set_graph_state(self.gstate, self.sim)
             rec = self.evaluate(end, edges_np[-1])
             if progress is not None:
                 progress(rec)

@@ -1,5 +1,6 @@
-// Helpers shared by the graph-mix and Gram kernels: element conversion and
-// cp.async copies from device memory into shared memory (sm_80 and later).
+// Helpers shared by the graph-mix, Gram and selective-scan kernels:
+// element conversion and cp.async copies from device memory into shared
+// memory (sm_80 and later).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

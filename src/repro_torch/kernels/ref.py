@@ -57,8 +57,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 
     ``x, dt [batch, L, di]``; ``b, c [batch, L, ds]``; ``a [di, ds]``;
     ``h0 [batch, di, ds]`` -> ``(y [batch, L, di], h [batch, di, ds])``,
-    both f32.  Each product is rounded before its add and ``y`` sums the
-    states in state order, as the CUDA kernel does, so the two differ only
+    both f32.  Each product is rounded before its add and ``y`` is summed
+    in the CUDA kernel's order (:func:`sum_states`), so the two differ only
     where their ``exp`` does.  No ``D x`` skip term (the caller adds it)."""
     f32 = torch.float32
     x, dt, b, c, a, h = (t.to(f32) for t in (x, dt, b, c, a, h0))
@@ -66,8 +66,22 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     for t in range(x.shape[1]):
         da = torch.exp(dt[:, t, :, None] * a)                 # [bt, di, ds]
         h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
-        y = h[..., 0] * c[:, t, None, 0]
-        for s in range(1, h.shape[-1]):
-            y = y + h[..., s] * c[:, t, None, s]
-        ys.append(y)
+        ys.append(sum_states(h * c[:, t, None, :]))
     return torch.stack(ys, dim=1), h
+
+
+def sum_states(hc: torch.Tensor) -> torch.Tensor:
+    """``y = sum_s hc[..., s]`` in the scan kernel's order: each group of 4
+    consecutive states in state order (``p_q``), then the groups pairwise,
+    ``(p0 + p1) + (p2 + p3)`` at 16 states, ``p0 + p1`` at 8 and ``p0`` at
+    4 (a last odd group carries up unpaired)."""
+    parts = []
+    for g in range(0, hc.shape[-1], 4):
+        p = hc[..., g]
+        for s in range(g + 1, min(g + 4, hc.shape[-1])):
+            p = p + hc[..., s]
+        parts.append(p)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] if i + 1 < len(parts) else parts[i]
+                 for i in range(0, len(parts), 2)]
+    return parts[0]

@@ -156,8 +156,14 @@ class SparseMorphStrategy(_SparseStrategy):
         self.idx = torch.as_tensor(_ring_bootstrap(n, k), device=self.device)
 
     def init_graph_state(self) -> torch.Tensor:
-        """The bootstrap ring's ``[n, k]`` senders."""
+        """The ``[n, k]`` senders: the bootstrap ring's, or those an engine
+        handed back."""
         return self.idx
+
+    def set_graph_state(self, gstate: torch.Tensor, sim=None):
+        """Adopt the senders an engine evolved, so a follow-up run
+        continues from them instead of the bootstrap ring."""
+        self.idx = gstate
 
     def graph_round(self, gstate, rnd: int, params,
                     draws: Optional[SparseDraws] = None):

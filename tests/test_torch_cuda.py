@@ -46,11 +46,18 @@ GROUPED = {"gn_lenet_n50": (50, GN_LENET),
            "gn_lenet_n129": (129, GN_LENET), "gn_lenet_n200": (200, GN_LENET),
            "gn_lenet_n1000": (1000, GN_LENET)}
 # (batch, L, d_inner, d_state): tests/test_kernels.py's four, a ragged
-# d_inner, one step, an L that is no multiple of the kernel's 32-step
-# tile, and a width past one block of channels.
+# d_inner (bf16 rows of 200 bytes, not 16-byte aligned), one step, an L
+# that is no multiple of the kernel's 32-step tile, and a width past one
+# block of channels; then d_inner no multiple of a block's channels (128
+# at d_state 16, 256 at 8 and 4) at each d_state, an odd d_inner (bf16
+# rows not even 4-byte aligned) with b and c rows of 8 bytes starting off
+# 16-byte boundaries, one step at d_state 8 and 16, and L = 65 (two full
+# tiles and one step).
 SCAN_SHAPES = [(2, 16, 64, 8), (1, 32, 128, 16), (3, 8, 96, 4),
                (2, 64, 256, 16), (2, 16, 100, 8), (2, 1, 64, 16),
-               (1, 37, 96, 16), (2, 100, 1000, 16)]
+               (1, 37, 96, 16), (2, 100, 1000, 16),
+               (3, 33, 37, 4), (2, 96, 1000, 4), (1, 65, 300, 8),
+               (2, 1, 200, 8), (3, 1, 7, 16), (5, 7, 100, 16)]
 # dtypes of (x, dt, b and c): all f32, all bf16, and apply_mamba's bf16
 # serving mix (x, b, c bf16; dt f32).
 SCAN_TYPES = {"f32": ("float32",) * 3, "bf16": ("bfloat16",) * 3,
@@ -329,6 +336,32 @@ def test_cuda_selective_scan_chunk_chaining(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ds", [4, 8, 16])
+@pytest.mark.parametrize("types", sorted(SCAN_TYPES))
+def test_cuda_selective_scan_takes_unaligned_inputs(cuda_device, ds, types):
+    """x, dt, b, c, a and h0 each one element past a 16-byte boundary (a
+    contiguous view into a larger buffer): the kernel takes its 4-byte and
+    plain loads and its scalar state loads, with the same results."""
+    gen = torch.Generator(device=cuda_device).manual_seed(ds)
+    args = scan_inputs(cuda_device, gen, 2, 40, 96, ds, SCAN_TYPES[types])
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [shifted(t) for t in args]
+    assert all(t.data_ptr() % 16 != 0 for t in moved)
+    y, h = selective_scan(*moved)
+    yr, hr = ref.selective_scan(*args)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+    y0, h0 = selective_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+@pytest.mark.cuda
 def test_cuda_selective_scan_refuses_what_the_kernel_does_not_take(
         cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -341,3 +374,55 @@ def test_cuda_selective_scan_refuses_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="contiguous"):
         selective_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt,
                        b, c, a, h0)
+
+
+@pytest.mark.cuda
+def test_cuda_runner_computes_convolutions_in_f32_whatever_the_flags(
+        cuda_device):
+    """GN-LeNet (full width, 8 nodes, 3 rounds) through the runner gives the
+    same parameters, bit for bit, with cuDNN's TF32 flag at torch's default
+    (on) as with it cleared: the runner clears it around its local step
+    and evaluator.  Deterministic cuDNN algorithms in both runs, so the
+    two runs can agree bit for bit."""
+    from repro_torch.core import InGraphStaticStrategy
+    from repro_torch.data import (StackedBatcher, dirichlet_partition,
+                                  make_image_classification,
+                                  train_test_split)
+    from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
+    from repro_torch.models import cnn_loss, cnn_params
+    from repro_torch.optim import sgd
+    import numpy as np
+
+    cudnn = torch.backends.cudnn
+    ds = make_image_classification(400, num_classes=10, image_size=32,
+                                   channels=3, seed=0)
+    tr, te = train_test_split(ds, 0.2, seed=0)
+    parts = dirichlet_partition(tr.labels, 8, 0.5, np.random.default_rng(0))
+
+    def run(allow_tf32):
+        before = (cudnn.allow_tf32, cudnn.deterministic)
+        cudnn.allow_tf32, cudnn.deterministic = allow_tf32, True
+        try:
+            runner = DecentralizedRunner(
+                init_fn=lambda g: cnn_params(g, in_channels=3,
+                                             num_classes=10, image_size=32,
+                                             width=32),
+                loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.05),
+                batcher=StackedBatcher(tr, parts, 8, seed=3),
+                test_batch={"images": te.images, "labels": te.labels},
+                strategy=InGraphStaticStrategy(n=8, degree=3,
+                                               device=cuda_device),
+                cfg=RunnerConfig(n_nodes=8, rounds=3, eval_every=2),
+                device=cuda_device)
+            runner.run()
+            assert cudnn.allow_tf32 is allow_tf32
+            return runner
+        finally:
+            cudnn.allow_tf32, cudnn.deterministic = before
+
+    default, cleared = run(True), run(False)
+    for key in default.params:
+        assert torch.equal(default.params[key], cleared.params[key]), key
+    for a, b in zip(default.log.records, cleared.log.records):
+        assert (a.mean_accuracy, a.mean_loss) == (b.mean_accuracy,
+                                                  b.mean_loss)

@@ -96,10 +96,8 @@ def _data():
     return tr, te, parts
 
 
-@pytest.mark.parametrize("name,stream", [
-    (name, False) for name in sorted(STRATEGIES)] + [("morph", True)],
-    ids=sorted(STRATEGIES) + ["morph-device-stream"])
-def test_slice_matches_reference_compiled_pallas(name, stream):
+def _reference_and_port(name, stream=False):
+    """The reference runner and the port's on the same set-up, not run."""
     tr, te, parts = _data()
     test = {"images": te.images, "labels": te.labels}
     make_jax, make_torch = STRATEGIES[name]
@@ -126,9 +124,11 @@ def test_slice_matches_reference_compiled_pallas(name, stream):
         strategy=make_torch(),
         cfg=RunnerConfig(n_nodes=N, rounds=ROUNDS, eval_every=EVAL_EVERY),
         params=params_from_jax(init), device="cpu")
-    ref.run()
-    port.run()
+    return ref, port
 
+
+def assert_matches_reference(ref, port):
+    """The last ``run()``'s edges every round, parameters and records."""
     assert len(port.edge_history) == len(ref.edge_history) == ROUNDS
     for r, (a, b) in enumerate(zip(ref.edge_history, port.edge_history)):
         assert np.array_equal(np.asarray(a), b), f"edges diverged at {r}"
@@ -144,6 +144,75 @@ def test_slice_matches_reference_compiled_pallas(name, stream):
             (b.rnd, b.comm_bytes, b.isolated)
         assert b.mean_accuracy == pytest.approx(a.mean_accuracy, abs=1e-5)
         assert b.mean_loss == pytest.approx(a.mean_loss, abs=1e-5)
+
+
+@pytest.mark.parametrize("name,stream", [
+    (name, False) for name in sorted(STRATEGIES)] + [("morph", True)],
+    ids=sorted(STRATEGIES) + ["morph-device-stream"])
+def test_slice_matches_reference_compiled_pallas(name, stream):
+    ref, port = _reference_and_port(name, stream)
+    ref.run()
+    port.run()
+    assert_matches_reference(ref, port)
+
+
+@pytest.mark.parametrize("stream", [False, True],
+                         ids=["host-batcher", "device-stream"])
+def test_second_run_continues_from_the_evolved_graph(stream):
+    """After a ``run()`` Morph holds the graph state the engine evolved (the
+    last round's edges, not the bootstrap ring), and a second ``run()``
+    starts from it as the reference's does: rounds from 0 again, the Eq.-3
+    cache refreshed at round 0, the draws continuing."""
+    ref, port = _reference_and_port("morph", stream)
+    ring = port.strategy.state.edges.clone()
+    for _ in range(2):
+        ref.run()
+        port.run()
+        assert_matches_reference(ref, port)
+        want, got = ref.strategy.state, port.strategy.state
+        assert np.array_equal(got.edges.numpy(), port.edge_history[-1])
+        assert not torch.equal(got.edges, ring)
+        for field in ("known", "sim_valid", "edges"):
+            assert np.array_equal(getattr(got, field).numpy(),
+                                  np.asarray(getattr(want, field))), field
+        np.testing.assert_allclose(got.sim.numpy(), np.asarray(want.sim),
+                                   atol=1e-4)
+
+
+def test_runner_convolutions_in_f32():
+    """The local step and the evaluator run with cuDNN's TF32 cleared
+    (the reference computes in f32), and the caller's flag comes back."""
+    import torch.backends.cudnn as cudnn
+    seen = {"loss": set(), "eval": set()}
+
+    def loss(params, batch):
+        seen["loss"].add(cudnn.allow_tf32)
+        return cnn_loss(params, batch)
+
+    def evaluate(params, batch):
+        seen["eval"].add(cudnn.allow_tf32)
+        return cnn_loss(params, batch)
+
+    tr, te, parts = _data()
+    before = cudnn.allow_tf32
+    for caller in (True, False):
+        cudnn.allow_tf32 = caller
+        try:
+            DecentralizedRunner(
+                init_fn=lambda g: cnn_params(g, in_channels=3,
+                                             num_classes=CLASSES,
+                                             image_size=IMG, width=WIDTH),
+                loss_fn=loss, eval_fn=evaluate, optimizer=sgd(0.05),
+                batcher=StackedBatcher(tr, parts, 8, seed=3),
+                test_batch={"images": te.images, "labels": te.labels},
+                strategy=tcore.InGraphStaticStrategy(n=N, degree=3,
+                                                     device="cpu"),
+                cfg=RunnerConfig(n_nodes=N, rounds=1, eval_every=1),
+                device="cpu").run()
+            assert cudnn.allow_tf32 is caller
+        finally:
+            cudnn.allow_tf32 = before
+    assert seen == {"loss": {False}, "eval": {False}}
 
 
 def test_similarity_refresh_cadence(monkeypatch):

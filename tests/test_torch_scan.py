@@ -89,3 +89,25 @@ def test_plain_scan_chunk_chaining():
     yr, hr = jref.selective_scan_ref(*j)
     np.testing.assert_allclose(y_full.numpy(), np.asarray(yr), atol=1e-5)
     np.testing.assert_allclose(h_full.numpy(), np.asarray(hr), atol=1e-5)
+
+
+@pytest.mark.parametrize("ds", [16, 8, 4])
+def test_plain_scan_sums_y_in_the_kernels_order(ds):
+    """The plain version's ``y`` is, bit for bit, the CUDA kernel's sum:
+    each group of 4 states in state order (``p_q``), then ``(p0 + p1) +
+    (p2 + p3)`` at 16 states, ``p0 + p1`` at 8 and ``p0`` at 4; its ``h``
+    is the recurrence with each product rounded before its add."""
+    x, dt, b, c, a, h0 = (torch.as_tensor(v)
+                          for v in scan_inputs(2, 9, 24, ds, seed=ds))
+    y, h = selective_scan(x, dt, b, c, a, h0)
+    hs = h0
+    for t in range(x.shape[1]):
+        hs = torch.exp(dt[:, t, :, None] * a) * hs \
+            + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        hc = hs * c[:, t, None, :]
+        p = [((hc[..., 4 * q] + hc[..., 4 * q + 1]) + hc[..., 4 * q + 2])
+             + hc[..., 4 * q + 3] for q in range(ds // 4)]
+        want = {16: lambda: (p[0] + p[1]) + (p[2] + p[3]),
+                8: lambda: p[0] + p[1], 4: lambda: p[0]}[ds]()
+        assert torch.equal(y[:, t], want), t
+    assert torch.equal(h, hs)

@@ -137,6 +137,29 @@ def test_sparse_engine_matches_reference_mlp(name, n):
     assert (indeg == K).all()
 
 
+@pytest.mark.parametrize("n", [6, 16], ids=["n6-full", "n16-gossip"])
+def test_second_run_continues_from_the_evolved_senders(n):
+    """After a ``run()`` sparse Morph holds the senders the engine evolved
+    (the last round's, not the bootstrap ring), and a second ``run()``
+    starts from them as the reference's does (rounds and draws from round
+    0 again)."""
+    ref, port = _reference_and_port(
+        "mlp", n, lambda: jsp.SparseMorphStrategy(n=n, k=K, seed=0),
+        lambda: ReplayMorph(n=n, k=K, seed=0, device="cpu"))
+    ring = tsp.SparseMorphStrategy(n=n, k=K, device="cpu").init_graph_state()
+    for second in (False, True):
+        if second:
+            ref.run()
+            port.run()
+        assert_matches_reference(ref, port)
+        idx = port.strategy.init_graph_state()
+        assert np.array_equal(idx.numpy(), np.asarray(ref.strategy.idx))
+        assert not torch.equal(idx, ring)
+        last = np.zeros((n, n), bool)
+        last[np.repeat(np.arange(n), K), idx.reshape(-1).numpy()] = True
+        assert np.array_equal(last, port.edge_history[-1])
+
+
 # --------------------------------------------------------------------------
 # Compat mode and dispatch: the port against itself.
 # --------------------------------------------------------------------------
