@@ -75,6 +75,19 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    not take a copy of the cache as the cache grows from 2,048 to 16,384
    slots, and the card's LM head (a bf16 product with f32 output) agrees
    with the f32 product of the same values;
+10. (a) the fig3 contest at the reference artifact's shape (n = 50,
+   GN-LeNet width 8 on 16-pixel images, 150 rounds, seed 0) through
+   ``repro_torch.bench.fig3``: Morph, Static, EL-Oracle, fully-connected,
+   the chunked Morph rerun (bit for bit the first: the chunk pin) and
+   sparse Morph, each final printed beside the reference's, with the
+   ordering; (b) compressed gossip at full width: dense Morph at n = 50,
+   10 rounds under int8, fp8 and int8+topk0.75, and sparse Morph at
+   n = 1000, 5 rounds under int8+topk0.75, one grouped Gram launch per
+   refresh and one grouped mix a round, comm bytes the analytic wire bytes
+   times the edges, each run's stages with the codec's encode, decode and
+   correction, and the top-k sort's time; (c) tiny compressed runs on the
+   card and on the CPU: identical edges, parameters within the CPU tests'
+   codec tolerance;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -967,19 +980,25 @@ SPARSE_STRATEGIES = ("sparse-morph", "sparse-epidemic")
 LARGE = dict(samples=15000, test=256, equal_shards=True)
 
 
-def run_strategy(name, n, dev, rounds, eval_every, engine="dense",
-                 sparse_mix="exact", eval_chunk=128, **setup):
+def make_runner(name, n, dev, rounds, eval_every, engine="dense",
+                sparse_mix="exact", eval_chunk=128, compress="none",
+                **setup):
     from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
     from repro_torch.models import cnn_loss
     from repro_torch.optim import sgd
     batcher, test, init = paper_setup(n, dev, **setup)
-    runner = DecentralizedRunner(
+    return DecentralizedRunner(
         init_fn=init, loss_fn=cnn_loss, eval_fn=cnn_loss,
         optimizer=sgd(0.05), batcher=batcher, test_batch=test,
         strategy=make_strategy(name, n, dev),
         cfg=RunnerConfig(n_nodes=n, rounds=rounds, eval_every=eval_every,
                          eval_batch_chunk=eval_chunk, engine=engine,
-                         sparse_mix=sparse_mix), device=dev)
+                         sparse_mix=sparse_mix, compress=compress),
+        device=dev)
+
+
+def run_strategy(name, n, dev, rounds, eval_every, **kw):
+    runner = make_runner(name, n, dev, rounds, eval_every, **kw)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1613,6 +1632,294 @@ def serve_jamba(dev):
                                decode_memory=memory)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the fig3 contest, and compressed gossip at full width.
+# ---------------------------------------------------------------------------
+
+FIG3_ROWS = ("morph", "static", "el-oracle", "fully-connected",
+             "morph-sparse")
+CODEC_SPECS = ("int8", "fp8", "int8+topk0.75")
+SPARSE_CODEC_SPEC, SPARSE_CODEC_ROUNDS = "int8+topk0.75", 5
+# tests/test_torch_compress_engine.py's tolerance for the reduced GN-LeNet
+# under a codec: a payload coordinate at a rounding edge may take the
+# neighbouring code on one side (one quantization step, about 3e-3 there),
+# and a flipped code changes the next gradients.
+CODEC_TOL = 1e-2
+
+
+def fig3_contest(dev):
+    """Phase 10(a): ``repro_torch.bench.fig3``'s contest at the artifact's
+    shape, seed 0, with deterministic cuDNN (its chunk pin compares two
+    runs bit for bit); counts set to 0 just before and read just after."""
+    from repro_torch import kernels
+    from repro_torch.bench import fig3, harness
+    args = fig3.parse_args(["--device", "cuda", "--seed", "0"])
+    bench = harness.Bench("torch_fig3_accuracy", "cuda", out_dir="")
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launches()
+        out = fig3.run_contest(args, bench)
+        got = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n, rounds = args.nodes[0], args.rounds
+    # Morph twice (whole leaves and the chunked rerun): a Gram and a
+    # masked mix a round; EL a masked mix; Static and FC a dense mix;
+    # sparse Morph a CSR mix.
+    want = dict(dict.fromkeys(got, 0), gram_matrix=2 * rounds,
+                graph_mix_masked=3 * rounds, graph_mix=2 * rounds,
+                graph_mix_sparse=rounds)
+    if got != want:
+        raise AssertionError(f"fig3 contest: launches {got} != {want}")
+    if not out["bitwise"][n]:
+        raise AssertionError("fig3 contest: chunk pin failed")
+    finals = {name: out["finals"][(name, n)] for name in FIG3_ROWS}
+    if not all(math.isfinite(a) for a in finals.values()):
+        raise AssertionError(f"fig3 contest: non-finite finals {finals}")
+    summary = {
+        "finals": finals,
+        "reference": fig3.REFERENCE,
+        "distance": {k: finals[k] - fig3.REFERENCE[k] for k in finals},
+        "morph_ge_static": finals["morph"] >= finals["static"],
+        "morph_ge_el_oracle": finals["morph"] >= finals["el-oracle"],
+        "morph_minus_static": finals["morph"] - finals["static"],
+        "morph_minus_el_oracle": finals["morph"] - finals["el-oracle"],
+        "chunk_bitwise": out["bitwise"][n],
+        "wall_s": {f"{k[0]}": v for k, v in out["walls"].items()},
+        "ms_per_round": {f"{k[0]}": v / rounds * 1e3
+                         for k, v in out["walls"].items()},
+        "launches": got}
+    log(f"phase 10(a): fig3 contest n={n} seed 0 {rounds} rounds: "
+        f"{json.dumps(summary)}")
+    return got
+
+
+def codec_breakdown(dev, name, n, spec, rounds, phase="10(b)", **setup):
+    """Host-clock time of each stage of a compressed round (every stage
+    ends in a synchronise): phase 5's (dense Morph) or phase 8's (sparse
+    Morph) stages with the codec's ``encode`` (payload and wire),
+    ``decode`` (decoded delta, replica advance, residual) and
+    ``correction`` (the consensus correction after the mix)."""
+    from repro_torch.compress import (decode_leaf, encode_leaf,
+                                      next_residual, payload_rows)
+    from repro_torch.core.mixing import apply_consensus_correction
+    from repro_torch.dlrt import RunnerConfig, Superstep
+    from repro_torch.dlrt.runtime import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn_loss
+    from repro_torch.optim import sgd
+    from repro_torch.sparse import sparse_mix_pytree
+    from repro_torch.tree import stack
+    sparse = name == "sparse-morph"
+    batcher, test, init = paper_setup(n, dev, **setup)
+    gen = torch.Generator().manual_seed(0)
+    params = stack(init(gen) for _ in range(n))
+    params = type(params)((k, v.to(dev)) for k, v in params.items())
+    opt = sgd(0.05)
+    strategy = make_strategy(name, n, dev)
+    eng = Superstep(loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=opt,
+                    batcher=batcher, test_batch=to_device(test, dev),
+                    strategy=strategy,
+                    cfg=RunnerConfig(n_nodes=n, rounds=rounds,
+                                     engine="sparse" if sparse else "dense",
+                                     compress=spec),
+                    params=params, opt_state=opt.init(params), device=dev)
+    codec, gamma = eng.codec, eng.codec.consensus_gamma
+    names = ["batch", "local_step", "encode", "decode"] \
+        + (["graph_round", "mix"] if sparse
+           else ["similarity", "graph_round", "mix"]) + ["correction"]
+    stages = dict.fromkeys(names, 0.0)
+
+    def timed(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[stage] += time.perf_counter() - t0
+        return out
+
+    def encode():
+        rows = {k: payload_rows(v.float() - eng.hat[k], eng.resid[k], codec)
+                for k, v in eng.params.items()}
+        return rows, {k: encode_leaf(b, codec) for k, b in rows.items()}
+
+    def decode(rows, wire):
+        hat, resid = type(eng.hat)(), type(eng.resid)()
+        for k, b in rows.items():
+            dec = decode_leaf(wire[k], b.shape[1], codec)
+            hat[k] = eng.hat[k] + dec.reshape(eng.hat[k].shape)
+            resid[k] = next_residual(b, dec, wire[k], eng.resid[k], codec,
+                                     True).reshape(eng.resid[k].shape)
+        return hat, resid
+
+    eng.round(0)                                   # warm-up
+    for rnd in range(1, rounds + 1):
+        batch = timed("batch", lambda: eng._batch(rnd))
+        eng.params, eng.opt_state = timed(
+            "local_step", lambda: eng._local_step(eng.params, eng.opt_state,
+                                                  batch))
+        rows, wire = timed("encode", encode)
+        eng.hat, eng.resid = timed("decode", lambda: decode(rows, wire))
+        if sparse:
+            eng.gstate, adj = timed("graph_round", lambda: strategy
+                                    .graph_round(eng.gstate, rnd, eng.hat))
+            mixed = timed("mix", lambda: sparse_mix_pytree(adj, eng.hat))
+        else:
+            eng.sim = timed("similarity",
+                            lambda: ops.model_pairwise_cosine(eng.hat))
+            eng.gstate, edges, _ = timed(
+                "graph_round", lambda: strategy.graph_round(eng.gstate, rnd,
+                                                            eng.sim))
+            mixed = timed("mix", lambda: ops.mix_masked_pytree(edges,
+                                                               eng.hat))
+        eng.params = timed("correction", lambda: apply_consensus_correction(
+            mixed, eng.params, eng.hat, gamma))
+    out = {k: v / rounds * 1e3 for k, v in stages.items()}
+    log(f"phase {phase}: {name} n={n} {spec} round stages, ms per round "
+        f"(negotiation every {DELTA_R}th): {json.dumps(out)}")
+    return out
+
+
+def topk_ms(dev, n, d=51200, reps=10):
+    """The codec's top-k selection (a stable sort of each row's
+    magnitudes) at ``[n, d]``: mean ms over ``reps`` calls, CUDA events."""
+    from repro_torch.compress import topk_k
+    from repro_torch.core.selection import stable_topk
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xs = [torch.randn((n, d), generator=gen, device=dev) for _ in range(2)]
+    k = topk_k(d, 0.75)
+    return time_ms(lambda x: stable_topk(x.abs(), k), [(x,) for x in xs],
+                   reps=reps)
+
+
+def compressed_path(dev):
+    """Phase 10(b): GN-LeNet CIFAR-10 at full width under a codec: dense
+    Morph at n = 50, 10 rounds of each of ``CODEC_SPECS``; sparse Morph at
+    n = 1000 (phase 7's set-up), 5 rounds of ``int8+topk0.75``.  Each run
+    with its counts set to 0 just before and read just after (a Gram launch
+    per refresh and a masked mix a round, dense; a CSR launch a round,
+    sparse), its comm bytes against the analytic wire bytes times the
+    edges, and its stage breakdown.  Returns the launches over the
+    phase."""
+    from repro_torch import kernels
+    from repro_torch.compress import CompressConfig, wire_bytes_tree
+    runs = [("morph", MAIN_N, spec, ROUNDS, {}) for spec in CODEC_SPECS] \
+        + [("sparse-morph", LARGE_N, SPARSE_CODEC_SPEC, SPARSE_CODEC_ROUNDS,
+            dict(engine="sparse", eval_chunk=16, **LARGE))]
+    total = dict.fromkeys(launch_counts(), 0)
+    for name, n, spec, rounds, kw in runs:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        runner, wall = run_strategy(name, n, dev, rounds, DELTA_R,
+                                    compress=spec, **kw)
+        got = launch_counts()
+        want = dict.fromkeys(got, 0)
+        if name == "sparse-morph":
+            want["graph_mix_sparse"] = rounds
+        else:
+            want.update(gram_matrix=rounds, graph_mix_masked=rounds)
+        if got != want:
+            raise AssertionError(f"{name} n={n} {spec}: launches {got} != "
+                                 f"{want}")
+        for key, v in got.items():
+            total[key] += v
+        recs = runner.log.records
+        if not all(np.isfinite(r.mean_loss) for r in recs) or not all(
+                torch.isfinite(p).all() for p in runner.params.values()):
+            raise AssertionError(f"{name} n={n} {spec}: non-finite values")
+        edges = np.stack(runner.edge_history)
+        if edges.sum(axis=2).max() > K:
+            raise AssertionError(f"{name} n={n} {spec}: in-degree > {K}")
+        wire = wire_bytes_tree(runner.params, n, CompressConfig.parse(spec))
+        if recs[-1].comm_bytes != int(edges.sum()) * wire:
+            raise AssertionError(f"{name} n={n} {spec}: comm_bytes "
+                                 f"{recs[-1].comm_bytes} != edges x wire "
+                                 f"bytes {int(edges.sum())} x {wire}")
+        summary = {
+            "engine": kw.get("engine", "dense"),
+            "ms_per_round_incl_eval": wall / rounds * 1e3,
+            "accuracy": recs[-1].mean_accuracy, "loss": recs[-1].mean_loss,
+            "comm_bytes": recs[-1].comm_bytes, "wire_bytes": wire,
+            "dense_bytes": sum(v.numel() * 4 // n
+                               for v in runner.params.values()),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": got}
+        log(f"phase 10(b): {name} n={n} {spec} {rounds} rounds: "
+            f"{json.dumps(summary)}")
+        setup = {k: v for k, v in kw.items() if k in LARGE}
+        codec_breakdown(dev, name, n, spec, rounds, **setup)
+    log(f"phase 10(b): codec top-k (stable sort) at [n, 51200] f32, ms: "
+        + json.dumps({f"n={n}": topk_ms(dev, n) for n in (MAIN_N, LARGE_N)}))
+    return total
+
+
+def codec_reference_check(dev):
+    """Phase 10(c): the same tiny compressed runs on the card and on the
+    CPU (host batches, host-drawn controller noise; the codec itself is
+    the CPU's bit for bit, ``tests/test_torch_cuda.py``): parameters within
+    ``CODEC_TOL`` and identical edges, or, where the two sides' f32
+    rounding flipped a code and a Morph negotiation then picked other
+    senders, identical edges up to that negotiation and the replicas it
+    read within ``CODEC_TOL`` (reported with the Eq.-3 matrices'
+    difference there).  Under fp8 on this tiny model that happens (on an
+    H100 80GB HBM3: the Eq.-3 matrices 0.026 apart at round 10)."""
+    tiny = dict(image_size=8, width=4, classes=4, samples=400, test=100,
+                stream=False)
+    cpu_dev = torch.device("cpu")
+    cases = [("morph", spec, "dense") for spec in CODEC_SPECS] \
+        + [("static", "int8", "dense"),
+           ("sparse-morph", SPARSE_CODEC_SPEC, "sparse")]
+    for name, spec, engine in cases:
+        gpu, _ = run_strategy(name, 6, dev, 11, 5, engine=engine,
+                              compress=spec, **tiny)
+        cpu, _ = run_strategy(name, 6, cpu_dev, 11, 5, engine=engine,
+                              compress=spec, **tiny)
+        if [r.comm_bytes for r in gpu.log.records] != \
+                [r.comm_bytes for r in cpu.log.records]:
+            raise AssertionError(f"{name} {spec}: comm bytes differ")
+        differ = [r for r, (a, b) in enumerate(zip(gpu.edge_history,
+                                                   cpu.edge_history))
+                  if not np.array_equal(a, b)]
+        if not differ:
+            err = max(float((gpu.params[k].cpu() - cpu.params[k]).abs()
+                            .max()) for k in cpu.params)
+            if not err <= CODEC_TOL:
+                raise AssertionError(f"{name} {spec}: card vs CPU params "
+                                     f"{err} > {CODEC_TOL}")
+            log(f"phase 10(c): {name} {spec} tiny run, card == CPU edges "
+                f"and comm bytes over 11 rounds, params max |err| "
+                f"{err:.3g}")
+            continue
+        first = differ[0]
+        if first % 5 or not name.endswith("morph"):
+            raise AssertionError(f"{name} {spec}: card and CPU edges "
+                                 f"differ at round {first}, not at a "
+                                 f"negotiation")
+        # Both sides again up to that negotiation: the replicas it read.
+        engines = []
+        for d in (dev, cpu_dev):
+            eng = make_runner(name, 6, d, first + 1, 5, engine=engine,
+                              compress=spec, **tiny)._make_engine()
+            eng.run()
+            engines.append(eng)
+        err = max(float((engines[0].hat[k].cpu() - engines[1].hat[k])
+                        .abs().max()) for k in engines[1].hat)
+        if not err <= CODEC_TOL:
+            raise AssertionError(f"{name} {spec}: card vs CPU replicas "
+                                 f"{err} > {CODEC_TOL} at round {first}")
+        codes = sum(int((engines[0].hat[k].cpu() != engines[1].hat[k])
+                        .sum()) for k in engines[1].hat)
+        sim = None if engines[1].sim is None else float(
+            (engines[0].sim.cpu() - engines[1].sim).abs().max())
+        log(f"phase 10(c): {name} {spec} tiny run: card and CPU edges "
+            f"identical in rounds 0 to {first - 1}, then the negotiation at "
+            f"round {first} picked other senders; there the replicas are "
+            f"within {err:.3g} and the Eq.-3 matrices within {sim} ({codes} "
+            f"replica coordinates differ: a code flipped by the local "
+            f"steps' f32 rounding spreads through the mix and the next "
+            f"steps)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1668,6 +1975,9 @@ def main():
                                      at_n50=sparse_times[MAIN_N],
                                      tree_n1000=tree_large["graph_mix_sparse"])
     counts["selective_scan"], _ = serve_jamba(dev)
+    fig3_counts = fig3_contest(dev)
+    codec_counts = compressed_path(dev)
+    codec_reference_check(dev)
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
                                "pairwise_cosine.cu",
@@ -1692,6 +2002,8 @@ def main():
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": counts[name],
+            "launches_fig3": fig3_counts[name],
+            "launches_compressed": codec_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

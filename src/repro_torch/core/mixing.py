@@ -5,15 +5,18 @@
 received models uniformly (Alg. 2 line 12), Static uses Metropolis-Hastings
 weights on its fixed undirected graph, fully connected uses ``W = 1/n``.
 The W constructors for fixed graphs are host numpy, as in the reference;
-:func:`apply_mixing` is the plain path the mixing kernels are held to.
+:func:`apply_mixing` is the plain path the mixing kernels are held to, and
+:func:`apply_mixing_compressed` its compressed-gossip form.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..kernels import ref
 
 
 def uniform_weights(edges: np.ndarray) -> np.ndarray:
@@ -55,11 +58,58 @@ def fully_connected_weights(n: int) -> np.ndarray:
     return np.full((n, n), 1.0 / n)
 
 
-def apply_mixing(w: torch.Tensor, stacked: Dict[str, torch.Tensor]
+def tensordot_mix_leaf(w: torch.Tensor, leaf: torch.Tensor,
+                       chunk_d: Optional[int] = None) -> torch.Tensor:
+    """``W [m, n] @ leaf [n, ...]`` over the node axis -> ``[m, ...]`` in
+    the leaf dtype, in f32 (the reference's name).  ``chunk_d`` takes the
+    flattened feature axis that many columns at a time, bounding the f32
+    buffers at ``O(m chunk_d)``; the node axis is never split and each
+    column is summed over the nodes in node order
+    (:func:`repro_torch.kernels.ref.graph_mix`), so the result has the
+    same bits whatever ``chunk_d``."""
+    flat = leaf.reshape(leaf.shape[0], -1)
+    out = ref.graph_mix(w, flat, chunk_d)
+    return out.reshape((w.shape[0],) + leaf.shape[1:])
+
+
+def apply_mixing(w: torch.Tensor, stacked: Dict[str, torch.Tensor],
+                 chunk_d: Optional[int] = None
                  ) -> "OrderedDict[str, torch.Tensor]":
     """``W [m, n]`` applied over the node axis of every leaf, in f32 and
-    cast back to the leaf dtype."""
-    w32 = w.float()
-    return OrderedDict(
-        (k, torch.tensordot(w32, v.float(), dims=([1], [0])).to(v.dtype))
-        for k, v in stacked.items())
+    cast back to the leaf dtype (:func:`tensordot_mix_leaf`)."""
+    return OrderedDict((k, tensordot_mix_leaf(w, v, chunk_d))
+                       for k, v in stacked.items())
+
+
+def apply_consensus_correction(mixed: Dict[str, torch.Tensor],
+                               params: Dict[str, torch.Tensor],
+                               decoded: Dict[str, torch.Tensor],
+                               gamma: float = 1.0
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """Consensus-difference form of compressed mixing: given ``mixed_i =
+    sum_j W[i, j] decoded_j``, ``x_i <- params_i + gamma (mixed_i -
+    decoded_i)``, in f32 and cast to the parameter dtype.  Only replica
+    differences move the local model, so a coordinate no node has sent
+    yet is left alone.  At ``gamma == 1`` the sum is taken as ``mixed +
+    (params - decoded)``, the reference's association, so the step-size
+    knob cannot move a full-step run by a rounding."""
+    g = float(gamma)
+
+    def one(m, p, dc):
+        m32, p32 = m.float(), p.float()
+        if g == 1.0:
+            return (m32 + (p32 - dc)).to(p.dtype)
+        return (p32 + g * (m32 - dc)).to(p.dtype)
+    return OrderedDict((k, one(mixed[k], p, decoded[k]))
+                       for k, p in params.items())
+
+
+def apply_mixing_compressed(w: torch.Tensor, params: Dict[str, torch.Tensor],
+                            decoded: Dict[str, torch.Tensor],
+                            chunk_d: Optional[int] = None,
+                            gamma: float = 1.0
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """Compressed-gossip mixing: ``W`` over the decoded replicas
+    (:func:`apply_mixing`), then :func:`apply_consensus_correction`."""
+    return apply_consensus_correction(apply_mixing(w, decoded, chunk_d),
+                                      params, decoded, gamma)

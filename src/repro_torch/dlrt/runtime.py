@@ -47,6 +47,21 @@ class RunnerConfig:
     # "exact" mixes as the dense engine does (bitwise), "gather" converts
     # each round's edges to CSR and mixes through the sparse kernel.
     sparse_mix: str = "exact"
+    # Per-transfer payload the comm accounting charges without a codec
+    # (None: one node's slice of the stacked parameters).
+    model_bytes: Optional[int] = None
+    # Chunked per-layer exchange: the CPU's plain mixes take the flattened
+    # feature axis this many columns at a time, bounding their f32 buffers
+    # at O(n mix_chunk_d); the node axis is never split, so the trajectory
+    # has the same bits whatever it is (None: whole leaves).  The card's
+    # kernels block D themselves and do not read it.
+    mix_chunk_d: Optional[int] = None
+    # Compressed gossip (repro_torch.compress): "none", a codec spec such
+    # as "int8", "fp8" or "int8+topk0.75", or a CompressConfig.  A codec
+    # carries an error-feedback residual and the replicas every peer
+    # holds, mixes over the replicas with a consensus correction, and
+    # charges the analytic wire bytes; a disabled one is exactly "none".
+    compress: object = "none"
 
 
 ENGINES = ("dense", "sparse")
@@ -191,17 +206,23 @@ class DecentralizedRunner:
         self.log = MetricsLog()
         self.edge_history: list = []
 
-    def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
-            ) -> MetricsLog:
-        """Run all ``cfg.rounds`` rounds through the superstep and return
-        the metrics log (``progress`` sees each record)."""
+    def _make_engine(self):
+        """A round engine on the runner's current state; each ``run()``
+        builds a fresh one, so the codec's replicas and residual restart
+        from the parameters and from zero, as the reference's do."""
         from .superstep import Superstep
-        engine = Superstep(
+        return Superstep(
             loss_fn=self._loss_fn, eval_fn=self._eval_fn,
             optimizer=self.opt, batcher=self.batcher,
             test_batch=self.test_batch, strategy=self.strategy,
             cfg=self.cfg, params=self.params, opt_state=self.opt_state,
             device=self.device)
+
+    def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
+            ) -> MetricsLog:
+        """Run all ``cfg.rounds`` rounds through the superstep and return
+        the metrics log (``progress`` sees each record)."""
+        engine = self._make_engine()
         self.log = engine.run(progress)
         self.params, self.opt_state = engine.params, engine.opt_state
         self.edge_history = engine.edge_history

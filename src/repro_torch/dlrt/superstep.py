@@ -1,7 +1,7 @@
 """The single-device round engine — the port of
 ``repro.dlrt.compiled.CompiledSuperstep``'s ``round_body`` and
-``round_body_sparse`` (no network model, no compression, no mesh, Pallas
-kernels on).
+``round_body_sparse`` (no network model, no mesh, Pallas kernels on),
+with compressed gossip.
 
 The reference fuses each evaluation chunk into one ``lax.scan``; here the
 rounds of a chunk run eagerly, one after another, with no host transfer
@@ -29,6 +29,15 @@ mixing run the hand-written kernels (the Gram kernel through
 kernel for uniform strategies, the graph-mix kernel for the others, the
 CSR kernel on the sparse paths); on the CPU the same wrappers run their
 plain versions.
+
+Compressed gossip (``RunnerConfig.compress``, DESIGN.md §13): every round
+each node sends ``encode((params - hat) + resid)`` and every peer advances
+the replica ``hat += decode(wire)``; the Eq.-3 refresh and the sparse
+controller read the replicas when ``CompressConfig.sim``, the mix runs
+over the replicas through the same kernels, and the consensus correction
+``params + gamma (mixed - hat)`` moves the local models.  ``hat`` starts
+as f32 copies of the parameters and ``resid`` as zeros in each engine,
+and the runner builds one engine per ``run()``, as the reference does.
 """
 from __future__ import annotations
 
@@ -37,6 +46,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..compress import (CompressConfig, encode_delta_payload,
+                        wire_bytes_tree, zero_residual)
+from ..core.mixing import apply_consensus_correction
 from ..kernels import ops
 from ..sparse.adjacency import dense_to_csr
 from ..sparse.mix import sparse_mix_pytree
@@ -65,9 +77,10 @@ def eval_boundaries(rounds: int, eval_every: int) -> List[Tuple[int, int]]:
 class Superstep:
     """Runs an in-graph strategy's rounds over node-stacked parameters on
     one device (see the module docstring); ``params`` / ``opt_state`` are
-    the live state, ``edge_history`` the per-round ``[n, n]`` bool edges
-    (``(idx, mask)`` pairs past ``SPARSE_EDGE_DECODE_MAX`` nodes on the
-    sparse path) and ``log`` the evaluation records."""
+    the live state, ``hat`` / ``resid`` the codec's replicas and residual
+    (None without a codec), ``edge_history`` the per-round ``[n, n]`` bool
+    edges (``(idx, mask)`` pairs past ``SPARSE_EDGE_DECODE_MAX`` nodes on
+    the sparse path) and ``log`` the evaluation records."""
 
     def __init__(self, *, loss_fn: Callable, eval_fn: Callable, optimizer,
                  batcher, test_batch, strategy, cfg: RunnerConfig,
@@ -91,7 +104,19 @@ class Superstep:
         self.edge_history: list = []
         self._comm_bytes = 0
         self._last_isolated: Optional[int] = None
-        self._model_bytes = stacked_model_bytes(params, cfg.n_nodes)
+        codec = CompressConfig.parse(cfg.compress)
+        # A disabled codec is exactly compress="none": no carry, no ops.
+        self.codec = codec if codec.enabled else None
+        model_bytes = cfg.model_bytes \
+            or stacked_model_bytes(params, cfg.n_nodes)
+        # What one transfer costs: the codec's analytic wire bytes.
+        self._wire_bytes = model_bytes if self.codec is None \
+            else wire_bytes_tree(params, cfg.n_nodes, self.codec)
+        self.hat = self.resid = None
+        if self.codec is not None:
+            self.hat = type(params)((k, v.to(torch.float32, copy=True))
+                                    for k, v in params.items())
+            self.resid = zero_residual(params)
         self.gstate = strategy.init_graph_state()
         n = cfg.n_nodes
         # Sparse-native strategies never read an [n, n] similarity cache.
@@ -106,28 +131,57 @@ class Superstep:
             return self.batcher.draw(rnd)
         return to_device(self.batcher.next(), self.device)
 
+    def _code(self):
+        """One difference-coded error-feedback step: encode ``(params -
+        hat) + resid``, advance ``hat`` by the decoded delta and keep the
+        new residual; returns the advanced replicas."""
+        delta = type(self.params)((k, v.float() - self.hat[k])
+                                  for k, v in self.params.items())
+        _, dec, self.resid = encode_delta_payload(delta, self.resid,
+                                                  self.codec)
+        self.hat = type(dec)((k, self.hat[k] + v) for k, v in dec.items())
+        return self.hat
+
+    def _settle(self, mixed, decoded):
+        """The round's new parameters: the mix itself without a codec, its
+        consensus correction against the replicas with one."""
+        if decoded is None:
+            return mixed
+        return apply_consensus_correction(mixed, self.params, decoded,
+                                          self.codec.consensus_gamma)
+
     def round(self, rnd: int):
         """One round; returns its ``[n, n]`` bool in-edge matrix, or its
         ``(idx [n, k], mask [n, k])`` for a sparse-native strategy."""
         self.params, self.opt_state = self._local_step(
             self.params, self.opt_state, self._batch(rnd))
+        decoded = None if self.codec is None else self._code()
+        # What the peers mix this round, and what the controller reads.
+        src = self.params if decoded is None else decoded
+        ctrl = src if self.codec is None or self.codec.sim else self.params
         if self.sparse_native:
             self.gstate, adj = self.strategy.graph_round(
                 self.gstate, rnd,
-                self.params if self.strategy.needs_params else None)
-            self.params = sparse_mix_pytree(adj, self.params)
+                ctrl if self.strategy.needs_params else None)
+            self.params = self._settle(sparse_mix_pytree(adj, src), decoded)
             return adj.idx, adj.mask
         if self.strategy.needs_sim and rnd % self.cfg.sim_every == 0:
-            self.sim = ops.model_pairwise_cosine(self.params)
+            self.sim = ops.model_pairwise_cosine(ctrl)
         self.gstate, edges, w = self.strategy.graph_round(
             self.gstate, rnd, self.sim)
+        # Under a codec the kernels mix the f32 replicas as they mix the
+        # parameters.  The reference refuses its Pallas path with a codec
+        # only because its dispatch reads the raw parameters; the
+        # function is the same W @ decoded.
+        chunk_d = self.cfg.mix_chunk_d
         if self.compat_gather:
             adj = dense_to_csr(edges, w, max(1, self.cfg.n_nodes - 1))
-            self.params = sparse_mix_pytree(adj, self.params)
+            mixed = sparse_mix_pytree(adj, src)
         elif self.strategy.uniform_mixing:
-            self.params = ops.mix_masked_pytree(edges, self.params)
+            mixed = ops.mix_masked_pytree(edges, src, chunk_d)
         else:
-            self.params = ops.mix_pytree(w, self.params)
+            mixed = ops.mix_pytree(w, src, chunk_d)
+        self.params = self._settle(mixed, decoded)
         return edges
 
     def _run_chunk(self, start: int, end: int) -> np.ndarray:
@@ -143,7 +197,7 @@ class Superstep:
             buf[i] = self.round(rnd)
         edges_np = buf.cpu().numpy()
         self.edge_history.extend(edges_np)
-        self._comm_bytes += int(edges_np.sum()) * self._model_bytes
+        self._comm_bytes += int(edges_np.sum()) * self._wire_bytes
         return edges_np
 
     def _run_sparse_chunk(self, start: int, end: int) -> np.ndarray:
@@ -154,7 +208,7 @@ class Superstep:
         for i, rnd in enumerate(range(start, end + 1)):
             idx_buf[i], mask_buf[i] = self.round(rnd)
         idx_np, mask_np = idx_buf.cpu().numpy(), mask_buf.cpu().numpy()
-        self._comm_bytes += int(mask_np.sum()) * self._model_bytes
+        self._comm_bytes += int(mask_np.sum()) * self._wire_bytes
         self._last_isolated = int((~mask_np[-1].any(axis=1)).sum())
         if n > SPARSE_EDGE_DECODE_MAX:
             self.edge_history.extend(zip(idx_np, mask_np))

@@ -15,7 +15,7 @@ never falling back from one to the other; ``graph_mix.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -131,15 +131,17 @@ def _launch(kernel, what: str, src: torch.Tensor, xs: Sequence[torch.Tensor],
     return ys
 
 
-def graph_mix_leaves(w: torch.Tensor, xs: Sequence[torch.Tensor]
-                     ) -> List[torch.Tensor]:
+def graph_mix_leaves(w: torch.Tensor, xs: Sequence[torch.Tensor],
+                     chunk_d: Optional[int] = None) -> List[torch.Tensor]:
     """``W [m, n]`` (f32) ``@ X [n, D]`` for every ``X`` in ``xs`` (f32 or
     bf16, one dtype, any D each) -> ``[m, D]`` in X's dtype, accumulated
-    in f32; one launch (up to :data:`MAX_LEAVES` leaves)."""
+    in f32; one launch (up to :data:`MAX_LEAVES` leaves).  ``chunk_d``
+    bounds the plain version's buffers on the CPU (same bits); the kernel
+    blocks D itself and does not read it."""
     if not xs:
         return []
     if xs[0].device.type == "cpu":
-        return [ref.graph_mix(w, x) for x in xs]
+        return [ref.graph_mix(w, x, chunk_d) for x in xs]
     cuda.require("graph_mix", w, *xs, dtypes=_DTYPES)
     if w.dtype != torch.float32 or w.dim() != 2:
         raise ValueError("graph_mix: W must be a 2-D f32 tensor")
@@ -148,15 +150,17 @@ def graph_mix_leaves(w: torch.Tensor, xs: Sequence[torch.Tensor]
     return _launch(graph_mix, "graph_mix", w, xs, m, n)
 
 
-def graph_mix_masked_leaves(edges: torch.Tensor, xs: Sequence[torch.Tensor]
+def graph_mix_masked_leaves(edges: torch.Tensor, xs: Sequence[torch.Tensor],
+                            chunk_d: Optional[int] = None
                             ) -> List[torch.Tensor]:
     """Uniform averaging ``((E + I) / rowsum) @ X`` from the bool in-edge
     matrix ``E [n, n]`` (``E[i, j]``: j sends to i) for every ``X [n, D]``
-    in ``xs`` (f32 or bf16, one dtype) -> ``[n, D]`` in X's dtype."""
+    in ``xs`` (f32 or bf16, one dtype) -> ``[n, D]`` in X's dtype;
+    ``chunk_d`` as in :func:`graph_mix_leaves`."""
     if not xs:
         return []
     if xs[0].device.type == "cpu":
-        return [ref.graph_mix_masked(edges, x) for x in xs]
+        return [ref.graph_mix_masked(edges, x, chunk_d) for x in xs]
     cuda.require("graph_mix_masked", edges, *xs, dtypes=_DTYPES)
     n = edges.shape[0]
     if edges.dtype != torch.bool or tuple(edges.shape) != (n, n):

@@ -51,23 +51,28 @@ def model_pairwise_cosine(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cumsum(cos, dim=0)[-1] / len(leaves)
 
 
-def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor]
+def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor],
+               chunk_d: Optional[int] = None
                ) -> "OrderedDict[str, torch.Tensor]":
-    """Apply ``W [m, n]`` to every leaf (``[n, ...]`` -> ``[m, ...]``)."""
+    """Apply ``W [m, n]`` to every leaf (``[n, ...]`` -> ``[m, ...]``);
+    ``chunk_d`` bounds the plain version's buffers on the CPU, with the
+    same bits (:func:`repro_torch.kernels.ref.graph_mix`)."""
     w = w.float().contiguous()
     m = w.shape[0]
     ys = graph_mix_leaves(w, [v.reshape(v.shape[0], -1)
-                              for v in stacked.values()])
+                              for v in stacked.values()], chunk_d)
     return OrderedDict((k, y.reshape((m,) + v.shape[1:]))
                        for (k, v), y in zip(stacked.items(), ys))
 
 
-def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor]
+def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor],
+                      chunk_d: Optional[int] = None
                       ) -> "OrderedDict[str, torch.Tensor]":
-    """Uniform-average mixing from the raw in-edge matrix, every leaf."""
+    """Uniform-average mixing from the raw in-edge matrix, every leaf;
+    ``chunk_d`` as in :func:`mix_pytree`."""
     edges = edges.contiguous()
     ys = graph_mix_masked_leaves(edges, [v.reshape(v.shape[0], -1)
-                                         for v in stacked.values()])
+                                         for v in stacked.values()], chunk_d)
     return OrderedDict((k, y.reshape(v.shape))
                        for (k, v), y in zip(stacked.items(), ys))
 

@@ -2,6 +2,8 @@
 tensors, and the oracles the kernels are held against on the card."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _EPS = 1e-12
@@ -21,19 +23,40 @@ def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
     return g / (norms[:, None] * norms[None, :])
 
 
-def graph_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``W [m, n] @ X [n, D] -> [m, D]`` in f32, cast to ``x.dtype``."""
-    return (w.float() @ x.float()).to(x.dtype)
+def graph_mix(w: torch.Tensor, x: torch.Tensor,
+              chunk_d: Optional[int] = None) -> torch.Tensor:
+    """``W [m, n] @ X [n, D] -> [m, D]`` in f32, cast to ``x.dtype``.
+
+    Each output column is summed over the nodes in node order, each
+    product rounded before its add.  A library product chooses its order
+    by the shape it is given, so its columns change bits when it is given
+    fewer of them; this order does not depend on the other columns, and
+    ``chunk_d`` columns at a time (bounding the f32 buffers at ``O(m
+    chunk_d)``, the reference's ``mix_chunk_d``) give the bits of the
+    whole leaf."""
+    w32 = w.float()
+    d = x.shape[1]
+    step = d if chunk_d is None else chunk_d
+    pieces = []
+    for s in range(0, max(d, 1), step):
+        xs = x[:, s:s + step].float()
+        acc = w32[:, :1] * xs[0]
+        for j in range(1, xs.shape[0]):
+            acc += w32[:, j:j + 1] * xs[j]
+        pieces.append(acc)
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+    return out.to(x.dtype)
 
 
-def graph_mix_masked(edges: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def graph_mix_masked(edges: torch.Tensor, x: torch.Tensor,
+                     chunk_d: Optional[int] = None) -> torch.Tensor:
     """Uniform averaging from the in-edge matrix: ``W = (E + I) / rowsum``
-    then ``W @ X``."""
+    then ``W @ X`` (:func:`graph_mix`)."""
     n = edges.shape[0]
     w = edges.float() + torch.eye(n, dtype=torch.float32,
                                   device=edges.device)
     w = w / w.sum(dim=1, keepdim=True)
-    return graph_mix(w, x)
+    return graph_mix(w, x, chunk_d)
 
 
 def graph_mix_sparse(idx: torch.Tensor, w: torch.Tensor,

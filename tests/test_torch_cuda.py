@@ -426,3 +426,123 @@ def test_cuda_runner_computes_convolutions_in_f32_whatever_the_flags(
     for a, b in zip(default.log.records, cleared.log.records):
         assert (a.mean_accuracy, a.mean_loss) == (b.mean_accuracy,
                                                   b.mean_loss)
+
+
+CODEC_SPECS = ("int8", "fp8", "topk0.25", "int8+topk0.75", "fp8+topk0.5",
+               "int8+topk0.5-no-feedback")
+
+
+def _codec_config(spec):
+    from repro_torch.compress import CompressConfig
+    if spec.endswith("-no-feedback"):
+        cfg = CompressConfig.parse(spec.removesuffix("-no-feedback"))
+        return CompressConfig(quant=cfg.quant, topk_frac=cfg.topk_frac,
+                              error_feedback=False)
+    return CompressConfig.parse(spec)
+
+
+def _codec_tree(n, seed):
+    """GN-LeNet's ten full-width leaves at ``n`` nodes (f32, on the CPU):
+    Gaussian rows, a zero row, a row of small integers (magnitudes tie at
+    the top-k cut and at the row maximum), and a row whose largest value
+    sits where ``max / (max / 448)`` lands a hair above 448."""
+    gen = torch.Generator().manual_seed(seed)
+    tree = {}
+    for i, d in enumerate(GN_LENET):
+        x = torch.randn((n, d), generator=gen)
+        x[0] = 0.0
+        x[1] = torch.randint(-4, 5, (d,), generator=gen).float()
+        x[2] = torch.rand((d,), generator=gen) * 2 - 1
+        x[2, 0] = 4.848870754241943  # max / (max / 448) > 448 in f32
+        tree[f"{i:02d}"] = x
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 1000])
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_cuda_codec_is_the_cpu_codec(cuda_device, spec, n):
+    """Two difference-coded error-feedback steps over GN-LeNet's
+    full-width leaves (conv2 past the int16 index range): every wire
+    tensor, decoded payload and residual on the card has the bits of the
+    CPU's, fp8 codes at +-448 and top-k's tie order included."""
+    from repro_torch.compress import encode_delta_payload, zero_residual
+    cfg = _codec_config(spec)
+    cpu = _codec_tree(n, 0)
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    r_cpu, r_card = zero_residual(cpu), zero_residual(card)
+    for step in range(2):
+        if step:
+            cpu = {k: v * 0.5 for k, v in cpu.items()}
+            card = {k: v * 0.5 for k, v in card.items()}
+        w_cpu, d_cpu, r_cpu = encode_delta_payload(cpu, r_cpu, cfg)
+        w_card, d_card, r_card = encode_delta_payload(card, r_card, cfg)
+        for key in cpu:
+            for field, want in w_cpu[key].items():
+                got = w_card[key][field].cpu()
+                assert got.dtype == want.dtype, (key, field)
+                if got.dtype == torch.float8_e4m3fn:
+                    got, want = got.view(torch.uint8), want.view(torch.uint8)
+                assert torch.equal(got, want), (key, field, step)
+            assert torch.equal(d_card[key].cpu(), d_cpu[key]), (key, step)
+            assert torch.equal(r_card[key].cpu(), r_cpu[key]), (key, step)
+            if cfg.quant == "fp8" and step == 0:
+                # Row 2's quotient past 448 became 448, not NaN.
+                q = w_card[key]["q"].float()
+                assert torch.isfinite(q).all()
+                assert float(q[2].abs().max()) == 448.0, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,spec", [("morph", "int8+topk0.75"),
+                                       ("static", "int8"),
+                                       ("sparse-morph", "int8+topk0.75")])
+def test_cuda_compressed_round_launches_one_grouped_kernel(cuda_device, name,
+                                                           spec):
+    """A compressed round of reduced GN-LeNet at n = 8: the Eq.-3 refresh on
+    the replicas is one grouped Gram launch and the mix one grouped launch
+    (masked for Morph, dense for Static, CSR for sparse Morph)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import InGraphMorphStrategy, InGraphStaticStrategy
+    from repro_torch.data import (StackedBatcher, dirichlet_partition,
+                                  make_image_classification,
+                                  train_test_split)
+    from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
+    from repro_torch.models import cnn_loss, cnn_params
+    from repro_torch.optim import sgd
+    from repro_torch.sparse import SparseMorphStrategy
+
+    n = 8
+    ds = make_image_classification(400, num_classes=4, image_size=8, seed=0)
+    tr, te = train_test_split(ds, 0.25)
+    parts = dirichlet_partition(tr.labels, n, 0.5, np.random.default_rng(0))
+    strategy = {"morph": lambda: InGraphMorphStrategy(n=n, k=3, seed=0,
+                                                      device=cuda_device),
+                "static": lambda: InGraphStaticStrategy(n=n, degree=3,
+                                                        device=cuda_device),
+                "sparse-morph": lambda: SparseMorphStrategy(
+                    n=n, k=3, seed=0, device=cuda_device)}[name]()
+    runner = DecentralizedRunner(
+        init_fn=lambda g: cnn_params(g, in_channels=3, num_classes=4,
+                                     image_size=8, width=4),
+        loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.05),
+        batcher=StackedBatcher(tr, parts, 8, seed=3),
+        test_batch={"images": te.images, "labels": te.labels},
+        strategy=strategy,
+        cfg=RunnerConfig(n_nodes=n, rounds=2, eval_every=1,
+                         engine="sparse" if name == "sparse-morph"
+                         else "dense", compress=spec),
+        device=cuda_device)
+    eng = runner._make_engine()
+    for rnd in range(2):
+        kernels.reset_launches()
+        eng.round(rnd)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels.KERNELS}
+        want = dict.fromkeys(got, 0)
+        want.update({"morph": dict(gram_matrix=1, graph_mix_masked=1),
+                     "static": dict(graph_mix=1),
+                     "sparse-morph": dict(graph_mix_sparse=1)}[name])
+        assert got == want, (rnd, got)
