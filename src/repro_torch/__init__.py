@@ -33,5 +33,14 @@ def fold_seed(seed: int, counter: int) -> int:
     """A ``torch.Generator`` seed that is a pure function of ``(seed,
     counter)`` — the port's stand-in for ``jax.random.fold_in(key,
     counter)``: draws keyed this way do not depend on what was drawn
-    before (a round's batch or graph is the same whichever rounds ran)."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(counter) & 0xFFFFFFFF)
+    before (a round's batch or graph is the same whichever rounds ran).
+
+    A CPU generator reads only the low 32 bits of its seed, so those
+    depend on both inputs: the high half is the key (``seed``, its own
+    high half folded in) and the low half ``counter`` XOR the key times an
+    odd constant.  For a given key that is a bijection of ``counter``, so
+    seed 0 gives the counter itself, and folding again, as in
+    ``fold_seed(fold_seed(seed, rnd), stream)``, keeps all three."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    key = (s ^ ((s >> 32) * 0x85EBCA6B)) & 0xFFFFFFFF
+    return (key << 32) | ((int(counter) ^ (key * 0x9E3779B9)) & 0xFFFFFFFF)

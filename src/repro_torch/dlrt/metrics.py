@@ -43,3 +43,11 @@ class MetricsLog:
 def internode_variance(per_node_acc: np.ndarray) -> float:
     """Variance of per-node test accuracies, in percentage points squared."""
     return float(np.var(np.asarray(per_node_acc) * 100.0))
+
+
+def net_staleness_mean(net_stats) -> float:
+    """Mean delivered content staleness in rounds from a dense-network
+    ``net_stats`` dict (0.0 when absent or nothing was delivered)."""
+    if not net_stats or not net_stats["delivered"]:
+        return 0.0
+    return net_stats["staleness_sum"] / net_stats["delivered"]

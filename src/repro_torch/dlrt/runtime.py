@@ -23,7 +23,8 @@ from .. import resolve_device
 from ..core.topology import isolated_nodes
 from ..optim import Optimizer, apply_updates
 from ..tree import stack
-from .metrics import MetricsLog, RoundRecord, internode_variance
+from .metrics import (MetricsLog, RoundRecord, internode_variance,
+                      net_staleness_mean)
 
 
 @dataclass
@@ -62,6 +63,11 @@ class RunnerConfig:
     # holds, mixes over the replicas with a consensus correction, and
     # charges the analytic wire bytes; a disabled one is exactly "none".
     compress: object = "none"
+    # Dense in-scan network model (repro_torch.netsim.DenseNetwork):
+    # latency, staleness, drops, churn and stragglers priced inside every
+    # round of the dense engine (DESIGN.md §9).  None = the idealized
+    # lockstep network.
+    net: Optional[object] = None
 
 
 ENGINES = ("dense", "sparse")
@@ -71,8 +77,8 @@ SPARSE_MIX_MODES = ("exact", "gather")
 def resolve_engine(cfg: RunnerConfig, strategy) -> str:
     """The engine ``cfg`` selects for ``strategy``: ``"auto"`` resolved,
     then the reference's checks (``ValueError`` for an unknown engine or
-    compat mix, ``TypeError`` for a sparse-native strategy under the dense
-    engine)."""
+    compat mix or a network model under the sparse engine, ``TypeError``
+    for a sparse-native strategy under the dense engine)."""
     sparse_native = bool(getattr(strategy, "sparse", False))
     engine = cfg.engine
     if engine == "auto":
@@ -87,6 +93,11 @@ def resolve_engine(cfg: RunnerConfig, strategy) -> str:
             f"strategy {getattr(strategy, 'name', strategy)!r} returns CSR "
             "adjacency (sparse=True); select it with "
             "RunnerConfig.engine='sparse'")
+    if engine == "sparse" and cfg.net is not None:
+        raise ValueError(
+            "the sparse engine does not support the dense in-scan "
+            "network model yet (ROADMAP: compressed/priced gossip); "
+            "use engine='dense' with cfg.net")
     return engine
 
 
@@ -205,11 +216,16 @@ class DecentralizedRunner:
         self._eval_fn = eval_fn
         self.log = MetricsLog()
         self.edge_history: list = []
+        # The last run's delivered edges and network counters (cfg.net
+        # runs only).
+        self.delivered_history: list = []
+        self.net_stats = None
 
     def _make_engine(self):
         """A round engine on the runner's current state; each ``run()``
         builds a fresh one, so the codec's replicas and residual restart
-        from the parameters and from zero, as the reference's do."""
+        from the parameters and from zero, and the network model's ring
+        from the parameters, as the reference's do."""
         from .superstep import Superstep
         return Superstep(
             loss_fn=self._loss_fn, eval_fn=self._eval_fn,
@@ -226,7 +242,14 @@ class DecentralizedRunner:
         self.log = engine.run(progress)
         self.params, self.opt_state = engine.params, engine.opt_state
         self.edge_history = engine.edge_history
+        self.delivered_history = engine.delivered_history
+        self.net_stats = engine.net_stats
         return self.log
+
+    def staleness_mean(self) -> float:
+        """Mean delivered content staleness in rounds of the last run (0.0
+        without a network model or when nothing was delivered)."""
+        return net_staleness_mean(self.net_stats)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,7 @@
 """The single-device round engine — the port of
 ``repro.dlrt.compiled.CompiledSuperstep``'s ``round_body`` and
-``round_body_sparse`` (no network model, no mesh, Pallas kernels on),
-with compressed gossip.
+``round_body_sparse`` (no mesh, Pallas kernels on), with compressed
+gossip and the dense in-scan network model.
 
 The reference fuses each evaluation chunk into one ``lax.scan``; here the
 rounds of a chunk run eagerly, one after another, with no host transfer
@@ -38,21 +38,37 @@ over the replicas through the same kernels, and the consensus correction
 ``params + gamma (mixed - hat)`` moves the local models.  ``hat`` starts
 as f32 copies of the parameters and ``resid`` as zeros in each engine,
 and the runner builds one engine per ``run()``, as the reference does.
+
+The network model (``RunnerConfig.net``, a
+:class:`~repro_torch.netsim.DenseNetwork`, dense engine only, DESIGN.md
+§9): every node takes its local step and only the nodes the fault
+timeline lets step keep it (:func:`net_select`); the post-step models
+(the replicas under a codec) are pushed onto a ring of the last ``S``
+snapshots (:func:`net_push`); the round's keyed draws decide which
+negotiated edges arrive and from how many rounds back
+(:func:`net_effective`); and one grouped ``graph_mix`` launch contracts
+the staleness-expanded ``[n, n S]`` weights with the ring, for every
+strategy, uniform ones included.  Under a codec the ring holds the
+replicas: slot 0 is the one the next delta is coded against, so no
+separate ``hat`` is kept.  A ring of depth 1 under the ideal network is
+bitwise the engine without one on the CPU (both plain mixes sum over the
+nodes in node order from the same quotients).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..compress import (CompressConfig, encode_delta_payload,
                         wire_bytes_tree, zero_residual)
-from ..core.mixing import apply_consensus_correction
+from ..core.mixing import apply_consensus_correction, uniform_weights_torch
 from ..kernels import ops
 from ..sparse.adjacency import dense_to_csr
 from ..sparse.mix import sparse_mix_pytree
-from .metrics import MetricsLog, RoundRecord
+from .metrics import MetricsLog, RoundRecord, net_staleness_mean
 from .runtime import (RunnerConfig, make_evaluator, make_local_step,
                       make_round_record, resolve_engine, stacked_model_bytes,
                       to_device)
@@ -60,6 +76,11 @@ from .runtime import (RunnerConfig, make_evaluator, make_local_step,
 # Above this population the sparse engine keeps (idx, mask) pairs in
 # edge_history instead of decoding dense [n, n] edge matrices.
 SPARSE_EDGE_DECODE_MAX = 4096
+
+
+def _unstaged(stage: str, fn: Callable):
+    """The default stage hook of :meth:`Superstep.net_round`: run ``fn``."""
+    return fn()
 
 
 def eval_boundaries(rounds: int, eval_every: int) -> List[Tuple[int, int]]:
@@ -74,13 +95,89 @@ def eval_boundaries(rounds: int, eval_every: int) -> List[Tuple[int, int]]:
     return chunks
 
 
+def net_select(mask: torch.Tensor, new, old):
+    """Per-node ``where(mask, new, old)`` over a state tree (dicts, tuples,
+    tensors); scalar leaves (shared optimizer counters) and leaves not on
+    the node axis always take ``new``."""
+    if isinstance(new, Mapping):
+        return type(new)((k, net_select(mask, v, old[k]))
+                         for k, v in new.items())
+    if isinstance(new, (tuple, list)):
+        return type(new)(net_select(mask, a, b) for a, b in zip(new, old))
+    if new.dim() == 0 or new.shape[0] != mask.shape[0]:
+        return new
+    m = mask.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+
+
+def net_effective(edges: torch.Tensor, w: Optional[torch.Tensor],
+                  up: torch.Tensor, step: torch.Tensor, stal: torch.Tensor,
+                  drop: torch.Tensor, S: int, *, uniform: bool):
+    """The round's delivery and mixing plan: ``(delivered [n, n] bool,
+    d_idx [n, n] staleness a delivery reads, w_stal [n, n, S] f32
+    staleness-expanded weights, stale_counts [S] int32)``.  Receivers that
+    are down or do not step keep their own model; uniform strategies
+    average over what arrived, fixed-W ones fold the lost mass into
+    self-weight."""
+    n = edges.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=edges.device)
+    active = up & step                   # receivers that mix
+    delivered = edges & ~drop & up[None, :] & active[:, None]
+    if uniform:
+        w_eff = uniform_weights_torch(delivered)
+    else:
+        support = delivered | eye
+        w32 = w.float()
+        kept = w32 * support
+        lost = (w32 * ~support).sum(dim=1)
+        w_eff = kept + torch.diag(lost)
+    w_eff = torch.where(active[:, None], w_eff, eye.float())
+    d_idx = torch.where(eye, torch.zeros_like(stal), stal)
+    onehot = d_idx[:, :, None] == torch.arange(
+        S, dtype=d_idx.dtype, device=edges.device)[None, None, :]
+    w_stal = w_eff[:, :, None] * onehot
+    stale_counts = (onehot & delivered[:, :, None]).sum(dim=(0, 1)) \
+        .to(torch.int32)
+    return delivered, d_idx, w_stal, stale_counts
+
+
+def net_push(params, netstate, rnd: int, step: torch.Tensor, S: int):
+    """Advance both rings: slot 0 of ``hist`` becomes this round's post-step
+    snapshot, slot 0 of ``lhist`` each node's last-step round."""
+    hist, lhist = netstate
+    hist = type(hist)(
+        (k, p[:, None] if S == 1 else torch.cat([p[:, None], h[:, :-1]],
+                                                dim=1))
+        for (k, h), p in zip(hist.items(), params.values()))
+    last = torch.where(step, torch.full_like(lhist[:, 0], rnd), lhist[:, 0])
+    lhist = last[:, None] if S == 1 else \
+        torch.cat([last[:, None], lhist[:, :-1]], dim=1)
+    return hist, lhist
+
+
+def net_observed(rnd: int, lhist: torch.Tensor, d_idx: torch.Tensor,
+                 delivered: torch.Tensor) -> torch.Tensor:
+    """Sum over delivered edges of the content staleness: this round minus
+    the sender's last completed step as of the snapshot each edge delivers
+    from (int32 scalar)."""
+    n = d_idx.shape[0]
+    sender = torch.arange(n, device=d_idx.device)[None, :].expand(n, n)
+    obs = rnd - lhist[sender, d_idx.long()]
+    return torch.where(delivered, obs, torch.zeros_like(obs)).sum() \
+        .to(torch.int32)
+
+
 class Superstep:
     """Runs an in-graph strategy's rounds over node-stacked parameters on
     one device (see the module docstring); ``params`` / ``opt_state`` are
     the live state, ``hat`` / ``resid`` the codec's replicas and residual
-    (None without a codec), ``edge_history`` the per-round ``[n, n]`` bool
+    (None without a codec; ``hat`` None with a network model, whose ring
+    holds the replicas), ``edge_history`` the per-round ``[n, n]`` bool
     edges (``(idx, mask)`` pairs past ``SPARSE_EDGE_DECODE_MAX`` nodes on
-    the sparse path) and ``log`` the evaluation records."""
+    the sparse path) and ``log`` the evaluation records.  With a network
+    model, ``hist`` / ``lhist`` are the snapshot and last-step rings,
+    ``delivered_history`` the per-round delivered edges and ``net_stats``
+    the delivered, dropped and staleness counters."""
 
     def __init__(self, *, loss_fn: Callable, eval_fn: Callable, optimizer,
                  batcher, test_batch, strategy, cfg: RunnerConfig,
@@ -112,13 +209,19 @@ class Superstep:
         # What one transfer costs: the codec's analytic wire bytes.
         self._wire_bytes = model_bytes if self.codec is None \
             else wire_bytes_tree(params, cfg.n_nodes, self.codec)
+        n = cfg.n_nodes
+        self.net = cfg.net
+        self.net_stats = None
+        self.delivered_history: list = []
+        if self.net is not None:
+            self._init_net(params)
         self.hat = self.resid = None
         if self.codec is not None:
-            self.hat = type(params)((k, v.to(torch.float32, copy=True))
-                                    for k, v in params.items())
+            if self.net is None:
+                self.hat = type(params)((k, v.to(torch.float32, copy=True))
+                                        for k, v in params.items())
             self.resid = zero_residual(params)
         self.gstate = strategy.init_graph_state()
-        n = cfg.n_nodes
         # Sparse-native strategies never read an [n, n] similarity cache.
         self.sim = None if self.sparse_native else torch.zeros(
             (n, n), dtype=torch.float32, device=device)
@@ -126,21 +229,40 @@ class Superstep:
         self._evaluate = make_evaluator(eval_fn,
                                         batch_chunk=cfg.eval_batch_chunk)
 
+    def _init_net(self, params) -> None:
+        """The network model's layout: the ring depth priced on the wire
+        bytes, the fault timeline's ``[rounds, n]`` up and step masks on
+        the device, the snapshot ring seeded with the initial models (f32
+        copies under a codec) and the last-step ring of -1."""
+        n, dev = self.cfg.n_nodes, self.device
+        self.net_S = S = self.net.depth(self._wire_bytes)
+        up, step = self.net.round_masks(self.cfg.rounds, n)
+        self._net_up = torch.as_tensor(up, device=dev)
+        self._net_step = torch.as_tensor(step, device=dev)
+        snap0 = params if self.codec is None else type(params)(
+            (k, v.float()) for k, v in params.items())
+        self.hist = type(params)(
+            (k, v[:, None].repeat((1, S) + (1,) * (v.dim() - 1)))
+            for k, v in snap0.items())
+        self.lhist = torch.full((n, S), -1, dtype=torch.int32, device=dev)
+        self.net_stats = {"delivered": 0, "dropped": 0,
+                          "staleness_hist": np.zeros(S, np.int64),
+                          "staleness_sum": 0}
+
     def _batch(self, rnd: int):
         if hasattr(self.batcher, "draw"):
             return self.batcher.draw(rnd)
         return to_device(self.batcher.next(), self.device)
 
-    def _code(self):
-        """One difference-coded error-feedback step: encode ``(params -
-        hat) + resid``, advance ``hat`` by the decoded delta and keep the
-        new residual; returns the advanced replicas."""
-        delta = type(self.params)((k, v.float() - self.hat[k])
+    def _code(self, hat):
+        """One difference-coded error-feedback step against the replicas
+        ``hat``: encode ``(params - hat) + resid``, keep the new residual,
+        and return the advanced replicas ``hat + decode(wire)``."""
+        delta = type(self.params)((k, v.float() - hat[k])
                                   for k, v in self.params.items())
         _, dec, self.resid = encode_delta_payload(delta, self.resid,
                                                   self.codec)
-        self.hat = type(dec)((k, self.hat[k] + v) for k, v in dec.items())
-        return self.hat
+        return type(dec)((k, hat[k] + v) for k, v in dec.items())
 
     def _settle(self, mixed, decoded):
         """The round's new parameters: the mix itself without a codec, its
@@ -150,12 +272,29 @@ class Superstep:
         return apply_consensus_correction(mixed, self.params, decoded,
                                           self.codec.consensus_gamma)
 
+    def _graph_round(self, rnd: int, ctrl, stage: Callable = _unstaged):
+        """A dense strategy's round: the Eq.-3 refresh on ``ctrl`` every
+        ``sim_every`` rounds (for a strategy that reads it), then its graph
+        round; returns ``(edges, W)``."""
+        if self.strategy.needs_sim and rnd % self.cfg.sim_every == 0:
+            self.sim = stage("similarity",
+                             lambda: ops.model_pairwise_cosine(ctrl))
+        self.gstate, edges, w = stage(
+            "controller",
+            lambda: self.strategy.graph_round(self.gstate, rnd, self.sim))
+        return edges, w
+
     def round(self, rnd: int):
         """One round; returns its ``[n, n]`` bool in-edge matrix, or its
-        ``(idx [n, k], mask [n, k])`` for a sparse-native strategy."""
+        ``(idx [n, k], mask [n, k])`` for a sparse-native strategy, or
+        :meth:`net_round`'s tuple under a network model."""
+        if self.net is not None:
+            return self.net_round(rnd)
         self.params, self.opt_state = self._local_step(
             self.params, self.opt_state, self._batch(rnd))
-        decoded = None if self.codec is None else self._code()
+        decoded = None
+        if self.codec is not None:
+            decoded = self.hat = self._code(self.hat)
         # What the peers mix this round, and what the controller reads.
         src = self.params if decoded is None else decoded
         ctrl = src if self.codec is None or self.codec.sim else self.params
@@ -165,10 +304,7 @@ class Superstep:
                 ctrl if self.strategy.needs_params else None)
             self.params = self._settle(sparse_mix_pytree(adj, src), decoded)
             return adj.idx, adj.mask
-        if self.strategy.needs_sim and rnd % self.cfg.sim_every == 0:
-            self.sim = ops.model_pairwise_cosine(ctrl)
-        self.gstate, edges, w = self.strategy.graph_round(
-            self.gstate, rnd, self.sim)
+        edges, w = self._graph_round(rnd, ctrl)
         # Under a codec the kernels mix the f32 replicas as they mix the
         # parameters.  The reference refuses its Pallas path with a codec
         # only because its dispatch reads the raw parameters; the
@@ -184,12 +320,72 @@ class Superstep:
         self.params = self._settle(mixed, decoded)
         return edges
 
+    def net_round(self, rnd: int, stage: Callable = _unstaged):
+        """One round under the network model; returns ``(edges [n, n]
+        negotiated, delivered [n, n], stale_counts [S], obs_sum)``.
+
+        Each stage runs as ``stage(name, fn)`` (by default just ``fn()``):
+        batch, local_step (with the step mask's keep), masks, encode (under
+        a codec), similarity (on its cadence), controller, push,
+        delivery_plan, mix and settle, so a caller can time the round's own
+        code stage by stage."""
+        net, n, S, dev = self.net, self.cfg.n_nodes, self.net_S, self.device
+        r = min(rnd, self.cfg.rounds - 1)
+        up, step = self._net_up[r], self._net_step[r]
+        batch = stage("batch", lambda: self._batch(rnd))
+
+        def local_step():
+            new_p, new_o = self._local_step(self.params, self.opt_state,
+                                            batch)
+            return (net_select(step, new_p, self.params),
+                    net_select(step, new_o, self.opt_state))
+
+        def masks():
+            draws = net.draws(rnd, n, dev)
+            return (net.staleness_matrix(rnd, n, self._wire_bytes, S,
+                                         draws=draws, device=dev),
+                    net.drop_mask(rnd, n, draws=draws, device=dev))
+
+        def plan():
+            delivered, d_idx, w_stal, stale_counts = net_effective(
+                edges, w, up, step, stal, drop, S,
+                uniform=self.strategy.uniform_mixing)
+            return (delivered, w_stal, stale_counts,
+                    net_observed(rnd, self.lhist, d_idx, delivered))
+
+        def mix():
+            flat = OrderedDict((k, h.reshape((n * S,) + h.shape[2:]))
+                               for k, h in self.hist.items())
+            return ops.mix_pytree(w_stal.reshape(n, n * S), flat,
+                                  self.cfg.mix_chunk_d)
+
+        self.params, self.opt_state = stage("local_step", local_step)
+        stal, drop = stage("masks", masks)
+        decoded = None
+        if self.codec is not None:
+            # The ring's slot 0 (last round's push) is the replica this
+            # round's delta is coded against.
+            decoded = stage("encode", lambda: self._code(OrderedDict(
+                (k, h[:, 0]) for k, h in self.hist.items())))
+        src = self.params if decoded is None else decoded
+        ctrl = src if self.codec is None or self.codec.sim else self.params
+        edges, w = self._graph_round(rnd, ctrl, stage)
+        self.hist, self.lhist = stage("push", lambda: net_push(
+            src, (self.hist, self.lhist), rnd, step, S))
+        delivered, w_stal, stale_counts, obs_sum = stage("delivery_plan",
+                                                         plan)
+        mixed = stage("mix", mix)
+        self.params = stage("settle", lambda: self._settle(mixed, decoded))
+        return edges, delivered, stale_counts, obs_sum
+
     def _run_chunk(self, start: int, end: int) -> np.ndarray:
         """Rounds ``[start, end]``; returns their ``[K, n, n]`` edges (the
         ``[K, n, k]`` masks past ``SPARSE_EDGE_DECODE_MAX`` nodes on the
         sparse path)."""
         if self.sparse_native:
             return self._run_sparse_chunk(start, end)
+        if self.net is not None:
+            return self._run_net_chunk(start, end)
         n = self.cfg.n_nodes
         buf = torch.empty((end - start + 1, n, n), dtype=torch.bool,
                           device=self.device)
@@ -199,6 +395,37 @@ class Superstep:
         self.edge_history.extend(edges_np)
         self._comm_bytes += int(edges_np.sum()) * self._wire_bytes
         return edges_np
+
+    def _run_net_chunk(self, start: int, end: int) -> np.ndarray:
+        """Rounds ``[start, end]`` under the network model: buffers each
+        round's negotiated and delivered edges and staleness counters on
+        the device, then decodes them at the chunk end; comm bytes count
+        the transfers that arrived."""
+        n, k, dev = self.cfg.n_nodes, end - start + 1, self.device
+        edges = torch.empty((k, n, n), dtype=torch.bool, device=dev)
+        delivered = torch.empty_like(edges)
+        stale = torch.empty((k, self.net_S), dtype=torch.int32, device=dev)
+        obs = torch.empty((k,), dtype=torch.int32, device=dev)
+        for i, rnd in enumerate(range(start, end + 1)):
+            edges[i], delivered[i], stale[i], obs[i] = self.net_round(rnd)
+        edges_np, delivered_np = edges.cpu().numpy(), delivered.cpu().numpy()
+        self.edge_history.extend(edges_np)
+        self.delivered_history.extend(delivered_np)
+        n_del = int(delivered_np.sum())
+        self._comm_bytes += n_del * self._wire_bytes
+        stats = self.net_stats
+        stats["delivered"] += n_del
+        stats["dropped"] += int(edges_np.sum()) - n_del
+        stats["staleness_hist"] += stale.cpu().numpy().astype(np.int64) \
+            .sum(axis=0)
+        stats["staleness_sum"] += int(obs.cpu().numpy().astype(np.int64)
+                                      .sum())
+        return edges_np
+
+    def staleness_mean(self) -> float:
+        """Mean delivered content staleness in rounds (0.0 without a
+        network model or when nothing was delivered)."""
+        return net_staleness_mean(self.net_stats)
 
     def _run_sparse_chunk(self, start: int, end: int) -> np.ndarray:
         n, k = self.cfg.n_nodes, self.strategy.k

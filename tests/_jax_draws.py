@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import MorphNoise
+from repro_torch.netsim import NetDraws
 from repro_torch.sparse import SparseDraws
 
 
@@ -90,3 +91,26 @@ def sparse_draws(seed, rnd, n, k, c):
     return SparseDraws(None if gossip is None else _tensor(gossip),
                        None if random is None else _tensor(random),
                        _tensor(select))
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _net_uniform(seed, rnd, n, stream):
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                rnd), stream)
+    return jax.random.uniform(key, (n, n), jnp.float32)
+
+
+def net_draws(seed, rnd, n, stream):
+    """The reference network model's ``[n, n]`` uniforms for round ``rnd``
+    on ``stream`` (``netsim/sampling.py``: ``fold_in(fold_in(PRNGKey(seed),
+    rnd), stream)``)."""
+    return _tensor(_net_uniform(seed, rnd, n, stream))
+
+
+def net_round_draws(profile, rnd, n):
+    """One round's :class:`NetDraws` as the reference draws them: jitter
+    on stream 0 and model loss on stream 1, where the profile has them."""
+    return NetDraws(
+        net_draws(profile.seed, rnd, n, 0) if profile.jitter_s > 0 else None,
+        net_draws(profile.seed, rnd, n, 1) if profile.drop_rate > 0
+        else None)

@@ -546,3 +546,144 @@ def test_cuda_compressed_round_launches_one_grouped_kernel(cuda_device, name,
                      "static": dict(graph_mix=1),
                      "sparse-morph": dict(graph_mix_sparse=1)}[name])
         assert got == want, (rnd, got)
+
+
+def _flaky_partitioned(n, round_s):
+    from repro_torch.netsim import DenseNetwork, profiles
+    return DenseNetwork(profiles.flaky_wan(n, partition_at=0.1,
+                                           partition_len=0.3),
+                        round_s=round_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flaky-wan-n50", "boundary-n300"])
+def test_cuda_net_matrices_are_the_cpu_matrices(cuda_device, case):
+    """The network model's keyed staleness and drop matrices on the card
+    are the CPU's bit for bit: the uniforms are the same CPU draws, and the
+    delay is divided by an f32 tensor (a division by a host number is a
+    reciprocal product on the card).  ``boundary-n300`` holds the edge
+    (121 -> 264 in round 25 of the keyed draws) whose delay, 1.6999999285
+    s at round_s = 0.05, is 33 slots by division and 34 by the reciprocal
+    product."""
+    from repro_torch.netsim import DenseNetwork, NetworkProfile
+    if case == "flaky-wan-n50":
+        net, n, rnds, size = _flaky_partitioned(50, 0.05), 50, range(12), \
+            379_432
+    else:
+        net = DenseNetwork(NetworkProfile(name="lossy", base_latency_s=1.4,
+                                          jitter_s=0.5, drop_rate=0.05,
+                                          seed=7),
+                           round_s=0.05, max_staleness=64)
+        n, rnds, size = 300, (25,), 1000
+    depth = net.depth(size)
+    for rnd in rnds:
+        cpu = net.staleness_matrix(rnd, n, size, depth, device="cpu")
+        card = net.staleness_matrix(rnd, n, size, depth, device=cuda_device)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu), rnd
+        assert torch.equal(net.drop_mask(rnd, n, device=cuda_device).cpu(),
+                           net.drop_mask(rnd, n, device="cpu")), rnd
+    if case == "boundary-n300":
+        assert int(cpu[264, 121]) == 33
+
+
+def _tiny_net_runner(device, name, net, compress="none"):
+    import numpy as np
+
+    from repro_torch.core import (InGraphEpidemicStrategy,
+                                  InGraphMorphStrategy, InGraphStaticStrategy)
+    from repro_torch.data import (StackedBatcher, dirichlet_partition,
+                                  make_image_classification,
+                                  train_test_split)
+    from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
+    from repro_torch.models import cnn_loss, cnn_params
+    from repro_torch.optim import sgd
+    n = 8
+    ds = make_image_classification(400, num_classes=4, image_size=8, seed=0)
+    tr, te = train_test_split(ds, 0.25)
+    parts = dirichlet_partition(tr.labels, n, 0.5, np.random.default_rng(0))
+    strategy = {"morph": lambda: InGraphMorphStrategy(n=n, k=3, seed=0,
+                                                      device=device),
+                "static": lambda: InGraphStaticStrategy(n=n, degree=3,
+                                                        device=device),
+                "el-oracle": lambda: InGraphEpidemicStrategy(
+                    n=n, k=3, seed=0, device=device)}[name]()
+    return DecentralizedRunner(
+        init_fn=lambda g: cnn_params(g, in_channels=3, num_classes=4,
+                                     image_size=8, width=4),
+        loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.05),
+        batcher=StackedBatcher(tr, parts, 8, seed=3),
+        test_batch={"images": te.images, "labels": te.labels},
+        strategy=strategy,
+        cfg=RunnerConfig(n_nodes=n, rounds=11, eval_every=5, net=net,
+                         compress=compress),
+        device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morph", "static", "el-oracle"])
+def test_cuda_net_round_launches_one_grouped_mix(cuda_device, name):
+    """A round under the network model (reduced GN-LeNet, n = 8, flaky-WAN
+    at round_s = 0.05 with a partition window, ring depth 3): one grouped
+    ``graph_mix`` launch over the ``[8, 24]`` staleness-expanded weights,
+    one Gram launch for Morph, no masked mix."""
+    from repro_torch import kernels
+    eng = _tiny_net_runner(cuda_device, name,
+                           _flaky_partitioned(8, 0.05))._make_engine()
+    assert eng.net_S == 3
+    for rnd in range(3):
+        kernels.reset_launches()
+        eng.round(rnd)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels.KERNELS}
+        want = dict.fromkeys(got, 0)
+        want["graph_mix"] = 1
+        if name == "morph":
+            want["gram_matrix"] = 1
+        assert got == want, (rnd, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morph", "static", "el-oracle"])
+def test_cuda_net_run_is_the_cpu_run(cuda_device, name):
+    """Reduced GN-LeNet under flaky-WAN at round_s = 0.05 with a partition
+    window (stale deliveries up to 2 rounds back): the card's run has the
+    CPU's edges, delivered sets and network counters, and its parameters
+    within 1e-4."""
+    import numpy as np
+    runs = [_tiny_net_runner(d, name, _flaky_partitioned(8, 0.05))
+            for d in (cuda_device, "cpu")]
+    for r in runs:
+        r.run()
+    card, cpu = runs
+    for a, b in zip(card.edge_history + card.delivered_history,
+                    cpu.edge_history + cpu.delivered_history):
+        assert np.array_equal(a, b)
+    for key in ("delivered", "dropped", "staleness_sum"):
+        assert card.net_stats[key] == cpu.net_stats[key], key
+    assert card.net_stats["staleness_hist"].tolist() == \
+        cpu.net_stats["staleness_hist"].tolist()
+    assert card.staleness_mean() > 0
+    for key in cpu.params:
+        err = float((card.params[key].cpu() - cpu.params[key]).abs().max())
+        assert err <= 1e-4, (key, err)
+
+
+@pytest.mark.cuda
+def test_cuda_uniform_net_mix_is_the_masked_mix(cuda_device):
+    """The depth-1 ring's mix of a uniform strategy, ``graph_mix`` on
+    ``uniform_weights_torch(edges)``, against ``graph_mix_masked`` on the
+    edges, over GN-LeNet's full-width leaves at n = 50: the same
+    quotients, summed in the same order, give the same bits."""
+    from repro_torch.core.mixing import uniform_weights_torch
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    n = 50
+    xs = [torch.randn((n, d), generator=gen, device=cuda_device)
+          for d in GN_LENET]
+    edges = torch.rand((n, n), generator=gen, device=cuda_device) < 3.0 / n
+    edges.fill_diagonal_(False)
+    edges[0] = False
+    masked = graph_mix_masked_leaves(edges, xs)
+    general = graph_mix_leaves(uniform_weights_torch(edges), xs)
+    for a, b in zip(masked, general):
+        assert torch.equal(a, b)
