@@ -12,8 +12,9 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    path's shapes (n = 50; D = 10, 32, 64, 2400, 40960, 51200) and awkward
    ones (n = 7, 33; D = 129, 8199), f32 and bf16; the dense mixes also at
    n = 200 and 1000 (the tiled route); the grouped calls over GN-LeNet's
-   ten leaves (the Gram at n = 50, 100 and 129, the mixes at n = 50, 129,
-   200 and 1000) bit for bit the per-leaf calls, and two calls the same
+   ten leaves (the Gram at n = 50, 100 and 129, the mixes at n = 16, 50,
+   100, 129, 200 and 1000) and over phase 12(a)'s model's leaves (the
+   mixes at n = 16) bit for bit the per-leaf calls, and two calls the same
    bits; the CSR kernel bit for bit its plain version at n = 50 and 1000
    over the same D with k = 3 and 8, at the awkward shapes, and at
    k = n - 1 with invalid slots, and one grouped CSR call over the ten
@@ -108,6 +109,25 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    its plain version (within the f32 tolerance of the nonzeros a row sums)
    and timed at D = 51,200 and over GN-LeNet's tree
    beside ``torch.matmul``;
+12. the host protocol loop (``RunnerConfig.compiled`` None or False):
+   (a) Table I through ``repro_torch.bench.table1`` at the reference's
+   defaults (16 nodes, 150 rounds, GN-LeNet width 12 on 16-pixel images,
+   seed 0): the four best accuracies and the ordering row beside the
+   reference's own CPU run, one mix launch a round; (b) the four Table-I
+   strategies (the message-faithful ``MorphProtocol``, Static, EL-Oracle,
+   fully-connected, as ``bench.common.make_strategy`` builds them) at full
+   width and Table I's population, n = 100, with fig3's settings on a host
+   batcher, ten rounds each: one grouped mix launch a round (the masked
+   one for Morph and EL) and no Gram launch, comm bytes, peak memory, the
+   protocol's tallies and views, then where a protocol round's time goes,
+   timed inside the runner's own round (batch, local step, copy to the
+   host, ``round_edges``: negotiation and deliver, the digests, the direct
+   Eq.-3 measurements and the report ingestion; mix; evaluation); (c) Static, FC, EL-Oracle, in-graph Morph and EL-Local at
+   full width and n = 50 through the engine and through the host loop's
+   ``round_edges`` adapters with deterministic cuDNN: identical edges,
+   parameters bit for bit, the same launches; (d) tiny host-loop runs of
+   the four Table-I strategies on the card and on the CPU: identical
+   edges, the protocol's tallies and views, parameters within 1e-5;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -180,6 +200,7 @@ GN_LENET_LEAVES = (32, 2400, 64, 51200, 10, 40960, 32, 32, 64, 64)
 AWKWARD = [(7, 129), (7, 8199), (33, 129), (33, 8199)]
 ROUNDS, K, DELTA_R = 10, 3, 5
 LARGE_N = 1000                   # the sparse slice's second population
+HOST_N = 100                     # Table I's own population (phase 12)
 DENSE_LARGE = [(200, 2400), (200, 51200), (1000, 2400), (1000, 51200)]
 
 
@@ -466,73 +487,98 @@ def time_kernels(dev):
     return out
 
 
-def tree_inputs(dev, gen, n, dtype=torch.float32):
-    """GN-LeNet's ten leaves at ``n`` nodes (``[n, D]`` each), a
-    row-stochastic W and an in-edge matrix with about 3 in-edges a row."""
+def tree_inputs(dev, gen, n, dtype=torch.float32, leaves=GN_LENET_LEAVES):
+    """``leaves``' widths per node (GN-LeNet's ten by default) at ``n``
+    nodes (``[n, D]`` each), a row-stochastic W and an in-edge matrix with
+    about 3 in-edges a row."""
     xs = [torch.randn((n, d), generator=gen, device=dev).to(dtype)
-          for d in GN_LENET_LEAVES]
+          for d in leaves]
     w = torch.softmax(torch.randn((n, n), generator=gen, device=dev), 1)
     e = torch.rand((n, n), generator=gen, device=dev) < 3.0 / n
     e.fill_diagonal_(False)
     return xs, w, e
 
 
+def table1_leaves():
+    """The widths per node of the leaves of phase 12(a)'s model: GN-LeNet
+    at ``repro_torch.bench.table1``'s defaults (width 12, 16-pixel
+    images, ten classes)."""
+    from repro_torch.bench import common
+    from repro_torch.models import cnn_params
+    exp = common.ExpConfig()
+    params = cnn_params(torch.Generator().manual_seed(0), in_channels=3,
+                        num_classes=exp.num_classes,
+                        image_size=exp.image_size, width=exp.width)
+    return tuple(v.numel() for v in params.values())
+
+
 GRAM_GROUPED_N = (MAIN_N, 100, 129)          # past one 64-row Gram tile
-MIX_GROUPED_N = (MAIN_N, 129, 200, LARGE_N)  # the tiled route past 128
+# The host loop's populations (phase 12(a) at 16 nodes, 12(b) at HOST_N),
+# the engine's at 50, and the tiled route past 128.
+MIX_GROUPED_N = (16, MAIN_N, HOST_N, 129, 200, LARGE_N)
 
 
 def check_grouped(dev, worst):
-    """Grouped calls over GN-LeNet's ten leaves give each leaf the bits of
-    its own call, within tolerance of the plain version, and two calls on
-    the same input give the same bits: the Gram at n = 50, 100 and 129,
-    the dense mixes at n = 50 and on the tiled route at n = 129, 200 and
-    1000."""
-    from repro_torch.kernels import (graph_mix, graph_mix_leaves,
-                                     graph_mix_masked,
-                                     graph_mix_masked_leaves, gram_matrices,
-                                     gram_matrix, ref)
+    """Grouped calls over a model's leaves give each leaf the bits of its
+    own call, within tolerance of the plain version, and two calls on the
+    same input give the same bits: the Gram over GN-LeNet's leaves at
+    n = 50, 100 and 129; the dense mixes over them at n = 16, 50 and 100
+    (the small route's 8 x 7 and 16 x 7 builds) and on the tiled route at
+    n = 129, 200 and 1000, and over phase 12(a)'s model at n = 16."""
+    from repro_torch.kernels import gram_matrices, gram_matrix, ref
     gen = torch.Generator(device=dev).manual_seed(8)
-    count = 0
-    for n in sorted(set(GRAM_GROUPED_N + MIX_GROUPED_N)):
+    for n in GRAM_GROUPED_N:
         for dtype in (torch.float32, torch.bfloat16):
-            xs, w, e = tree_inputs(dev, gen, n, dtype)
-            if n in GRAM_GROUPED_N:
-                g = gram_matrices(xs)
-                if not torch.equal(g, gram_matrices(xs)):
-                    raise AssertionError(f"gram n={n} {dtype}: two calls "
-                                         f"differ")
-                for i, x in enumerate(xs):
-                    what = f"grouped n={n} D={x.shape[1]}"
-                    if not torch.equal(g[i], gram_matrix(x)):
-                        raise AssertionError(f"{what} {dtype}: grouped gram "
-                                             f"is not the per-leaf call")
-                    compare("gram_matrix", _cosine(g[i]),
-                            ref.pairwise_cosine(x), n, dtype, what, worst)
-            if n not in MIX_GROUPED_N:
-                continue
-            ys = graph_mix_leaves(w, xs)
-            zs = graph_mix_masked_leaves(e, xs)
-            again = (graph_mix_leaves(w, xs), graph_mix_masked_leaves(e, xs))
+            xs, _, _ = tree_inputs(dev, gen, n, dtype)
+            g = gram_matrices(xs)
+            if not torch.equal(g, gram_matrices(xs)):
+                raise AssertionError(f"gram n={n} {dtype}: two calls differ")
             for i, x in enumerate(xs):
                 what = f"grouped n={n} D={x.shape[1]}"
-                if not (torch.equal(ys[i], again[0][i])
-                        and torch.equal(zs[i], again[1][i])):
-                    raise AssertionError(f"{what} {dtype}: two grouped mixes "
-                                         f"differ")
-                if not (torch.equal(ys[i], graph_mix(w, x)) and torch.equal(
-                        zs[i], graph_mix_masked(e, x))):
-                    raise AssertionError(f"{what} {dtype}: grouped mix is "
+                if not torch.equal(g[i], gram_matrix(x)):
+                    raise AssertionError(f"{what} {dtype}: grouped gram is "
                                          f"not the per-leaf call")
-                compare("graph_mix", ys[i], ref.graph_mix(w, x), n, dtype,
-                        what, worst)
-                compare("graph_mix_masked", zs[i],
-                        ref.graph_mix_masked(e, x), n, dtype, what, worst)
-                count += 1
+                compare("gram_matrix", _cosine(g[i]), ref.pairwise_cosine(x),
+                        n, dtype, what, worst)
+    leaves12 = table1_leaves()
+    cases = [(n, GN_LENET_LEAVES) for n in MIX_GROUPED_N] + [(16, leaves12)]
+    count = 0
+    for n, leaves in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, w, e = tree_inputs(dev, gen, n, dtype, leaves)
+            count += check_grouped_mix(w, e, xs, n, dtype, worst)
     log(f"phase 3: grouped calls over GN-LeNet's {len(GN_LENET_LEAVES)} "
         f"leaves (the Gram at n = {GRAM_GROUPED_N}, the mixes at n = "
-        f"{MIX_GROUPED_N}; f32, bf16) equal the per-leaf calls bit for bit "
-        f"and two calls give the same bits; {count} grouped leaves of the "
-        f"mixes within tolerance")
+        f"{MIX_GROUPED_N}) and over phase 12(a)'s model's leaves "
+        f"{leaves12} at n = 16 (the mixes; f32, bf16) equal the per-leaf "
+        f"calls bit for bit and two calls give the same bits; {count} "
+        f"grouped leaves of the mixes within tolerance")
+
+
+def check_grouped_mix(w, e, xs, n, dtype, worst):
+    """Both grouped mixes over ``xs``: each leaf the bits of its own call,
+    two calls the same bits, within tolerance of the plain version;
+    returns the number of leaves."""
+    from repro_torch.kernels import (graph_mix, graph_mix_leaves,
+                                     graph_mix_masked,
+                                     graph_mix_masked_leaves, ref)
+    ys = graph_mix_leaves(w, xs)
+    zs = graph_mix_masked_leaves(e, xs)
+    again = (graph_mix_leaves(w, xs), graph_mix_masked_leaves(e, xs))
+    for i, x in enumerate(xs):
+        what = f"grouped n={n} D={x.shape[1]}"
+        if not (torch.equal(ys[i], again[0][i])
+                and torch.equal(zs[i], again[1][i])):
+            raise AssertionError(f"{what} {dtype}: two grouped mixes differ")
+        if not (torch.equal(ys[i], graph_mix(w, x)) and torch.equal(
+                zs[i], graph_mix_masked(e, x))):
+            raise AssertionError(f"{what} {dtype}: grouped mix is not the "
+                                 f"per-leaf call")
+        compare("graph_mix", ys[i], ref.graph_mix(w, x), n, dtype, what,
+                worst)
+        compare("graph_mix_masked", zs[i], ref.graph_mix_masked(e, x), n,
+                dtype, what, worst)
+    return len(xs)
 
 
 def _cosine(g):
@@ -948,7 +994,8 @@ def time_scan(dev):
 # ---------------------------------------------------------------------------
 
 def paper_setup(n, dev, image_size=32, width=32, classes=10, samples=6000,
-                test=512, stream=True, equal_shards=False, seed=0):
+                test=512, stream=True, equal_shards=False, seed=0,
+                alpha=None):
     from repro_torch.data import (DeviceDataStream, StackedBatcher,
                                   dirichlet_partition,
                                   make_image_classification,
@@ -958,7 +1005,8 @@ def paper_setup(n, dev, image_size=32, width=32, classes=10, samples=6000,
                                    image_size=image_size, channels=3,
                                    noise=3.0, seed=seed)
     tr, te = train_test_split(ds, 0.2, seed=seed)
-    alpha = 0.1 if stream else 0.5
+    if alpha is None:
+        alpha = 0.1 if stream else 0.5
     # Equal shards (fig12's fixture) where Dirichlet(0.1) would leave
     # some of n nodes without a sample.
     parts = np.array_split(np.arange(len(tr.labels)), n) if equal_shards \
@@ -1002,7 +1050,7 @@ LARGE = dict(samples=15000, test=256, equal_shards=True)
 
 def make_runner(name, n, dev, rounds, eval_every, engine="dense",
                 sparse_mix="exact", eval_chunk=128, compress="none",
-                net=None, **setup):
+                net=None, strategy=None, compiled=None, **setup):
     from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
     from repro_torch.models import cnn_loss
     from repro_torch.optim import sgd
@@ -1010,10 +1058,11 @@ def make_runner(name, n, dev, rounds, eval_every, engine="dense",
     return DecentralizedRunner(
         init_fn=init, loss_fn=cnn_loss, eval_fn=cnn_loss,
         optimizer=sgd(0.05), batcher=batcher, test_batch=test,
-        strategy=make_strategy(name, n, dev),
+        strategy=strategy or make_strategy(name, n, dev),
         cfg=RunnerConfig(n_nodes=n, rounds=rounds, eval_every=eval_every,
                          eval_batch_chunk=eval_chunk, engine=engine,
-                         sparse_mix=sparse_mix, compress=compress, net=net),
+                         sparse_mix=sparse_mix, compress=compress, net=net,
+                         compiled=compiled),
         device=dev)
 
 
@@ -2366,6 +2415,296 @@ def net_path(dev, worst):
     log(f"phase 11: launches over the network runs {json.dumps(totals)}")
     return totals, rings
 
+# ---------------------------------------------------------------------------
+# Phase 12: the host protocol loop.
+# ---------------------------------------------------------------------------
+
+HOST_STRATEGIES = ("morph", "static", "el-oracle", "fully-connected")
+HOST_VS_ENGINE = ("static", "fully-connected", "el-oracle", "morph",
+                  "el-local")
+# The full-width host loop's set-up: fig3's Dirichlet(0.1) shards on a host
+# batcher (the host loop takes no device stream).
+HOST_SETUP = dict(stream=False, alpha=0.1)
+HOST_CARD_TOL = 1e-5
+
+
+def host_runner(name, n, dev, rounds, eval_every, ingraph=False, **kw):
+    """:func:`make_runner` with ``repro_torch.bench.common``'s strategy
+    ``name`` (the host protocol and baselines, or with ``ingraph`` their
+    in-graph twins) at fig3's settings, not run."""
+    from repro_torch.bench import common
+    exp = common.ExpConfig(n_nodes=n, k=min(K, n - 1), delta_r=DELTA_R)
+    strategy = common.make_ingraph_strategy(name, exp, dev) if ingraph \
+        else common.make_strategy(name, exp)
+    return make_runner(name, n, dev, rounds, eval_every, strategy=strategy,
+                       **kw)
+
+
+def timed_host_run(runner):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def want_mix(name, rounds):
+    """One grouped mix launch a round: the masked kernel for a uniform
+    strategy, graph_mix for Static and FC; no Gram launch."""
+    uniform = name in ("morph", "el-oracle")
+    counts = dict.fromkeys(launch_counts(), 0)
+    counts["graph_mix_masked" if uniform else "graph_mix"] = rounds
+    return counts
+
+
+def check_finite(label, runner):
+    if not all(np.isfinite(r.mean_loss) for r in runner.log.records) or \
+            not all(torch.isfinite(p).all() for p in runner.params.values()):
+        raise AssertionError(f"{label}: non-finite values")
+
+
+def table1_script(dev):
+    """Phase 12(a): ``repro_torch.bench.table1`` at the reference's
+    defaults (16 nodes, 150 rounds, width 12, image 16, seed 0) through
+    the host loop; counts set to 0 just before and read just after."""
+    import os
+    from repro_torch import kernels
+    from repro_torch.bench import table1
+    saved = os.environ.get("BENCH_DIR")
+    os.environ["BENCH_DIR"] = ""                 # no JSON file here
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rows = table1.main(["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+    finally:
+        if saved is None:
+            del os.environ["BENCH_DIR"]
+        else:
+            os.environ["BENCH_DIR"] = saved
+    rounds = 150
+    want = dict(dict.fromkeys(got, 0), graph_mix_masked=2 * rounds,
+                graph_mix=2 * rounds)
+    if got != want:
+        raise AssertionError(f"table1: launches {got} != {want}")
+    if not all(math.isfinite(r["acc"]) for r in rows.values()):
+        raise AssertionError(f"table1: non-finite rows {rows}")
+    summary = {
+        "rows": rows, "ordering": table1.ordering(rows),
+        "reference_cpu": table1.REFERENCE,
+        "reference_ordering": table1.ordering(table1.REFERENCE),
+        "distance": {k: rows[k]["acc"] - table1.REFERENCE[k]["acc"]
+                     for k in rows},
+        "wall_s": wall, "launches": got}
+    log(f"phase 12(a): table1 n=16 seed 0 150 rounds: {json.dumps(summary)}")
+    return got
+
+
+def host_path(dev):
+    """Phase 12(b): the four Table-I strategies through the host loop at
+    full width and n = 100, ten rounds each, counts set to 0 just before
+    each run and read just after; returns their launches summed."""
+    from repro_torch import kernels
+    totals = dict.fromkeys(launch_counts(), 0)
+    for name in HOST_STRATEGIES:
+        runner = host_runner(name, HOST_N, dev, ROUNDS, DELTA_R,
+                             **HOST_SETUP)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        wall = timed_host_run(runner)
+        got = launch_counts()
+        if got != want_mix(name, ROUNDS):
+            raise AssertionError(f"host loop {name} n={HOST_N}: launches "
+                                 f"{got} != {want_mix(name, ROUNDS)}")
+        for k, v in got.items():
+            totals[k] += v
+        check_finite(f"host loop {name}", runner)
+        edges = np.stack(runner.edge_history)
+        recs = runner.log.records
+        if recs[-1].comm_bytes != int(edges.sum()) * runner._model_bytes:
+            raise AssertionError(f"host loop {name}: comm bytes")
+        summary = {"ms_per_round_incl_eval": wall / ROUNDS * 1e3,
+                   "accuracy": recs[-1].mean_accuracy,
+                   "loss": recs[-1].mean_loss, "isolated": recs[-1].isolated,
+                   "max_in_degree": int(edges.sum(axis=2).max()),
+                   "comm_bytes": recs[-1].comm_bytes,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": got}
+        if name == "morph":
+            proto = runner.strategy
+            if edges.sum(axis=2).max() > K or edges.sum(axis=1).max() > K:
+                raise AssertionError("morph: a degree above k")
+            views = proto.view_sizes()
+            summary.update(control_messages=proto.control_messages,
+                           similarity_floats=proto.similarity_floats,
+                           view_sizes={"min": int(views.min()),
+                                       "mean": float(views.mean()),
+                                       "max": int(views.max())})
+        log(f"phase 12(b): host loop {name} n={HOST_N} {ROUNDS} rounds: "
+            f"{json.dumps(summary)}")
+    host_breakdown(dev)
+    return totals
+
+
+def host_breakdown(dev, rounds=10):
+    """Phase 12(b): where a MorphProtocol host-loop round's time goes at
+    full width and n = 100, timed inside the runner's own round
+    (:meth:`DecentralizedRunner._round`'s stage hook; every stage ends in
+    a synchronise): the batch, the local step, the copy of the stack to
+    the host, the protocol's ``round_edges`` and the mix; inside
+    ``round_edges`` the negotiation (on its rounds) and ``deliver`` (the
+    digests, the rows, the direct Eq.-3 measurements and the report
+    ingestion), and inside ``deliver`` the rows and direct measurements
+    alone; then one evaluation."""
+    from repro_torch.core import protocol
+    runner = host_runner("morph", HOST_N, dev, rounds + 1, DELTA_R,
+                         **HOST_SETUP)
+    proto = runner.strategy
+    stages = {}
+    deliver_each = []
+
+    def timed(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[stage] = stages.get(stage, 0.0) + time.perf_counter() - t0
+        return out
+
+    def host_timed(stage, fn, each=None):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            took = time.perf_counter() - t0
+            stages[stage] = stages.get(stage, 0.0) + took
+            if each is not None:
+                each.append(took * 1e3)
+            return out
+        return wrapped
+
+    begin, complete = proto.begin_negotiation, proto.complete_negotiation
+    proto.begin_negotiation = host_timed("negotiation", begin)
+    proto.complete_negotiation = host_timed("negotiation", complete)
+    proto.deliver = host_timed("deliver", proto.deliver, deliver_each)
+    saved = protocol.node_row, protocol.pair_similarity_numpy
+    protocol.node_row = host_timed("direct_similarity", saved[0])
+    protocol.pair_similarity_numpy = host_timed("direct_similarity",
+                                                saved[1])
+    try:
+        for rnd in range(rounds + 1):
+            edges = runner._round(rnd, timed)
+    finally:
+        protocol.node_row, protocol.pair_similarity_numpy = saved
+        for name in ("begin_negotiation", "complete_negotiation", "deliver"):
+            delattr(proto, name)
+    timed("evaluate", lambda: runner.evaluate(rounds, edges))
+    steps = rounds + 1
+    negotiations = sum(proto.negotiation_due(r) for r in range(steps))
+    out = {k: stages[k] / steps * 1e3 for k in (
+        "batch", "local_step", "copy_to_host", "strategy", "deliver",
+        "direct_similarity", "mix")}
+    out["negotiation_ms_each"] = stages["negotiation"] / negotiations * 1e3
+    out["negotiation_per_round"] = stages["negotiation"] / steps * 1e3
+    out["evaluate_ms_once"] = stages["evaluate"] * 1e3
+    out["deliver_ms_by_round"] = deliver_each
+    out["direct_pairs_last_round"] = int(edges.sum())
+    out["copy_bytes"] = sum(v.numel() * v.element_size()
+                            for v in runner.params.values())
+    out["round_ms_without_eval"] = sum(
+        out[k] for k in ("batch", "local_step", "copy_to_host", "strategy",
+                         "mix"))
+    out["control_messages"] = proto.control_messages
+    out["similarity_floats"] = proto.similarity_floats
+    out["view_sizes_mean"] = float(proto.view_sizes().mean())
+    log(f"phase 12(b): morph protocol n={HOST_N} round stages, ms per "
+        f"round over {steps} rounds (negotiation at 0, {DELTA_R}, "
+        f"{2 * DELTA_R}): {json.dumps(out)}")
+    return out
+
+
+def host_vs_engine(dev):
+    """Phase 12(c): each in-graph strategy at full width and n = 50,
+    ten rounds through the engine and through the host loop's
+    ``round_edges`` adapters, deterministic cuDNN: identical edges,
+    parameters bit for bit, the same launches."""
+    from repro_torch import kernels
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in HOST_VS_ENGINE:
+            runs, counts = [], []
+            for compiled in (True, False):
+                runner = host_runner(name, MAIN_N, dev, ROUNDS, DELTA_R,
+                                     ingraph=True, compiled=compiled,
+                                     **HOST_SETUP)
+                kernels.reset_launches()
+                wall = timed_host_run(runner)
+                counts.append(launch_counts())
+                runs.append((runner, wall))
+            (engine, t_engine), (host, t_host) = runs
+            same_edges = all(np.array_equal(a, b) for a, b in
+                             zip(engine.edge_history, host.edge_history))
+            same_params = all(torch.equal(engine.params[k], host.params[k])
+                              for k in engine.params)
+            if not (same_edges and same_params and counts[0] == counts[1]
+                    and len(host.edge_history) == ROUNDS):
+                raise AssertionError(
+                    f"{name}: host loop is not the engine (edges "
+                    f"{same_edges}, params {same_params}, launches "
+                    f"{counts})")
+            log(f"phase 12(c): {name} n={MAIN_N} {ROUNDS} rounds: host "
+                f"loop == engine bit for bit; " + json.dumps({
+                    "engine_ms_per_round": t_engine / ROUNDS * 1e3,
+                    "host_loop_ms_per_round": t_host / ROUNDS * 1e3,
+                    "launches": counts[1]}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def host_reference_check(dev):
+    """Phase 12(d): tiny host-loop runs on the card and on the CPU from the
+    same parameters and batches over 11 rounds: identical edges (and, for
+    the protocol, identical tallies and views), parameters within 1e-5."""
+    tiny = dict(image_size=8, width=4, classes=4, samples=400, test=100,
+                stream=False)
+    for name in HOST_STRATEGIES:
+        gpu = host_runner(name, 6, dev, 11, 5, **tiny)
+        cpu = host_runner(name, 6, torch.device("cpu"), 11, 5, **tiny)
+        gpu.run()
+        cpu.run()
+        for r, (a, b) in enumerate(zip(gpu.edge_history, cpu.edge_history)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: card and CPU edges differ at "
+                                     f"round {r}")
+        extra = {}
+        if name == "morph":
+            a, b = gpu.strategy, cpu.strategy
+            tallies = [(p.control_messages, p.similarity_floats,
+                        p.view_sizes().tolist()) for p in (a, b)]
+            if tallies[0] != tallies[1]:
+                raise AssertionError(f"morph: card and CPU tallies differ "
+                                     f"{tallies}")
+            extra = dict(zip(("control_messages", "similarity_floats",
+                              "view_sizes"), tallies[0]))
+        err = max(float((gpu.params[k].cpu() - cpu.params[k]).abs().max())
+                  for k in cpu.params)
+        if not err <= HOST_CARD_TOL:
+            raise AssertionError(f"{name}: card vs CPU params {err} > "
+                                 f"{HOST_CARD_TOL}")
+        log(f"phase 12(d): host loop {name} tiny run, card == CPU edges "
+            f"over 11 rounds, params max |err| {err:.3g} "
+            f"{json.dumps(extra)}")
+
+
+def host_loop_path(dev):
+    """Phase 12: (a) to (d); returns the launches of (a) and of (b)."""
+    table1_counts = table1_script(dev)
+    host_counts = host_path(dev)
+    host_vs_engine(dev)
+    host_reference_check(dev)
+    return table1_counts, host_counts
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2427,6 +2766,7 @@ def main():
     codec_reference_check(dev)
     net_counts, rings = net_path(dev, worst)
     times["graph_mix"].update(rings)
+    table1_counts, host_counts = host_loop_path(dev)
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
                                "pairwise_cosine.cu",
@@ -2454,6 +2794,8 @@ def main():
             "launches_fig3": fig3_counts[name],
             "launches_compressed": codec_counts[name],
             "launches_net": net_counts[name],
+            "launches_host_loop": host_counts[name],
+            "launches_table1": table1_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

@@ -45,8 +45,6 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_cnn_config
-from ..core import (InGraphEpidemicStrategy, InGraphFullyConnectedStrategy,
-                    InGraphMorphStrategy, InGraphStaticStrategy)
 from ..data import (DeviceDataStream, dirichlet_partition,
                     make_image_classification, train_test_split)
 from ..dlrt import DecentralizedRunner, RunnerConfig
@@ -54,34 +52,13 @@ from ..models import cnn_loss, cnn_params
 from ..optim import sgd
 from ..sparse import SparseMorphStrategy
 from . import harness
+from .common import ExpConfig, make_ingraph_strategy
 
 STRATEGIES = ("morph", "static", "el-oracle", "fully-connected")
 # The reference's finals at n = 50, seed 0
 # (benchmarks/results/BENCH_fig3_accuracy_n50.json).
 REFERENCE = {"morph": 0.4597, "static": 0.3543, "el-oracle": 0.4079,
              "fully-connected": 0.707, "morph-sparse": 0.4482}
-
-
-def make_ingraph_strategy(name: str, n: int, k: int, seed: int,
-                          delta_r: int = 5, beta: float = 500.0,
-                          view_extra: int = 2, device="cuda"):
-    """The in-graph strategy ``name`` as the reference's benchmarks build
-    it (``benchmarks/common.py`` ``make_ingraph_strategy``): Static on a
-    ``k``-regular graph (``k + 1`` when ``n k`` is odd), Morph with a view
-    of ``k + view_extra`` peers."""
-    if name == "static":
-        deg = k if (n * k) % 2 == 0 else k + 1
-        return InGraphStaticStrategy(n=n, degree=deg, seed=seed,
-                                     device=device)
-    if name == "fully-connected":
-        return InGraphFullyConnectedStrategy(n=n, device=device)
-    if name == "el-oracle":
-        return InGraphEpidemicStrategy(n=n, k=k, seed=seed, device=device)
-    if name == "morph":
-        return InGraphMorphStrategy(n=n, k=k, view_size=k + view_extra,
-                                    beta=beta, delta_r=delta_r, seed=seed,
-                                    device=device)
-    raise ValueError(name)
 
 
 def experiment(args, n: int, device):
@@ -114,9 +91,9 @@ def build(args, n: int, name: str, engine: str = "dense",
             n=n, k=args.k, delta_r=args.delta_r, seed=args.seed,
             sim_row_chunk=args.sim_row_chunk, device=device)
     else:
-        strategy = make_ingraph_strategy(name, n, args.k, args.seed,
-                                         delta_r=args.delta_r,
-                                         device=device)
+        strategy = make_ingraph_strategy(
+            name, ExpConfig(n_nodes=n, k=args.k, seed=args.seed,
+                            delta_r=args.delta_r), device)
     stream, test = experiment(args, n, device)
     return DecentralizedRunner(
         init_fn=lambda g: cnn_params(

@@ -1,5 +1,8 @@
-"""Bounded deferred-acceptance matching on dense masks (paper §III-B) —
-the port of ``repro.core.matching.match_jax``.
+"""Deferred-acceptance matching (paper §III-B) — the port of
+``repro.core.matching``: :func:`deferred_acceptance`, the host
+college-admission scheme of the message-faithful protocol (a copy of the
+reference's), and :func:`match_dense`, the bounded form on dense masks
+(the reference's ``match_jax``).
 
 Receivers propose to their best fresh candidates up to ``k_in`` held
 edges; senders keep their best ``k_out`` among held and new proposals and
@@ -14,13 +17,64 @@ reference's bound.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .selection import NEG_INF, scatter_or, stable_topk
 
 SWEEPS_PER_CHECK = 8
+
+
+def deferred_acceptance(prefs: Sequence[Sequence[int]],
+                        sender_scores: np.ndarray, k_in: int,
+                        k_out: int) -> np.ndarray:
+    """Many-to-many deferred acceptance on the host.
+
+    ``prefs[i]`` lists receiver i's candidate senders, best first;
+    ``sender_scores[j, i]`` is how much sender j prefers serving receiver
+    i (Morph: the reported dissimilarity).  A sender accepts while it
+    serves fewer than ``k_out`` receivers, else evicts its least preferred
+    one for a more preferred newcomer; rejected and evicted receivers move
+    down their lists.  Returns the in-edge matrix ``E[i, j]`` (j serves
+    i): in-degree <= ``k_in``, out-degree <= ``k_out``."""
+    n = sender_scores.shape[0]
+    next_choice = [0] * n                      # cursor into prefs[i]
+    held: Dict[int, List[int]] = {j: [] for j in range(n)}  # sender -> rcvrs
+    accepted = [0] * n                         # receiver in-degree so far
+    bound = max(1, math.ceil((n - 1) / max(k_in, 1))) + k_in + 1
+
+    for _ in range(bound * max(k_in, 1)):
+        progressed = False
+        for i in range(n):
+            while accepted[i] < k_in and next_choice[i] < len(prefs[i]):
+                j = prefs[i][next_choice[i]]
+                next_choice[i] += 1
+                if j == i:
+                    continue
+                progressed = True
+                slot = held[j]
+                if len(slot) < k_out:
+                    slot.append(i)
+                    accepted[i] += 1
+                else:
+                    worst = min(slot, key=lambda r: sender_scores[j, r])
+                    if sender_scores[j, i] > sender_scores[j, worst]:
+                        slot.remove(worst)
+                        accepted[worst] -= 1
+                        slot.append(i)
+                        accepted[i] += 1
+                # else: rejected, i moves on (loop continues)
+        if not progressed:
+            break
+
+    edges = np.zeros((n, n), bool)
+    for j, rcvrs in held.items():
+        for i in rcvrs:
+            edges[i, j] = True
+    return edges
 
 
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int,

@@ -7,6 +7,8 @@ weights on its fixed undirected graph, fully connected uses ``W = 1/n``.
 The W constructors for fixed graphs are host numpy, as in the reference;
 :func:`apply_mixing` is the plain path the mixing kernels are held to, and
 :func:`apply_mixing_compressed` its compressed-gossip form.
+:func:`mix_numpy` and the stochasticity predicates are the reference's
+host helpers.
 """
 from __future__ import annotations
 
@@ -113,3 +115,23 @@ def apply_mixing_compressed(w: torch.Tensor, params: Dict[str, torch.Tensor],
     (:func:`apply_mixing`), then :func:`apply_consensus_correction`."""
     return apply_consensus_correction(apply_mixing(w, decoded, chunk_d),
                                       params, decoded, gamma)
+
+
+def mix_numpy(w: np.ndarray, stacked: dict) -> dict:
+    """Host-side mixing of a dict of node-stacked numpy arrays."""
+    out = {}
+    for k, v in stacked.items():
+        n = v.shape[0]
+        out[k] = (w @ v.reshape(n, -1)).reshape(v.shape).astype(v.dtype)
+    return out
+
+
+def is_row_stochastic(w: np.ndarray, atol: float = 1e-9) -> bool:
+    """Nonnegative entries and unit row sums (every valid mixing W)."""
+    return bool(np.all(w >= -atol) and
+                np.allclose(w.sum(axis=1), 1.0, atol=atol))
+
+
+def is_doubly_stochastic(w: np.ndarray, atol: float = 1e-9) -> bool:
+    """Row- and column-stochastic (MH weights, fully-connected W)."""
+    return is_row_stochastic(w, atol) and is_row_stochastic(w.T, atol)

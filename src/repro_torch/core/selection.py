@@ -1,16 +1,21 @@
-"""Diversity-driven neighbour selection (paper Eq. 5, Alg. 3) as batched
-Gumbel-top-k — the port of ``repro.core.selection``.
+"""Diversity-driven neighbour selection (paper Eq. 5, Alg. 3) — the port
+of ``repro.core.selection``.
 
-Every function works on the last axis, so a ``[n, n]`` input selects for
-all nodes at once (the reference ``vmap``s a per-node function).  Each
-function that draws takes its Gumbel noise as an optional tensor and
-otherwise draws from the given ``torch.Generator``; the parity tests hand
-in the reference's ``jax.random`` draws.
+The tensor functions are batched Gumbel-top-k: every function works on the
+last axis, so a ``[n, n]`` input selects for all nodes at once (the
+reference ``vmap``s a per-node function).  Each function that draws takes
+its Gumbel noise as an optional tensor and otherwise draws from the given
+``torch.Generator``; the parity tests hand in the reference's
+``jax.random`` draws.  :func:`sample_sequential` and
+:func:`update_wanted_senders_host` are the paper-faithful host loop of
+Alg. 3 for the message-faithful protocol, a copy of the reference's: the
+same numpy ``Generator`` gives the same draws.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -87,3 +92,45 @@ def random_injection(pool_mask: torch.Tensor, count: int, *,
     valid = pool_mask.gather(-1, idx) \
         & (rank < pool_mask.sum(-1, keepdim=True))
     return idx, valid
+
+
+# ---------------------------------------------------------------------------
+# Host side (numpy): the literal Alg. 3 loop of the protocol simulator.
+# ---------------------------------------------------------------------------
+
+def sample_sequential(rng: np.random.Generator, sim: np.ndarray,
+                      candidate_mask: np.ndarray, k: int,
+                      beta: float) -> np.ndarray:
+    """Sequentially sample ``k`` indices without replacement from the
+    softmax over ``-beta * sim`` restricted to ``candidate_mask`` (fewer
+    when there are fewer candidates)."""
+    sim = np.asarray(sim, np.float64)
+    avail = np.asarray(candidate_mask, bool).copy()
+    chosen = []
+    for _ in range(min(k, int(avail.sum()))):
+        logits = np.where(avail, -beta * sim, -np.inf)
+        logits = logits - logits.max()
+        probs = np.exp(logits)
+        probs = probs / probs.sum()
+        j = int(rng.choice(len(sim), p=probs))
+        chosen.append(j)
+        avail[j] = False
+    return np.asarray(chosen, np.int64)
+
+
+def update_wanted_senders_host(rng: np.random.Generator, sim: np.ndarray,
+                               local_candidates: np.ndarray,
+                               full_candidates: np.ndarray, k: int,
+                               view_size: int, beta: float) -> np.ndarray:
+    """Alg. 3 on the host: a boolean view of ``k`` diversity-sampled
+    senders (:func:`sample_sequential` over C_A) and ``view_size - k``
+    uniformly random ones from the rest of C."""
+    n = len(sim)
+    chosen = sample_sequential(rng, sim, local_candidates, k, beta)
+    view = np.zeros(n, bool)
+    view[chosen] = True
+    pool = np.flatnonzero(full_candidates & ~local_candidates & ~view)
+    r = min(max(view_size - k, 0), len(pool))
+    if r > 0:
+        view[rng.choice(pool, size=r, replace=False)] = True
+    return view

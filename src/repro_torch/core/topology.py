@@ -1,5 +1,6 @@
-"""Communication-graph generators and metrics — host-side numpy, a
-bit-for-bit copy of the parts of ``repro.core.topology`` the port uses.
+"""Communication-graph generators, metrics and the runtime's topology
+book-keeping — host-side numpy, a bit-for-bit copy of
+``repro.core.topology``.
 
 Edge convention: ``edges[i, j] = True`` means node ``j`` sends its model to
 node ``i`` (row ``i`` lists node i's in-edges).
@@ -8,6 +9,8 @@ from __future__ import annotations
 
 import random
 from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 
@@ -85,6 +88,26 @@ def random_regular_graph(n: int, degree: int,
                        f"after {max_tries} tries")
 
 
+def random_out_regular(n: int, k: int, rng: np.random.Generator,
+                       view: Optional[np.ndarray] = None) -> np.ndarray:
+    """Each node picks ``k`` distinct recipients uniformly (Epidemic
+    Learning's per-round topology); ``view[j]`` optionally restricts node
+    j's choices to its known peers (EL-Local).  Returns the in-edge
+    matrix."""
+    edges = np.zeros((n, n), bool)
+    for j in range(n):
+        if view is not None:
+            pool = np.flatnonzero(view[j])
+            pool = pool[pool != j]
+        else:
+            pool = np.delete(np.arange(n), j)
+        kk = min(k, len(pool))
+        if kk > 0:
+            rcvrs = rng.choice(pool, size=kk, replace=False)
+            edges[rcvrs, j] = True
+    return edges
+
+
 def fully_connected(n: int) -> np.ndarray:
     """Complete in-edge matrix (everyone sends to everyone else)."""
     return ~np.eye(n, dtype=bool)
@@ -114,3 +137,60 @@ def isolated_nodes(edges: np.ndarray) -> np.ndarray:
 def in_degrees(edges: np.ndarray) -> np.ndarray:
     """Per-node count of models received this round (row sums)."""
     return edges.sum(axis=1)
+
+
+def out_degrees(edges: np.ndarray) -> np.ndarray:
+    """Per-node count of models sent this round (column sums)."""
+    return edges.sum(axis=0)
+
+
+def comm_cost(edges: np.ndarray, model_bytes: int) -> int:
+    """Total bytes moved this round = (#directed model transfers) * size."""
+    return int(edges.sum()) * model_bytes
+
+
+def connectivity_probability(n: int, d_s: int, d_r: int,
+                             trials: int, seed: int = 0) -> float:
+    """Paper Fig. 2: probability that a graph whose nodes each pick ``d_s``
+    similarity-driven in-edges (worst case: disjoint cliques of ``d_s +
+    1``) plus ``d_r`` uniformly random in-edges stays connected."""
+    rng = np.random.default_rng(seed)
+    ok = 0
+    for _ in range(trials):
+        edges = np.zeros((n, n), bool)
+        if d_s > 0:
+            perm = rng.permutation(n)
+            size = d_s + 1
+            for start in range(0, n, size):
+                blk = perm[start:start + size]
+                for a in blk:
+                    for b in blk:
+                        if a != b:
+                            edges[a, b] = True
+        if d_r > 0:
+            edges |= random_out_regular(n, d_r, rng)
+        ok += is_connected(edges)
+    return ok / trials
+
+
+@dataclass
+class TopologyState:
+    """Book-keeping shared by strategies and the metrics logger."""
+    n: int
+    edges: np.ndarray                 # current in-edge matrix
+    round: int = 0
+    total_transfers: int = 0          # cumulative directed model sends
+    isolation_history: List[int] = field(default_factory=list)
+
+    @classmethod
+    def empty(cls, n: int) -> "TopologyState":
+        """Round-zero state: no edges yet."""
+        return cls(n=n, edges=np.zeros((n, n), bool))
+
+    def advance(self, edges: np.ndarray) -> None:
+        """Record one round: adopt ``edges``, bump counters, append the
+        isolation count."""
+        self.edges = edges
+        self.round += 1
+        self.total_transfers += int(edges.sum())
+        self.isolation_history.append(len(isolated_nodes(edges)))

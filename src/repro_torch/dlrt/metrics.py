@@ -3,7 +3,7 @@ round half of ``repro.dlrt.metrics``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -38,6 +38,34 @@ class MetricsLog:
     def best_accuracy(self) -> float:
         """Best mean accuracy over all evaluation points."""
         return max(r.mean_accuracy for r in self.records)
+
+    def rounds_to_accuracy(self, target: float) -> Optional[int]:
+        """First round reaching ``target`` mean accuracy (paper's
+        convergence-efficiency comparison) or None."""
+        for r in self.records:
+            if r.mean_accuracy >= target:
+                return r.rnd
+        return None
+
+    def comm_to_accuracy(self, target: float) -> Optional[int]:
+        """Cumulative bytes moved when ``target`` mean accuracy is first
+        reached (the paper's communication-efficiency axis) or None."""
+        for r in self.records:
+            if r.mean_accuracy >= target:
+                return r.comm_bytes
+        return None
+
+    def as_arrays(self) -> Dict[str, np.ndarray]:
+        """Column-wise view for plotting/CSV (one entry per record)."""
+        return {
+            "round": np.array([r.rnd for r in self.records]),
+            "accuracy": np.array([r.mean_accuracy for r in self.records]),
+            "loss": np.array([r.mean_loss for r in self.records]),
+            "variance": np.array([r.internode_variance
+                                  for r in self.records]),
+            "comm_bytes": np.array([r.comm_bytes for r in self.records]),
+            "isolated": np.array([r.isolated for r in self.records]),
+        }
 
 
 def internode_variance(per_node_acc: np.ndarray) -> float:

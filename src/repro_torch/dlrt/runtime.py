@@ -1,18 +1,29 @@
 """Decentralized-learning runner — the port of the single-device path of
-``repro.dlrt.runtime`` (the round engine, dense or sparse, is
-:mod:`repro_torch.dlrt.superstep`).
+``repro.dlrt.runtime``.
 
-Per round: a node-batched local SGD step, the Eq.-3 similarity refresh
-every ``sim_every`` rounds (dense strategies), the strategy's graph
-round, and row-stochastic mixing; evaluation of every node on the shared
-test set at the ``eval_every`` boundaries and after the last round (paper
-§IV-A4).
+Per round: a node-batched local SGD step, the strategy's topology, and
+row-stochastic mixing; evaluation of every node on the shared test set at
+the ``eval_every`` boundaries and after the last round (paper §IV-A4).
+Two paths run the rounds (``RunnerConfig.compiled``):
+
+* the round engine (:mod:`repro_torch.dlrt.superstep`, dense or sparse)
+  for an in-graph strategy: ``graph_round`` each round, the Eq.-3 cache
+  refreshed every ``sim_every`` rounds;
+* the host loop (:meth:`DecentralizedRunner._round`) for any strategy
+  with ``round_edges``, the host protocol and baselines included: the
+  strategy sees the stacked models every ``sim_every`` rounds (a host
+  numpy copy for a host strategy, the device tensors for an in-graph
+  one's adapter; none for a strategy without ``needs_params``) and
+  returns numpy ``(edges, W)``, and the mix runs on the runner's device
+  through the same grouped kernels as the engine's: the masked mix from
+  the edges for a uniform strategy, ``W`` in f32 otherwise.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from contextlib import contextmanager
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -21,6 +32,7 @@ from torch.func import grad, vmap
 
 from .. import resolve_device
 from ..core.topology import isolated_nodes
+from ..kernels import ops
 from ..optim import Optimizer, apply_updates
 from ..tree import stack
 from .metrics import (MetricsLog, RoundRecord, internode_variance,
@@ -36,6 +48,10 @@ class RunnerConfig:
     eval_every: int = 20                   # evaluation cadence (rounds)
     sim_every: int = 1                     # Eq.-3 refresh cadence (rounds)
     seed: int = 0
+    # Path: None = the round engine for an in-graph strategy and the host
+    # loop otherwise; True = require the engine, False = force the host
+    # loop (which drives an in-graph strategy through round_edges).
+    compiled: Optional[bool] = None
     # Evaluate at most this many test samples per node-batched forward
     # pass (chunk means recombined by sample-count weights); None = one
     # pass.  Bounds the [n, b_test, ...] activation footprint.
@@ -184,15 +200,44 @@ def make_round_record(rnd: int, losses, metrics, comm_bytes: int,
     )
 
 
+@torch.no_grad()
+def evaluate_record(evaluate: Callable, params, test_batch, rnd: int,
+                    comm_bytes: int, edges: np.ndarray,
+                    isolated: Optional[int] = None) -> RoundRecord:
+    """Every node on the test batch after round ``rnd``, as the round's
+    :class:`RoundRecord` (:func:`make_round_record`)."""
+    losses, metrics = evaluate(params, test_batch)
+    return make_round_record(
+        rnd, losses.cpu().numpy(),
+        {k: v.cpu().numpy() for k, v in metrics.items()}, comm_bytes, edges,
+        isolated=isolated)
+
+
+def _unstaged(stage: str, fn: Callable):
+    """The default stage hook of :meth:`DecentralizedRunner._round` and
+    :meth:`~repro_torch.dlrt.Superstep.net_round`: run ``fn``."""
+    return fn()
+
+
+def host_params(params: Dict[str, torch.Tensor]
+                ) -> "OrderedDict[str, np.ndarray]":
+    """Node-stacked parameters copied to the host as numpy arrays (what a
+    host strategy's ``round_edges`` reads)."""
+    return OrderedDict((k, v.detach().cpu().numpy())
+                       for k, v in params.items())
+
+
 class DecentralizedRunner:
-    """D-PSGD over node-stacked parameters with an in-graph strategy.
+    """D-PSGD over node-stacked parameters with any topology strategy.
 
     ``init_fn(generator) -> OrderedDict`` makes one node's parameters; the
     runner draws ``n`` of them from a CPU generator seeded with
     ``cfg.seed``, unless ``params`` (node-stacked, e.g. carried over from
     the reference with :func:`repro_torch.tree.params_from_jax`) is given.
-    ``batcher`` is a host :class:`~repro_torch.data.StackedBatcher` or a
-    :class:`~repro_torch.data.DeviceDataStream`.
+    ``batcher`` is a host :class:`~repro_torch.data.StackedBatcher` or
+    (round engine only) a :class:`~repro_torch.data.DeviceDataStream`.
+    ``run`` picks the round engine or the host loop (the module
+    docstring).
     """
 
     def __init__(self, *, init_fn: Optional[Callable], loss_fn: Callable,
@@ -220,6 +265,21 @@ class DecentralizedRunner:
         # runs only).
         self.delivered_history: list = []
         self.net_stats = None
+        # The host loop's state: its cumulative comm bytes.
+        self._comm_bytes = 0
+        self._model_bytes = cfg.model_bytes \
+            or stacked_model_bytes(self.params, cfg.n_nodes)
+
+    # The host loop's round functions, built on its first use (the engine
+    # builds its own).
+    @cached_property
+    def _local_step(self) -> Callable:
+        return make_local_step(self._loss_fn, self.opt)
+
+    @cached_property
+    def _evaluate(self) -> Callable:
+        return make_evaluator(self._eval_fn,
+                              batch_chunk=self.cfg.eval_batch_chunk)
 
     def _make_engine(self):
         """A round engine on the runner's current state; each ``run()``
@@ -234,16 +294,114 @@ class DecentralizedRunner:
             cfg=self.cfg, params=self.params, opt_state=self.opt_state,
             device=self.device)
 
+    def _round(self, rnd: int, stage: Callable = _unstaged) -> np.ndarray:
+        """One host-loop round (reference ``runtime.py`` ``_round``);
+        returns its ``[n, n]`` bool edges.
+
+        Each stage runs as ``stage(name, fn)`` (by default just ``fn()``):
+        batch, local_step, copy_to_host (on the rounds a host strategy
+        reads the parameters), strategy (its ``round_edges``) and mix, so a
+        caller can time the round's own code stage by stage."""
+        batch = stage("batch", lambda: to_device(self.batcher.next(),
+                                                 self.device))
+        self.params, self.opt_state = stage("local_step", lambda: (
+            self._local_step(self.params, self.opt_state, batch)))
+        strategy = self.strategy
+        stacked = None
+        if rnd % self.cfg.sim_every == 0 \
+                and getattr(strategy, "needs_params", True):
+            stacked = self.params if getattr(strategy, "in_graph", False) \
+                else stage("copy_to_host", lambda: host_params(self.params))
+        edges, w = stage("strategy",
+                         lambda: strategy.round_edges(rnd, stacked))
+        edges = np.array(edges, dtype=bool)
+        self.edge_history.append(edges)
+        self.params = stage("mix", lambda: self._mix(edges, w))
+        self._comm_bytes += int(edges.sum()) * self._model_bytes
+        return edges
+
+    def _mix(self, edges: np.ndarray, w: np.ndarray):
+        """One grouped mix over every leaf on the runner's device: the
+        masked kernel builds a uniform strategy's W from the edges (its f32
+        quotients ``1 / d`` are the f32 casts of the host's f64 ones for
+        every degree up to 1,000 nodes), the general one takes ``W`` in
+        f32."""
+        chunk_d = self.cfg.mix_chunk_d
+        if getattr(self.strategy, "uniform_mixing", False):
+            return ops.mix_masked_pytree(
+                torch.as_tensor(edges, device=self.device), self.params,
+                chunk_d)
+        return ops.mix_pytree(
+            torch.as_tensor(np.asarray(w), dtype=torch.float32,
+                            device=self.device), self.params, chunk_d)
+
+    def evaluate(self, rnd: int, edges: np.ndarray) -> RoundRecord:
+        """Evaluate every node on the shared test set after host-loop round
+        ``rnd`` and append the §IV-A4 :class:`RoundRecord`."""
+        rec = evaluate_record(self._evaluate, self.params, self.test_batch,
+                              rnd, self._comm_bytes, edges)
+        self.log.add(rec)
+        return rec
+
+    def _check_host_loop(self) -> None:
+        """The reference's refusals: what only the round engine runs."""
+        if getattr(self.strategy, "sparse", False):
+            raise TypeError(
+                "sparse-native strategies (CSR graph_round) only run "
+                "inside the round engine — leave cfg.compiled unset "
+                "(auto) or set it True")
+        if self.cfg.net is not None:
+            raise TypeError(
+                "RunnerConfig.net (the dense in-scan network model) "
+                "requires the round engine — use an in-graph strategy")
+        comp = self.cfg.compress
+        if comp is not None and comp != "none":
+            from ..compress import CompressConfig
+            if comp == "auto" or not isinstance(comp, CompressConfig) \
+                    or comp.enabled:
+                raise TypeError(
+                    "RunnerConfig.compress (compressed gossip) carries "
+                    "its error-feedback residual in the engine's state "
+                    "and requires the round engine — use an in-graph "
+                    "strategy, or compress='none' for the per-round host "
+                    "loop")
+        if hasattr(self.batcher, "draw"):
+            raise TypeError(
+                "DeviceDataStream draws batches inside the round engine; "
+                "the per-round host loop needs a host batcher "
+                "(StackedBatcher)")
+
     def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
             ) -> MetricsLog:
-        """Run all ``cfg.rounds`` rounds through the superstep and return
-        the metrics log (``progress`` sees each record)."""
-        engine = self._make_engine()
-        self.log = engine.run(progress)
-        self.params, self.opt_state = engine.params, engine.opt_state
-        self.edge_history = engine.edge_history
-        self.delivered_history = engine.delivered_history
-        self.net_stats = engine.net_stats
+        """Run all ``cfg.rounds`` rounds and return the metrics log
+        (``progress`` sees each record).
+
+        ``cfg.compiled=None`` runs an in-graph strategy through the round
+        engine and any other through the host loop; True/False force one
+        path.  The engine's log replaces the runner's; the host loop
+        appends to it and keeps counting comm bytes, as the reference's
+        does."""
+        compiled = self.cfg.compiled
+        if compiled is None:
+            compiled = getattr(self.strategy, "in_graph", False)
+        if compiled:
+            engine = self._make_engine()
+            self.log = engine.run(progress)
+            self.params, self.opt_state = engine.params, engine.opt_state
+            self.edge_history = engine.edge_history
+            self.delivered_history = engine.delivered_history
+            self.net_stats = engine.net_stats
+            self._comm_bytes = engine._comm_bytes
+            return self.log
+        self._check_host_loop()
+        edges = np.zeros((self.cfg.n_nodes, self.cfg.n_nodes), bool)
+        for rnd in range(self.cfg.rounds):
+            edges = self._round(rnd)
+            if rnd % self.cfg.eval_every == 0 \
+                    or rnd == self.cfg.rounds - 1:
+                rec = self.evaluate(rnd, edges)
+                if progress is not None:
+                    progress(rec)
         return self.log
 
     def staleness_mean(self) -> float:

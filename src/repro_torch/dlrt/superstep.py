@@ -69,18 +69,13 @@ from ..kernels import ops
 from ..sparse.adjacency import dense_to_csr
 from ..sparse.mix import sparse_mix_pytree
 from .metrics import MetricsLog, RoundRecord, net_staleness_mean
-from .runtime import (RunnerConfig, make_evaluator, make_local_step,
-                      make_round_record, resolve_engine, stacked_model_bytes,
-                      to_device)
+from .runtime import (RunnerConfig, _unstaged, evaluate_record,
+                      make_evaluator, make_local_step, resolve_engine,
+                      stacked_model_bytes, to_device)
 
 # Above this population the sparse engine keeps (idx, mask) pairs in
 # edge_history instead of decoding dense [n, n] edge matrices.
 SPARSE_EDGE_DECODE_MAX = 4096
-
-
-def _unstaged(stage: str, fn: Callable):
-    """The default stage hook of :meth:`Superstep.net_round`: run ``fn``."""
-    return fn()
 
 
 def eval_boundaries(rounds: int, eval_every: int) -> List[Tuple[int, int]]:
@@ -182,6 +177,12 @@ class Superstep:
     def __init__(self, *, loss_fn: Callable, eval_fn: Callable, optimizer,
                  batcher, test_batch, strategy, cfg: RunnerConfig,
                  params, opt_state, device):
+        if not getattr(strategy, "in_graph", False):
+            raise TypeError(
+                f"strategy {getattr(strategy, 'name', strategy)!r} has no "
+                "in-graph surface (init_graph_state/graph_round); run it "
+                "through the runner's host loop (RunnerConfig.compiled "
+                "None or False)")
         if getattr(batcher, "n", cfg.n_nodes) != cfg.n_nodes:
             raise ValueError(f"data_stream covers {batcher.n} nodes, "
                              f"config says {cfg.n_nodes}")
@@ -446,14 +447,11 @@ class Superstep:
         self.edge_history.extend(dense)
         return dense
 
-    @torch.no_grad()
     def evaluate(self, rnd: int, edges: np.ndarray) -> RoundRecord:
         """Evaluate every node after round ``rnd`` and log the record."""
-        losses, metrics = self._evaluate(self.params, self.test_batch)
-        rec = make_round_record(
-            rnd, losses.cpu().numpy(),
-            {k: v.cpu().numpy() for k, v in metrics.items()},
-            self._comm_bytes, edges, isolated=self._last_isolated)
+        rec = evaluate_record(self._evaluate, self.params, self.test_batch,
+                              rnd, self._comm_bytes, edges,
+                              isolated=self._last_isolated)
         self.log.add(rec)
         return rec
 

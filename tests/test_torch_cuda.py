@@ -687,3 +687,96 @@ def test_cuda_uniform_net_mix_is_the_masked_mix(cuda_device):
     general = graph_mix_leaves(uniform_weights_torch(edges), xs)
     for a, b in zip(masked, general):
         assert torch.equal(a, b)
+
+
+HOST_TABLE1 = ("morph", "static", "el-oracle", "fully-connected")
+
+
+def _host_experiment(n, **kw):
+    from repro_torch.bench import common
+    return common.ExpConfig(n_nodes=n, rounds=11, eval_every=5, k=2,
+                            image_size=8, width=4, n_samples=400,
+                            num_classes=4, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HOST_TABLE1)
+def test_cuda_host_loop_is_the_cpu_host_loop(cuda_device, name):
+    """A tiny host-loop run of each Table-I strategy on the card and on the
+    CPU: identical edges every round (and, for the message-faithful Morph
+    protocol, identical tallies and views), parameters within 1e-5."""
+    from repro_torch.bench import common
+    import numpy as np
+    cfg = _host_experiment(6)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        runner = common.build_experiment(common.make_strategy(name, cfg),
+                                         cfg, dev)
+        runner.run()
+        runs.append(runner)
+    card, cpu = runs
+    for a, b in zip(card.edge_history, cpu.edge_history):
+        assert np.array_equal(a, b)
+    if name == "morph":
+        for a, b in ((card.strategy.control_messages,
+                      cpu.strategy.control_messages),
+                     (card.strategy.similarity_floats,
+                      cpu.strategy.similarity_floats)):
+            assert a == b
+        assert card.strategy.view_sizes().tolist() == \
+            cpu.strategy.view_sizes().tolist()
+    for key in cpu.params:
+        err = float((card.params[key].cpu() - cpu.params[key]).abs().max())
+        assert err <= 1e-5, (key, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HOST_TABLE1)
+def test_cuda_host_loop_launches_one_grouped_mix_a_round(cuda_device, name):
+    """Every host-loop round mixes every leaf in one grouped launch: the
+    masked kernel for a uniform strategy, graph_mix for Static and FC; the
+    protocol measures on the host, so no Gram launch."""
+    from repro_torch import kernels
+    from repro_torch.bench import common
+    cfg = _host_experiment(8)
+    runner = common.build_experiment(common.make_strategy(name, cfg), cfg,
+                                     cuda_device)
+    kernels.reset_launches()
+    runner.run()
+    got = {k.__name__: k.launches for k in kernels.KERNELS}
+    want = dict.fromkeys(got, 0)
+    uniform = name in ("morph", "el-oracle")
+    want["graph_mix_masked" if uniform else "graph_mix"] = cfg.rounds
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morph", "el-local"])
+def test_cuda_host_loop_is_the_engine_bit_for_bit(cuda_device, name):
+    """In-graph Morph and EL-Local through the host loop's ``round_edges``
+    adapters give the engine's edges and parameters bit for bit on the card
+    (GN-LeNet width 8 on 16-pixel images, 16 nodes, deterministic
+    cuDNN)."""
+    from repro_torch.bench import common
+    import numpy as np
+    cfg = _host_experiment(16, delta_r=5)
+    cfg.image_size, cfg.width, cfg.n_samples = 16, 8, 1600
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        runs = []
+        for compiled in (True, False):
+            runner = common.build_experiment(
+                common.make_ingraph_strategy(name, cfg, cuda_device), cfg,
+                cuda_device, compiled=compiled)
+            runner.run()
+            runs.append(runner)
+    finally:
+        cudnn.deterministic = before
+    engine, host = runs
+    assert len(host.edge_history) == cfg.rounds
+    for a, b in zip(engine.edge_history, host.edge_history):
+        assert np.array_equal(a, b)
+    for key in engine.params:
+        assert torch.equal(engine.params[key], host.params[key]), key

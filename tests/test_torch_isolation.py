@@ -12,10 +12,13 @@ torch = pytest.importorskip("torch")
 
 import numpy as np                                           # noqa: E402
 
+from repro_torch.bench import common                         # noqa: E402
 from repro_torch.configs import get_config                  # noqa: E402
-from repro_torch.core import (InGraphEpidemicStrategy,       # noqa: E402
+from repro_torch.core import (InGraphEpidemicLocalStrategy,  # noqa: E402
+                              InGraphEpidemicStrategy,
                               InGraphFullyConnectedStrategy,
-                              InGraphMorphStrategy, InGraphStaticStrategy)
+                              InGraphMorphStrategy, InGraphStaticStrategy,
+                              MorphConfig, MorphProtocol)
 from repro_torch.data import (DeviceDataStream,              # noqa: E402
                               make_image_classification)
 from repro_torch.dlrt import DecentralizedRunner, RunnerConfig  # noqa: E402
@@ -53,9 +56,10 @@ def test_port_imports_neither_jax_nor_reference(path):
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
-ENTRY_POINTS = ("runner", "morph", "static", "el-oracle",
-                "fully-connected", "stream", "sparse-morph",
-                "sparse-epidemic", "zoo-init-params", "zoo-init-cache")
+ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
+                "static", "el-oracle", "el-local", "fully-connected",
+                "stream", "sparse-morph", "sparse-epidemic",
+                "zoo-init-params", "zoo-init-cache")
 
 
 def _jamba_reduced():
@@ -74,9 +78,19 @@ def _make_entry_point(name):
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),
             batcher=None, test_batch={"labels": np.zeros(2, np.int32)},
             strategy=None, cfg=RunnerConfig(n_nodes=2, rounds=1)),
+        "host-loop-runner": lambda: DecentralizedRunner(
+            init_fn=lambda g: cnn_params(g, image_size=8, width=4),
+            loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),
+            batcher=None, test_batch={"labels": np.zeros(2, np.int32)},
+            strategy=MorphProtocol(MorphConfig(n=2, k=1)),
+            cfg=RunnerConfig(n_nodes=2, rounds=1, compiled=False)),
+        "run-experiment": lambda: common.run_experiment(
+            "morph", common.ExpConfig(n_nodes=2, k=1, rounds=1,
+                                      n_samples=40, image_size=8, width=4)),
         "morph": lambda: InGraphMorphStrategy(n=4, k=2),
         "static": lambda: InGraphStaticStrategy(n=4, degree=2),
         "el-oracle": lambda: InGraphEpidemicStrategy(n=4, k=2),
+        "el-local": lambda: InGraphEpidemicLocalStrategy(n=4, k=2),
         "fully-connected": lambda: InGraphFullyConnectedStrategy(n=4),
         "stream": lambda: DeviceDataStream(ds, parts, 4),
         "sparse-morph": lambda: SparseMorphStrategy(n=4, k=2),
