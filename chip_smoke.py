@@ -128,6 +128,23 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    parameters bit for bit, the same launches; (d) tiny host-loop runs of
    the four Table-I strategies on the card and on the CPU: identical
    edges, the protocol's tallies and views, parameters within 1e-5;
+13. the event-driven runtime (``repro_torch.netsim.AsyncRunner``): (a) the
+   lockstep property at full width, n = 50, 11 rounds on the ideal
+   network with deterministic cuDNN: ``MorphProtocol``, Static,
+   EL-Oracle, fully-connected and in-graph Morph through ``AsyncRunner``
+   and through the host loop give identical edges, parameters bit for bit
+   and equal protocol tallies, one grouped mix launch a round on both
+   paths and the same Gram launches; (b) fig8's WAN and flaky-WAN regimes
+   (its fault mix and 3 s mix deadline) at full width, n = 50, ten rounds
+   of MorphProtocol, Static and EL-Oracle: in-degree at most k (EL-Oracle,
+   k-out, out-degree k), nothing in flight at the end, no truncation; virtual seconds, staleness, drops by
+   kind, host ms a round and its stages (local-step calls, snapshot
+   copies, direct similarities, per-node mixes, event-loop overhead);
+   (c) tiny WAN and flaky-WAN runs on the card and on the CPU: identical
+   edges, transport stats, staleness histograms and event counts,
+   parameters within 1e-5; (d) fig11's WAN row at n = 50, ten rounds,
+   through ``repro_torch.bench.fig11`` (``fused_over_async`` and the
+   fidelity columns);
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -2705,6 +2722,391 @@ def host_loop_path(dev):
     return table1_counts, host_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the event-driven runtime.
+# ---------------------------------------------------------------------------
+
+ASYNC_ROUNDS = 11            # 13(a): negotiations at 0, 5 and 10
+ASYNC_LOCKSTEP = ("morph", "static", "el-oracle", "fully-connected",
+                  "ingraph-morph")
+ASYNC_NET_ROUNDS = 10        # 13(b), 13(d)
+ASYNC_NET = ("morph", "static", "el-oracle")
+
+
+def async_strategy(name, n, dev):
+    """``repro_torch.bench.common``'s strategy ``name`` at fig3's settings
+    (``ingraph-morph``: the in-graph Morph on ``dev``)."""
+    from repro_torch.bench import common
+    exp = common.ExpConfig(n_nodes=n, k=min(K, n - 1), delta_r=DELTA_R)
+    if name == "ingraph-morph":
+        return common.make_ingraph_strategy("morph", exp, dev)
+    return common.make_strategy(name, exp)
+
+
+def async_runner(name, n, dev, rounds, eval_every, profile=None,
+                 faults=None, mix_timeout_s=None, max_events=None, **setup):
+    """An ``AsyncRunner`` on :func:`paper_setup`'s model, data and host
+    batcher with :func:`async_strategy`'s strategy, not run."""
+    from repro_torch.models import cnn_loss
+    from repro_torch.netsim import AsyncConfig, AsyncRunner
+    from repro_torch.optim import sgd
+    batcher, test, init = paper_setup(n, dev, **setup)
+    runner = AsyncRunner(
+        init_fn=init, loss_fn=cnn_loss, eval_fn=cnn_loss,
+        optimizer=sgd(0.05), batcher=batcher, test_batch=test,
+        strategy=async_strategy(name, n, dev),
+        cfg=AsyncConfig(n_nodes=n, rounds=rounds, eval_every=eval_every,
+                        compute_time_s=1.0, mix_timeout_s=mix_timeout_s,
+                        max_events=max_events),
+        profile=profile, faults=faults, device=dev)
+    # Evaluation 128 test images at a time, as make_runner's.
+    runner.cfg.eval_batch_chunk = 128
+    return runner
+
+
+def async_lockstep(dev):
+    """Phase 13(a): each of the five strategies at full width and n = 50,
+    11 rounds on the ideal network through ``AsyncRunner`` and through the
+    host loop, deterministic cuDNN, counts set to 0 just before each run
+    and read just after: identical edges, parameters bit for bit, the
+    protocol's tallies equal, one grouped mix launch a round on both
+    paths and the same Gram launches; returns the async runs' launches
+    summed."""
+    from repro_torch import kernels
+    from repro_torch.netsim import profiles
+    totals = dict.fromkeys(launch_counts(), 0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ASYNC_LOCKSTEP:
+            host = make_runner(name, MAIN_N, dev, ASYNC_ROUNDS, DELTA_R,
+                               strategy=async_strategy(name, MAIN_N, dev),
+                               compiled=False, **HOST_SETUP)
+            # The default runaway guard, 32 events a node a round, is
+            # short of FC's n (n - 1) deliveries a round at n = 50.
+            asyn = async_runner(name, MAIN_N, dev, ASYNC_ROUNDS, DELTA_R,
+                                profile=profiles.ideal(),
+                                max_events=ASYNC_ROUNDS * MAIN_N
+                                * (MAIN_N + 32) + 4096, **HOST_SETUP)
+            walls, counts = [], []
+            for runner in (host, asyn):
+                kernels.reset_launches()
+                walls.append(timed_host_run(runner))
+                counts.append(launch_counts())
+            mix = "graph_mix" if name in ("static", "fully-connected") \
+                else "graph_mix_masked"
+            want = dict.fromkeys(counts[0], 0)
+            want[mix] = ASYNC_ROUNDS
+            if name == "ingraph-morph":
+                want["gram_matrix"] = ASYNC_ROUNDS
+            same_edges = len(host.edge_history) == ASYNC_ROUNDS and all(
+                np.array_equal(a, b) for a, b in zip(host.edge_history,
+                                                     asyn.edge_history)) \
+                and len(asyn.edge_history) == ASYNC_ROUNDS
+            same_params = all(torch.equal(host.params[k], asyn.params[k])
+                              for k in host.params)
+            extra = {}
+            if name == "morph":
+                tallies = [(r.strategy.control_messages,
+                            r.strategy.similarity_floats)
+                           for r in (host, asyn)]
+                if tallies[0] != tallies[1]:
+                    raise AssertionError(f"13(a) morph: tallies {tallies}")
+                extra = dict(zip(("control_messages", "similarity_floats"),
+                                 tallies[0]))
+            if asyn.truncated or not (same_edges and same_params
+                                      and counts[0] == want
+                                      and counts[1] == want):
+                raise AssertionError(
+                    f"13(a) {name}: AsyncRunner is not the host loop "
+                    f"(truncated {asyn.truncated}, edges {same_edges}, "
+                    f"params {same_params}, launches {counts} != {want})")
+            check_finite(f"13(a) {name}", asyn)
+            for k, v in counts[1].items():
+                totals[k] += v
+            log(f"phase 13(a): {name} n={MAIN_N} {ASYNC_ROUNDS} rounds, "
+                f"ideal: AsyncRunner == host loop bit for bit; "
+                + json.dumps(dict(
+                    host_loop_ms_per_round=walls[0] / ASYNC_ROUNDS * 1e3,
+                    async_ms_per_round=walls[1] / ASYNC_ROUNDS * 1e3,
+                    events=asyn.loop.processed,
+                    launches_host_loop=counts[0],
+                    launches_async=counts[1], **extra)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return totals
+
+
+class AsyncStages:
+    """Host-clock time of an ``AsyncRunner``'s stages, timed inside its
+    own handlers (each wrapped call ends in a synchronise): local steps,
+    the compute handler's batch draw and copy and live-row select,
+    snapshots (calls counted only where a row is copied), direct Eq.-3
+    similarities (the receiver's row and the pair), per-node mixes,
+    lockstep mixes and evaluation; the rest of the run is event-loop
+    overhead (heap, transport, protocol, ledgers)."""
+
+    STAGES = ("local_step", "batch_and_select", "snapshot",
+              "direct_similarity", "mix_one", "mix", "evaluate")
+
+    def __init__(self, runner):
+        from repro_torch.netsim import async_runner as ar
+        self.ms = dict.fromkeys(self.STAGES, 0.0)
+        self.calls = dict.fromkeys(self.STAGES, 0)
+        self._module = ar
+        self._saved = ar.node_row, ar.pair_similarity_numpy
+        step = runner._local_step
+        runner.__dict__["_local_step"] = self.timed("local_step", step)
+        on_compute = self.timed("batch_and_select", runner._on_compute)
+
+        def compute_handler(batch):
+            # The handler less its step: the batch's draw, stack and copy,
+            # and the live-row select.
+            before = self.ms["local_step"]
+            on_compute(batch)
+            self.ms["batch_and_select"] -= self.ms["local_step"] - before
+        runner._on_compute = compute_handler
+        for stage, attr in (("mix_one", "_mix_one"), ("mix", "_mix"),
+                            ("evaluate", "_eval_at")):
+            setattr(runner, attr, self.timed(stage, getattr(runner, attr)))
+        snapshot = self.timed("snapshot", runner._snapshot_row, count=False)
+
+        def snapshot_row(j):
+            # A copy is made unless the sender's row is cached at its
+            # current version.
+            hit = runner._snap_cache.get(j)
+            self.calls["snapshot"] += hit is None \
+                or hit[0] != int(runner._version[j])
+            return snapshot(j)
+        runner._snapshot_row = snapshot_row
+        ar.node_row = self.timed("direct_similarity", self._saved[0],
+                                 count=False)
+        ar.pair_similarity_numpy = self.timed("direct_similarity",
+                                              self._saved[1])
+
+    def timed(self, stage, fn, count=True):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[stage] += (time.perf_counter() - t0) * 1e3
+            self.calls[stage] += count
+            return out
+        return wrapped
+
+    def restore(self):
+        self._module.node_row, self._module.pair_similarity_numpy = \
+            self._saved
+
+    def per_round(self, wall_s, rounds):
+        out = {f"{k}_ms": self.ms[k] / rounds for k in self.STAGES}
+        out.update({f"{k}_calls": self.calls[k] / rounds
+                    for k in self.STAGES})
+        out["event_loop_ms"] = (wall_s * 1e3 - sum(self.ms.values())) \
+            / rounds
+        return out
+
+
+def async_regimes(dev):
+    """Phase 13(b): fig8's WAN and flaky-WAN regimes (the fault mix of
+    ``repro_torch.bench.fig8.network``, mix deadline 3 s) at full width and
+    n = 50, ten rounds of MorphProtocol, Static and EL-Oracle, counts set
+    to 0 just before each run and read just after: in-degree at most k in
+    every edge set of Morph and Static (EL-Oracle, k-out, out-degree k),
+    no realized mix above its edges' in-degree, nothing in flight at the
+    end, no truncation; virtual seconds, staleness, drops by kind, host ms a
+    round and the stage breakdown.  Returns the launches summed."""
+    from repro_torch import kernels
+    from repro_torch.bench import fig8
+    totals = dict.fromkeys(launch_counts(), 0)
+    rounds = ASYNC_NET_ROUNDS
+    for regime in ("wan", "flaky-wan"):
+        for name in ASYNC_NET:
+            profile, faults = fig8.network(regime, MAIN_N, rounds * 1.0, 0)
+            runner = async_runner(name, MAIN_N, dev, rounds, DELTA_R,
+                                  profile=profile, faults=faults,
+                                  mix_timeout_s=fig8.MIX_TIMEOUT_S,
+                                  **HOST_SETUP)
+            stages = AsyncStages(runner)
+            kernels.reset_launches()
+            try:
+                wall = timed_host_run(runner)
+            finally:
+                stages.restore()
+            got = launch_counts()
+            for k, v in got.items():
+                totals[k] += v
+            stats = runner.transport.stats
+            edges = np.stack(runner.edge_history)
+            indeg = int(edges.sum(axis=2).max())
+            if name == "el-oracle":
+                # EL-Oracle is k-out: each node sends to k peers.
+                bounded = (edges.sum(axis=1) == K).all()
+            else:
+                bounded = indeg <= K
+            if not bounded or max(runner.realized_indegrees) > indeg:
+                raise AssertionError(f"13(b) {regime} {name}: degrees "
+                                     f"(in {indeg}, realized "
+                                     f"{max(runner.realized_indegrees)})")
+            if stats.in_flight != 0 or runner.truncated:
+                raise AssertionError(f"13(b) {regime} {name}: in flight "
+                                     f"{stats.in_flight}, truncated "
+                                     f"{runner.truncated}")
+            check_finite(f"13(b) {regime} {name}", runner)
+            last = runner.netlog.last()
+            summary = {
+                "virtual_s": last.t, "accuracy": last.mean_accuracy,
+                "staleness_mean": runner.netlog.staleness_mean(),
+                "staleness_hist": {str(k): v for k, v in sorted(
+                    runner.netlog.staleness_hist.items())},
+                "sent_by_kind": stats.sent_by_kind,
+                "dropped_by_kind": stats.dropped_by_kind,
+                "late_discards": runner.late_discards,
+                "unavailable_sends": runner.unavailable_sends,
+                "events": runner.loop.processed,
+                "host_ms_per_round": wall / rounds * 1e3,
+                "stages_per_round": stages.per_round(wall, rounds),
+                "launches": got}
+            log(f"phase 13(b): {name} n={MAIN_N} {regime} {rounds} rounds: "
+                f"{json.dumps(summary)}")
+    return totals
+
+
+def node_gaps(a, b):
+    """``[n]``: the largest parameter difference of each node's row
+    between two runners (``b`` on the CPU)."""
+    n = b.cfg.n_nodes
+    return np.max(np.stack([(a.params[k].cpu() - b.params[k]).abs()
+                            .reshape(n, -1).amax(dim=1).numpy()
+                            for k in b.params]), axis=0)
+
+
+KINK_EPS, KINK_SEEDS = 1e-7, (1, 2, 3)
+
+
+def async_reference_check(dev):
+    """Phase 13(c): ``tests/test_netsim.py``'s tiny shape (GN-LeNet width
+    8 on 8-pixel images) under WAN (EL-Oracle and MorphProtocol, n = 6,
+    8 rounds) and flaky-WAN with a partition, stragglers and churn
+    (MorphProtocol n = 8, 10 rounds; in-graph Morph n = 6, 8 rounds; mix
+    deadline 2 s) on the card and on the CPU: identical edges, transport
+    stats, staleness histograms and event counts, and every node's
+    parameters within 1e-5.
+
+    A node whose row parts by more is held to the CPU's own spread: the
+    CPU run is repeated from its initial parameters moved by 1e-7 (about
+    the card's rounding gap per step), three ways; where the trajectory
+    crosses a ReLU or max-pool kink a step's gradient jumps, and such a
+    rerun moves the same node's row by as much.  The node passes only if
+    a rerun that mixed as the CPU run did (the same edges, arrivals and
+    staleness; Morph's requests may differ) moved its row past 1e-5 and
+    the card's gap is at most twice the largest such move."""
+    import dataclasses
+    from repro_torch.netsim import FaultConfig, FaultModel, profiles
+    tiny = dict(image_size=8, width=8, classes=4, samples=400, test=100,
+                stream=False, alpha=0.5)
+
+    def flaky(n, rounds):
+        horizon = rounds * 1.5
+        return (profiles.flaky_wan(n, partition_at=horizon * 0.3,
+                                   partition_len=horizon * 0.2, seed=1),
+                FaultModel(FaultConfig(
+                    straggler_fraction=0.25, straggler_slowdown=2.0,
+                    churn_fraction=0.25, crash_fraction=0.0,
+                    mean_downtime_s=3.0, horizon_s=horizon, seed=2), n))
+
+    def build(name, regime, n, rounds, d):
+        profile, faults = (profiles.wan(), None) if regime == "wan" \
+            else flaky(n, rounds)
+        return async_runner(name, n, d, rounds, 4, profile=profile,
+                            faults=faults,
+                            mix_timeout_s=None if regime == "wan" else 2.0,
+                            **tiny)
+
+    def same_mixing(a, b):
+        return (len(a.edge_history) == len(b.edge_history) > 0
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a.edge_history, b.edge_history))
+                and a.netlog.staleness_hist == b.netlog.staleness_hist
+                and a.realized_indegrees == b.realized_indegrees)
+
+    def same_run(a, b):
+        return (same_mixing(a, b) and a.loop.processed == b.loop.processed
+                and dataclasses.asdict(a.transport.stats)
+                == dataclasses.asdict(b.transport.stats))
+
+    cases = [("el-oracle", "wan", 6, 8), ("morph", "wan", 6, 8),
+             ("morph", "flaky-wan", 8, 10),
+             ("ingraph-morph", "flaky-wan", 6, 8)]
+    cpu_dev = torch.device("cpu")
+    for name, regime, n, rounds in cases:
+        card, cpu = (build(name, regime, n, rounds, d) for d in (dev, cpu_dev))
+        card.run()
+        cpu.run()
+        if not same_run(card, cpu):
+            raise AssertionError(f"13(c) {name} {regime}: card and CPU "
+                                 f"runs differ")
+        gaps = node_gaps(card, cpu)
+        extra = {}
+        if gaps.max() > HOST_CARD_TOL:
+            spread = np.zeros(n)
+            for seed in KINK_SEEDS:
+                moved = build(name, regime, n, rounds, cpu_dev)
+                gen = torch.Generator().manual_seed(seed)
+                for v in moved.params.values():
+                    v.add_(KINK_EPS * torch.randn(v.shape, generator=gen))
+                moved.run()
+                if same_mixing(moved, cpu):
+                    spread = np.maximum(spread, node_gaps(moved, cpu))
+            far = np.flatnonzero(gaps > HOST_CARD_TOL)
+            if not ((spread[far] > HOST_CARD_TOL).all()
+                    and (gaps[far] <= 2 * spread[far]).all()):
+                raise AssertionError(
+                    f"13(c) {name} {regime}: card vs CPU params "
+                    f"{gaps.tolist()} > {HOST_CARD_TOL}, the CPU's own "
+                    f"spread {spread.tolist()}")
+            extra = {"kink_nodes": far.tolist(),
+                     "card_gap_by_node": gaps.tolist(),
+                     "cpu_spread_1e-7_by_node": spread.tolist()}
+        log(f"phase 13(c): {name} {regime} n={n} {rounds} rounds, card == "
+            f"CPU edges, stats, staleness and {cpu.loop.processed} events, "
+            f"params max |err| {gaps.max():.3g}; " + json.dumps({
+                "staleness_hist": {str(k): v for k, v in sorted(
+                    cpu.netlog.staleness_hist.items())},
+                "dropped": cpu.transport.stats.dropped,
+                "late_discards": cpu.late_discards,
+                "dead": sorted(cpu.dead), **extra}))
+
+
+def fig11_wan_row(dev):
+    """Phase 13(d): fig11's WAN row at n = 50, ten rounds, through
+    ``repro_torch.bench.fig11.run_cell``: both realizations' times, their
+    ratio and the fidelity columns (recorded, not held to a limit)."""
+    from repro_torch.bench import common, fig11
+    for name in fig11.STRATEGIES:
+        cfg = common.ExpConfig(n_nodes=MAIN_N, rounds=ASYNC_NET_ROUNDS,
+                               eval_every=max(ASYNC_NET_ROUNDS // 3, 1))
+        row, asyn = fig11.run_cell(name, "wan", cfg, dev)
+        if asyn.transport.stats.in_flight or asyn.truncated or not all(
+                math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"13(d) {name}: {row}")
+        log(f"phase 13(d): fig11 wan/{name}/n{MAIN_N} {ASYNC_NET_ROUNDS} "
+            f"rounds: {json.dumps(row)}")
+
+
+def async_path(dev):
+    """Phase 13: (a) to (d); returns the launches of (a) and (b)."""
+    totals = async_lockstep(dev)
+    for k, v in async_regimes(dev).items():
+        totals[k] += v
+    for name in ("gram_matrix", "graph_mix", "graph_mix_masked"):
+        if totals[name] == 0:
+            raise AssertionError(f"phase 13: {name} never launched")
+    log(f"phase 13: launches over (a) and (b) {json.dumps(totals)}")
+    async_reference_check(dev)
+    fig11_wan_row(dev)
+    return totals
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2767,6 +3169,7 @@ def main():
     net_counts, rings = net_path(dev, worst)
     times["graph_mix"].update(rings)
     table1_counts, host_counts = host_loop_path(dev)
+    async_counts = async_path(dev)
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
                                "pairwise_cosine.cu",
@@ -2796,6 +3199,7 @@ def main():
             "launches_net": net_counts[name],
             "launches_host_loop": host_counts[name],
             "launches_table1": table1_counts[name],
+            "launches_async": async_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

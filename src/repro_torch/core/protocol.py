@@ -16,10 +16,10 @@ state machine runs under two transports:
 * the synchronous driver (:meth:`MorphProtocol.round_edges`) delivers
   every message instantly and in deterministic order — the paper's
   idealized lockstep network;
-* an event-driven runner (the reference's ``netsim.AsyncRunner``, not yet
-  ported) routes the *same* objects through a latency/bandwidth/fault-
-  modelled transport, so requests can be dropped, accepts can arrive late
-  and model transfers carry stale snapshots.
+* the event-driven runner (:class:`repro_torch.netsim.AsyncRunner`)
+  routes the *same* objects through a latency/bandwidth/fault-modelled
+  transport, so requests can be dropped, accepts can arrive late and
+  model transfers carry stale snapshots.
 
 Per round (Alg. 2):
   1. every ``delta_r`` rounds each node recomputes its wanted senders

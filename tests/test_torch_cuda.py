@@ -780,3 +780,74 @@ def test_cuda_host_loop_is_the_engine_bit_for_bit(cuda_device, name):
         assert np.array_equal(a, b)
     for key in engine.params:
         assert torch.equal(engine.params[key], host.params[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HOST_TABLE1)
+def test_cuda_ideal_async_runner_is_the_host_loop(cuda_device, name):
+    """A tiny ``AsyncRunner`` run on the ideal network takes the host
+    loop's stacked paths on the card: the card's host loop's edges and
+    parameters bit for bit (deterministic cuDNN), one grouped mix launch a
+    round (the masked kernel for a uniform strategy) and no Gram."""
+    from repro_torch import kernels
+    from repro_torch.bench import common, fig8
+    from repro_torch.netsim import profiles
+    import numpy as np
+    cfg = _host_experiment(8)
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        host = common.build_experiment(common.make_strategy(name, cfg), cfg,
+                                       cuda_device, compiled=False)
+        host.run()
+        asyn = fig8.build_async(common.make_strategy(name, cfg), cfg,
+                                cuda_device, profile=profiles.ideal(),
+                                mix_timeout_s=None)
+        kernels.reset_launches()
+        asyn.run()
+        got = {k.__name__: k.launches for k in kernels.KERNELS}
+    finally:
+        cudnn.deterministic = before
+    assert len(asyn.edge_history) == cfg.rounds
+    for a, b in zip(host.edge_history, asyn.edge_history):
+        assert np.array_equal(a, b)
+    for key in host.params:
+        assert torch.equal(host.params[key], asyn.params[key]), key
+    want = dict.fromkeys(got, 0)
+    uniform = name in ("morph", "el-oracle")
+    want["graph_mix_masked" if uniform else "graph_mix"] = cfg.rounds
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morph", "el-oracle"])
+def test_cuda_wan_async_run_is_the_cpu_run(cuda_device, name):
+    """A tiny ``AsyncRunner`` run under WAN (deliveries spread, nodes step
+    alone, per-node host mixes) on the card and on the CPU: the same
+    events, edges, transport counters and staleness histogram, parameters
+    within 1e-5."""
+    from repro_torch.bench import common, fig8
+    from repro_torch.netsim import profiles
+    import dataclasses
+    import numpy as np
+    cfg = _host_experiment(6)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        runner = fig8.build_async(common.make_strategy(name, cfg), cfg, dev,
+                                  profile=profiles.wan())
+        runner.run()
+        runs.append(runner)
+    card, cpu = runs
+    assert len(card.edge_history) == len(cpu.edge_history) == cfg.rounds
+    for a, b in zip(card.edge_history, cpu.edge_history):
+        assert np.array_equal(a, b)
+    assert card.netlog.staleness_hist == cpu.netlog.staleness_hist
+    assert sum(k != 0 for k in cpu.netlog.staleness_hist) > 0
+    assert dataclasses.asdict(card.transport.stats) == \
+        dataclasses.asdict(cpu.transport.stats)
+    assert (card.loop.processed, card.realized_indegrees) == \
+        (cpu.loop.processed, cpu.realized_indegrees)
+    for key in cpu.params:
+        err = float((card.params[key].cpu() - cpu.params[key]).abs().max())
+        assert err <= 1e-5, (key, err)

@@ -26,6 +26,7 @@ from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
                                  gram_matrix, ref, selective_scan)
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
+from repro_torch.netsim import AsyncConfig, AsyncRunner      # noqa: E402
 from repro_torch.models import mamba as zoo_mamba            # noqa: E402
 from repro_torch.models import model as zoo_model            # noqa: E402
 from repro_torch.optim import sgd                            # noqa: E402
@@ -59,7 +60,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "static", "el-oracle", "el-local", "fully-connected",
                 "stream", "sparse-morph", "sparse-epidemic",
-                "zoo-init-params", "zoo-init-cache")
+                "zoo-init-params", "zoo-init-cache", "async-runner")
 
 
 def _jamba_reduced():
@@ -97,6 +98,12 @@ def _make_entry_point(name):
         "sparse-epidemic": lambda: SparseEpidemicStrategy(n=4, k=2),
         "zoo-init-params": lambda: zoo_model.init_params(_jamba_reduced(), 0),
         "zoo-init-cache": lambda: zoo_model.init_cache(_jamba_reduced(), 1, 4),
+        "async-runner": lambda: AsyncRunner(
+            init_fn=lambda g: cnn_params(g, image_size=8, width=4),
+            loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),
+            batcher=None, test_batch={"labels": np.zeros(2, np.int32)},
+            strategy=MorphProtocol(MorphConfig(n=2, k=1)),
+            cfg=AsyncConfig(n_nodes=2, rounds=1)),
     }[name]
 
 
