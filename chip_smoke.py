@@ -145,6 +145,26 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    parameters within 1e-5; (d) fig11's WAN row at n = 50, ten rounds,
    through ``repro_torch.bench.fig11`` (``fused_over_async`` and the
    fidelity columns);
+14. the sweep farm (``repro_torch.dlrt.SweepSuperstep``): (a) GN-LeNet
+   at full width, n = 50, fig3's settings, ten rounds, deterministic
+   cuDNN: first one local step of the ``[8 n]`` stack against each
+   experiment's own step (bit for bit, both timed), then Morph over 4
+   seeds x {ideal, wan} at round_s = 1 (E = 8), Morph with delta_r (2, 3,
+   5) and no network (E = 3) and Static over 4 seeds (E = 4, the
+   general-W route), counts set to 0 just before each sweep and read just
+   after: ceil(E L / MAX_LEAVES) grouped mix launches a round and as many
+   Gram launches a refresh, and every experiment bit for bit its solo
+   ``Superstep`` run (parameters, edges, delivered masks, comm bytes,
+   staleness counters); (b) the grouped mixes with one W (or E) a row
+   over E experiments' GN-LeNet leaves bit for bit E one-W launches, f32
+   and bf16, at n = 50 (small route), 200 and 1000 (tiled), both timed by
+   CUDA-graph replay; (c) where a sweep round's time goes against E solo
+   runs of the same rounds (host clock around synchronised stages: batch,
+   local step, masks, similarity, controller, push, delivery plan, mix)
+   and peak memory: GN-LeNet at E = 8 and 32, the tiny MLP at fig14's
+   shape; (d) tiny sweeps card == CPU (edges identical, parameters within
+   1e-5, batches keyed on the CPU); (e) ``repro_torch.bench.fig14`` at its
+   defaults, ``acceptance/bitwise_vs_singles`` = 1;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -3108,6 +3128,456 @@ def async_path(dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the sweep farm.
+# ---------------------------------------------------------------------------
+
+SWEEP_ROUNDS = 10            # 14(a): negotiations at 0 and 5
+SWEEP_SEEDS = 4
+SWEEP_TIMED = 5              # 14(c): rounds timed after one untimed round
+SWEEP_E = (8, 32)            # 14(c): GN-LeNet sweeps of 4 and 16 seeds
+SWEEP_MIX = ((50, 8), (200, 4), (1000, 2))      # 14(b): (n, E)
+
+
+def sweep_fixture(n, dev, seeds, name="morph", profiles=None,
+                  delta_rs=None, tiny=False, host_slots=False):
+    """Phase 14's set-up: paper_setup's data and model (or the tiny
+    GN-LeNet of phase 6), one ``DeviceDataStream`` an experiment over one
+    dataset (data seed = seed + 3, as paper_setup's), one strategy an
+    experiment at fig3's settings (strategy seed = the experiment's seed),
+    and ``profiles`` as a ``SweepNetwork`` at round_s = 1.  A stream draws
+    its slots from a generator on its device, so card and CPU draw other
+    batches; ``host_slots`` keys them on a CPU generator instead (the same
+    batches on both).  Returns ``(sweep(**kw), solo(e))``, which build the
+    sweep and experiment ``e``'s solo engine."""
+    from repro_torch import core, fold_seed
+    from repro_torch.data import (DeviceDataStream, dirichlet_partition,
+                                  make_image_classification,
+                                  train_test_split)
+    from repro_torch.dlrt import (DecentralizedRunner, RunnerConfig,
+                                  SweepSpec, SweepSuperstep)
+    from repro_torch.models import cnn_loss, cnn_params
+    from repro_torch.netsim import DenseNetwork, SweepNetwork
+    from repro_torch.netsim import profiles as prof
+    from repro_torch.optim import sgd
+    shape = dict(samples=400, classes=4, image_size=8, width=4, test=64) \
+        if tiny else dict(samples=6000, classes=10, image_size=32,
+                          width=32, test=512)
+    ds = make_image_classification(shape["samples"],
+                                   num_classes=shape["classes"],
+                                   image_size=shape["image_size"],
+                                   channels=3, noise=3.0, seed=0)
+    tr, te = train_test_split(ds, 0.2, seed=0)
+    parts = dirichlet_partition(tr.labels, n, 0.5 if tiny else 0.1,
+                                np.random.default_rng(0))
+    test = {"images": te.images[:shape["test"]],
+            "labels": te.labels[:shape["test"]]}
+    init = lambda g: cnn_params(g, in_channels=3,
+                                num_classes=shape["classes"],
+                                image_size=shape["image_size"],
+                                width=shape["width"])
+    E = len(seeds)
+    nets = None if profiles is None else [
+        DenseNetwork(prof.get_profile(p, n, s), round_s=1.0)
+        for p, s in zip(profiles, seeds)]
+    drs = delta_rs or (DELTA_R,) * E
+    k = min(K, n - 1)
+
+    def strategy(e):
+        if name == "morph":
+            return core.InGraphMorphStrategy(
+                n=n, k=k, view_size=k + 2, beta=500.0, delta_r=drs[e],
+                seed=seeds[e], device=dev)
+        return make_strategy(name, n, dev, seed=seeds[e])
+
+    def cfg(**kw):
+        return RunnerConfig(n_nodes=n, rounds=SWEEP_ROUNDS, eval_every=5,
+                            eval_batch_chunk=128, **kw)
+
+    class HostSlots(DeviceDataStream):
+        def slots(self, rnd):
+            gen = torch.Generator().manual_seed(fold_seed(self.seed, rnd))
+            sizes = self.sizes.cpu()[:, None]
+            u = torch.rand((self.n, self.batch), generator=gen)
+            return torch.minimum((u * sizes).long(), sizes - 1).to(dev)
+
+    def stream(e):
+        return (HostSlots if host_slots else DeviceDataStream)(
+            tr, parts, 8, seed=seeds[e] + 3, device=dev)
+
+    def sweep(**kw):
+        spec = SweepSpec(seeds=tuple(seeds), profiles=profiles,
+                         delta_r=None if delta_rs is None
+                         else tuple(delta_rs))
+        return SweepSuperstep(
+            spec=spec, init_fn=init, loss_fn=cnn_loss, eval_fn=cnn_loss,
+            optimizer=sgd(0.05), streams=[stream(e) for e in range(E)],
+            test_batch=test, strategies=[strategy(e) for e in range(E)],
+            cfg=cfg(), net=None if nets is None else SweepNetwork(nets),
+            device=dev, **kw)
+
+    def solo(e):
+        return DecentralizedRunner(
+            init_fn=init, loss_fn=cnn_loss, eval_fn=cnn_loss,
+            optimizer=sgd(0.05), batcher=stream(e),
+            test_batch={k: v for k, v in test.items()},
+            strategy=strategy(e),
+            cfg=cfg(seed=seeds[e], net=None if nets is None else nets[e]),
+            device=dev)._make_engine()
+    return sweep, solo
+
+
+def sweep_step_bits(dev):
+    """Phase 14(a), first: one local step of the E = 8, n = 50 full-width
+    stack (grouped convolutions over 400 groups) against each
+    experiment's own step of its 50 rows (50 groups), deterministic cuDNN:
+    whether the stacked step keeps each experiment's bits, and both
+    times.  Returns whether it does."""
+    from repro_torch.dlrt.sweep import _flat
+    sweep, _ = sweep_fixture(MAIN_N, dev, tuple(range(SWEEP_SEEDS)) * 2,
+                             profiles=("ideal",) * SWEEP_SEEDS
+                             + ("wan",) * SWEEP_SEEDS)
+    eng = sweep()
+    batch = eng._batch(0)
+    stacked = lambda: eng._local_step(_flat(eng.params), eng._opt_state,
+                                      _flat(batch))[0]
+    each = lambda: [eng._local_step(eng.experiment_params(e),
+                                    eng._opt_state,
+                                    {k: v[e] for k, v in batch.items()})[0]
+                    for e in range(eng.E)]
+    times = {}
+    for label, fn in (("stacked", stacked), ("per_experiment", each)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn()
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) / 3 * 1e3
+        if label == "stacked":
+            got = out
+        else:
+            want = out
+    n = MAIN_N
+    err = max(float((got[k][e * n:(e + 1) * n] - want[e][k]).abs().max())
+              for e in range(eng.E) for k in got)
+    bitwise = all(torch.equal(got[k][e * n:(e + 1) * n], want[e][k])
+                  for e in range(eng.E) for k in got)
+    log(f"phase 14(a): local step of E={eng.E} x n={n} full width, "
+        f"deterministic cuDNN: stacked == per-experiment bit for bit "
+        f"{bitwise} (max |diff| {err:.3g}); " + json.dumps(dict(
+            stacked_ms=times["stacked"],
+            per_experiment_ms=times["per_experiment"])))
+    return bitwise
+
+
+def sweep_pin_case(dev, label, sweep, solo, want_rounds):
+    """One 14(a) run: the sweep for SWEEP_ROUNDS rounds, counts set to 0
+    just before and read just after (held to ``want_rounds`` launches a
+    round), then every experiment's solo run, bit for bit."""
+    from repro_torch import kernels
+    eng = sweep()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_steps(SWEEP_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    want = dict.fromkeys(got, 0)
+    for k, v in want_rounds.items():
+        want[k] = v * SWEEP_ROUNDS
+    if got != want:
+        raise AssertionError(f"14(a) {label}: launches {got} != {want}")
+    for e in range(eng.E):
+        one = solo(e)
+        one.run_steps(SWEEP_ROUNDS)
+        same = (all(torch.equal(one.params[k], eng.params[k][e])
+                    for k in one.params)
+                and len(one.edge_history) == SWEEP_ROUNDS
+                and all(np.array_equal(a, b) for a, b in
+                        zip(one.edge_history, eng.edge_history[e]))
+                and one._comm_bytes == eng.comm_bytes(e))
+        if eng.net is not None:
+            s, w = one.net_stats, eng.net_stats[e]
+            same = same and all(np.array_equal(a, b) for a, b in zip(
+                one.delivered_history, eng.delivered_history[e])) and (
+                (s["delivered"], s["dropped"], s["staleness_sum"],
+                 s["staleness_hist"].tolist())
+                == (w["delivered"], w["dropped"], w["staleness_sum"],
+                    w["staleness_hist"].tolist()))
+        if not same:
+            raise AssertionError(f"14(a) {label}: experiment {e} is not its "
+                                 f"solo run bit for bit")
+    for p in eng.params.values():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"14(a) {label}: non-finite parameters")
+    log(f"phase 14(a): {label} E={eng.E} n={MAIN_N} {SWEEP_ROUNDS} rounds, "
+        f"every experiment its solo run bit for bit; " + json.dumps(dict(
+            ms_per_round=wall / SWEEP_ROUNDS * 1e3, launches=got,
+            comm_bytes=[eng.comm_bytes(e) for e in range(eng.E)],
+            net_stats=None if eng.net is None else [
+                {"delivered": st["delivered"], "dropped": st["dropped"],
+                 "staleness_sum": st["staleness_sum"]}
+                for st in eng.net_stats])))
+    return got
+
+
+def sweep_pin(dev):
+    """Phase 14(a): GN-LeNet CIFAR-10 at full width, n = 50, fig3's
+    settings, ten rounds, deterministic cuDNN: Morph over 4 seeds x
+    {ideal, wan} at round_s = 1 (E = 8), Morph with delta_r (2, 3, 5) and
+    no network (E = 3), Static over 4 seeds (E = 4, the general-W route);
+    each experiment bit for bit its solo ``Superstep`` run, with
+    ceil(E L / MAX_LEAVES) grouped mix launches a round and as many Gram
+    launches a refresh.  Returns the launches summed."""
+    import importlib
+    from repro_torch.kernels import pairwise_cosine as pc
+    gm = importlib.import_module("repro_torch.kernels.graph_mix")
+    L = len(GN_LENET_LEAVES)
+    mix = lambda E: -(-E * L // gm.MAX_LEAVES)
+    gram = lambda E: -(-E * L // pc.MAX_LEAVES)
+    totals = dict.fromkeys(launch_counts(), 0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        if not sweep_step_bits(dev):
+            raise AssertionError("14(a): the stacked local step is not "
+                                 "each experiment's own step bit for bit")
+        seeds = tuple(range(SWEEP_SEEDS))
+        cases = [
+            ("morph ideal/wan", sweep_fixture(
+                MAIN_N, dev, seeds * 2,
+                profiles=("ideal",) * SWEEP_SEEDS + ("wan",) * SWEEP_SEEDS),
+             {"graph_mix": mix(8), "gram_matrix": gram(8)}),
+            ("morph delta_r (2, 3, 5)", sweep_fixture(
+                MAIN_N, dev, (0, 1, 2), delta_rs=(2, 3, 5)),
+             {"graph_mix_masked": mix(3), "gram_matrix": gram(3)}),
+            ("static", sweep_fixture(MAIN_N, dev, seeds, name="static"),
+             {"graph_mix": mix(4)})]
+        for label, (sweep, solo), want in cases:
+            got = sweep_pin_case(dev, label, sweep, solo, want)
+            for k, v in got.items():
+                totals[k] += v
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return totals
+
+
+def per_row_mix(dev):
+    """Phase 14(b): the grouped mixes with one W (or E) a row over E
+    experiments' GN-LeNet leaves, against E one-W launches of the same
+    leaves, bit for bit, f32 and bf16, at n = 50 (small route), 200 and
+    1000 (tiled route); both timed by CUDA-graph replay.  (Phase 3 holds
+    the one-W launches to the plain version.)"""
+    from repro_torch.kernels import graph_mix_leaves, graph_mix_masked_leaves
+    out = {}
+    for n, E in SWEEP_MIX:
+        gen = torch.Generator(device=dev).manual_seed(n + E)
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = [tree_inputs(dev, gen, n, dtype) for _ in range(E)]
+            flat = [x for xs, _, _ in sets for x in xs]
+            ws = [w for _, w, _ in sets for _ in GN_LENET_LEAVES]
+            es = [e for _, _, e in sets for _ in GN_LENET_LEAVES]
+            L = len(GN_LENET_LEAVES)
+            rows = (graph_mix_leaves(ws, flat), graph_mix_masked_leaves(es,
+                                                                       flat))
+            for e, (xs, w, em) in enumerate(sets):
+                one = (graph_mix_leaves(w, xs), graph_mix_masked_leaves(em,
+                                                                        xs))
+                for i in range(L):
+                    if not (torch.equal(rows[0][e * L + i], one[0][i])
+                            and torch.equal(rows[1][e * L + i], one[1][i])):
+                        raise AssertionError(
+                            f"14(b) n={n} E={E} {dtype}: experiment {e} "
+                            f"leaf {i} is not its one-W launch's bits")
+            if dtype != torch.float32:
+                continue
+            per_exp = lambda fn, mats: [fn(m, xs) for m, (xs, _, _)
+                                        in zip(mats, sets)]
+            t = {}
+            for name, fn, mats, per_leaf in (
+                    ("graph_mix", graph_mix_leaves,
+                     [w for _, w, _ in sets], ws),
+                    ("graph_mix_masked", graph_mix_masked_leaves,
+                     [em for _, _, em in sets], es)):
+                t[name] = {
+                    "per_row_w_device_ms": device_ms(
+                        fn, [(per_leaf, flat)], reps=10),
+                    "per_experiment_device_ms": device_ms(
+                        lambda m: per_exp(fn, m), [(mats,)], reps=10)}
+            out[f"n{n}_E{E}"] = t
+            log(f"phase 14(b): n={n} E={E} GN-LeNet leaves, one W a row == "
+                f"E one-W launches bit for bit (f32, bf16); device ms "
+                f"(CUDA-graph replay, f32): {json.dumps(t)}")
+    return out
+
+
+class SweepStages:
+    """Host-clock time of a round's stages, each ending in a synchronise
+    (the ``stage`` hook of ``SweepSuperstep.round`` and
+    ``Superstep.net_round``)."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __call__(self, stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[stage] = self.ms.get(stage, 0.0) \
+            + (time.perf_counter() - t0) * 1e3
+        return out
+
+    def per_round(self, rounds):
+        out = {k: v / rounds for k, v in self.ms.items()}
+        out["total"] = sum(out.values())
+        return out
+
+
+def timed_stages(engines, rounds):
+    """``engines``' rounds 1 .. rounds (after an untimed round 0 each),
+    stage by stage, one engine after another; returns ``(stages a round,
+    peak device bytes)``."""
+    for eng in engines:
+        eng.net_round(0) if eng.net is not None else eng.round(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = SweepStages()
+    for eng in engines:
+        for rnd in range(1, rounds + 1):
+            if eng.net is not None:
+                eng.net_round(rnd, stages)
+            else:
+                eng.round(rnd, stages)
+    return stages.per_round(rounds), torch.cuda.max_memory_allocated()
+
+
+def sweep_breakdown(dev):
+    """Phase 14(c): where a sweep round's time goes, against E solo runs
+    of the same rounds: GN-LeNet at full width, n = 50, seeds x {ideal,
+    wan} at E = 8 and E = 32, and the tiny MLP at fig14's shape (n = 6,
+    16 seeds x {ideal, wan}); host clock around synchronised stages, peak
+    memory."""
+    import argparse
+    from repro_torch.bench import common, fig14
+    from repro_torch.dlrt import SweepSpec
+    from repro_torch.netsim import DenseNetwork
+    from repro_torch.netsim import profiles as prof
+    out = {}
+    for E in SWEEP_E:
+        half = E // 2
+        sweep, solo = sweep_fixture(MAIN_N, dev, tuple(range(half)) * 2,
+                                    profiles=("ideal",) * half
+                                    + ("wan",) * half)
+        eng = sweep()
+        swept, peak_sweep = timed_stages([eng], SWEEP_TIMED)
+        del eng
+        solos = [solo(e) for e in range(E)]
+        seq, peak_seq = timed_stages(solos, SWEEP_TIMED)
+        del solos
+        row = {"sweep_ms_per_round": swept, "seq_ms_per_round": seq,
+               "speedup": seq["total"] / swept["total"],
+               "peak_bytes_sweep": peak_sweep, "peak_bytes_seq": peak_seq}
+        out[f"gn_lenet_E{E}"] = row
+        log(f"phase 14(c): GN-LeNet full width n={MAIN_N} E={E} (seeds x "
+            f"ideal/wan, round_s 1), {SWEEP_TIMED} rounds: "
+            f"{json.dumps(row)}")
+    args = argparse.Namespace(nodes=6, rounds=24, eval_every=12, k=3,
+                              batch=4, chunk=1, sim_every=5, delta_r=5)
+    spec = SweepSpec.grid(seeds=range(16), profiles=["ideal", "wan"])
+    tr, parts, _, test = common.tiny_mlp_experiment(6, seed=0, batch=4)
+    test = {"images": test["images"][:32], "labels": test["labels"][:32]}
+    nets = [DenseNetwork(prof.get_profile(spec.profiles[e], 6,
+                                          spec.seeds[e]), round_s=1.0)
+            for e in range(len(spec))]
+    eng = fig14.build_sweep_engine("morph", spec, tr, parts, test, nets,
+                                   args, dev)
+    swept, peak_sweep = timed_stages([eng], SWEEP_TIMED)
+    solos = [fig14.build_single_engine("morph", spec, e, tr, parts, test,
+                                       nets, args, dev)
+             for e in range(len(spec))]
+    seq, peak_seq = timed_stages(solos, SWEEP_TIMED)
+    row = {"sweep_ms_per_round": swept, "seq_ms_per_round": seq,
+           "speedup": seq["total"] / swept["total"],
+           "peak_bytes_sweep": peak_sweep, "peak_bytes_seq": peak_seq}
+    out["tiny_mlp_E32"] = row
+    log(f"phase 14(c): tiny MLP n=6 E=32 (fig14's shape), {SWEEP_TIMED} "
+        f"rounds: {json.dumps(row)}")
+    return out
+
+
+def sweep_reference_check(dev):
+    """Phase 14(d): tiny sweeps (GN-LeNet width 4 on 8-pixel images, n = 6,
+    E = 3, ten rounds, batches keyed on the CPU) of Morph with and without
+    WAN on the card and on the CPU: identical edges (and delivered masks),
+    parameters within 1e-5."""
+    cpu = torch.device("cpu")
+    for profiles in (None, ("wan",) * 3):
+        runs = []
+        for d in (dev, cpu):
+            sweep, _ = sweep_fixture(6, d, (0, 1, 2), profiles=profiles,
+                                     tiny=True, host_slots=True)
+            eng = sweep()
+            eng.run_steps(SWEEP_ROUNDS)
+            runs.append(eng)
+        card, host = runs
+        for e in range(3):
+            hist = zip(card.edge_history[e] + card.delivered_history[e],
+                       host.edge_history[e] + host.delivered_history[e])
+            if not all(np.array_equal(a, b) for a, b in hist):
+                raise AssertionError(f"14(d) net={profiles}: card and CPU "
+                                     f"edges differ in experiment {e}")
+        err = max(float((card.params[k].cpu() - host.params[k]).abs().max())
+                  for k in host.params)
+        if not err <= HOST_CARD_TOL:
+            raise AssertionError(f"14(d) net={profiles}: card vs CPU params "
+                                 f"{err} > {HOST_CARD_TOL}")
+        log(f"phase 14(d): tiny morph sweep E=3 n=6 "
+            f"{'wan' if profiles else 'no network'}: card == CPU edges over "
+            f"{SWEEP_ROUNDS} rounds, params max |err| {err:.3g}")
+
+
+def fig14_script(dev):
+    """Phase 14(e): ``repro_torch.bench.fig14`` at its defaults (E = 32,
+    n = 6, 24 rounds, Morph, Static, EL-Oracle); the sweep bit for bit the
+    solo runs (``acceptance/bitwise_vs_singles`` = 1)."""
+    import os
+    from repro_torch.bench import fig14
+    saved = os.environ.get("BENCH_DIR")
+    os.environ["BENCH_DIR"] = ""            # records only, no file
+    try:
+        recs = {r["key"]: r for r in fig14.main(["--device", dev.type])}
+    finally:
+        if saved is None:
+            del os.environ["BENCH_DIR"]
+        else:
+            os.environ["BENCH_DIR"] = saved
+    if recs["acceptance/bitwise_vs_singles"]["value"] != 1:
+        raise AssertionError(f"14(e) fig14: sweep is not the solo runs "
+                             f"{recs['acceptance/bitwise_vs_singles']}")
+    keys = ("acceptance/bitwise_vs_singles", "acceptance/trajectories",
+            "sweep/morph_ms_per_round", "seq/morph_ms_per_round",
+            "derived/speedup", "acceptance/speedup_ge_5x",
+            "morph/agg_mean", "static/agg_mean", "el-oracle/agg_mean")
+    log(f"phase 14(e): fig14 at its defaults: "
+        f"{json.dumps({k: recs[k]['value'] for k in keys})}")
+
+
+def sweep_path(dev):
+    """Phase 14: (a) to (e); returns (a)'s launches and (b)'s times."""
+    totals = sweep_pin(dev)
+    for name in ("gram_matrix", "graph_mix", "graph_mix_masked"):
+        if totals[name] == 0:
+            raise AssertionError(f"phase 14: {name} never launched")
+    log(f"phase 14: launches over (a) {json.dumps(totals)}")
+    mixes = per_row_mix(dev)
+    sweep_breakdown(dev)
+    sweep_reference_check(dev)
+    fig14_script(dev)
+    return totals, mixes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3170,6 +3640,10 @@ def main():
     times["graph_mix"].update(rings)
     table1_counts, host_counts = host_loop_path(dev)
     async_counts = async_path(dev)
+    sweep_counts, sweep_mixes = sweep_path(dev)
+    for name in ("graph_mix", "graph_mix_masked"):
+        times[name]["sweep_per_row_w"] = {
+            k: v[name] for k, v in sweep_mixes.items()}
 
     sources = {"gram_matrix": ("src/repro_torch/kernels/csrc/"
                                "pairwise_cosine.cu",
@@ -3200,6 +3674,7 @@ def main():
             "launches_host_loop": host_counts[name],
             "launches_table1": table1_counts[name],
             "launches_async": async_counts[name],
+            "launches_sweep": sweep_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],
@@ -3216,7 +3691,8 @@ def main():
                                        "library_max_abs_err", "at_n50",
                                        "tree_n50", "at_n1000",
                                        "tree_n1000", "ring_n50",
-                                       "ring_n1000", "library",
+                                       "ring_n1000", "sweep_per_row_w",
+                                       "library",
                                        "bound_part", "bound_parts_ms",
                                        "kernel_issue_ms", "sass_per_element",
                                        "sm_clock_mhz")

@@ -26,6 +26,7 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 SCHEMA_VERSION = 1
@@ -100,3 +101,37 @@ def shape_dict(cfg, params, backend: str) -> Dict:
     return {"backend": backend, "n": n,
             "d": sum(v.numel() // n for v in params.values()),
             "devices": 1, "net": 0}
+
+
+def sweep_experiment_records(b: Bench, prefix: str, spec, logs,
+                             *, extra_fidelity=None) -> list:
+    """One sweep's per-experiment records and their aggregate — the port
+    of the reference's ``harness.sweep_experiment_records``.
+
+    ``spec`` is the :class:`repro_torch.dlrt.SweepSpec` and ``logs`` the
+    per-experiment :class:`~repro_torch.dlrt.MetricsLog` list a
+    ``SweepSuperstep.run`` returned.  Experiment ``i`` lands as
+    ``<prefix>/e<i>`` with its coordinates and its last record's fidelity
+    (``extra_fidelity(e)`` may add columns), the spread as
+    ``<prefix>/agg_mean`` and ``<prefix>/agg_std``.  Returns the final
+    accuracies."""
+    accs = []
+    for e, log in enumerate(logs):
+        rec = log.records[-1]
+        fid = {"accuracy": rec.mean_accuracy, "loss": rec.mean_loss,
+               "internode_variance": rec.internode_variance,
+               "comm_bytes": rec.comm_bytes, **spec.describe(e)}
+        if extra_fidelity is not None:
+            fid.update(extra_fidelity(e))
+        b.record(f"{prefix}/e{e}", f"{rec.mean_accuracy:.4f}",
+                 fidelity=fid, print_csv=False)
+        accs.append(rec.mean_accuracy)
+    arr = np.asarray(accs, np.float64)
+    b.record(f"{prefix}/agg_mean", f"{arr.mean():.4f}",
+             fidelity={"accuracy_mean": float(arr.mean()),
+                       "experiments": len(logs)})
+    b.record(f"{prefix}/agg_std", f"{arr.std():.4f}",
+             fidelity={"accuracy_std": float(arr.std()),
+                       "accuracy_min": float(arr.min()),
+                       "accuracy_max": float(arr.max())})
+    return accs

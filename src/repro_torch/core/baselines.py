@@ -29,6 +29,16 @@ Each strategy that draws takes its draw as an optional keyword of
 ``round_edges`` adapters drive the same ``graph_round`` one round at a
 time and keep the state as the engine does, so the host loop gives the
 engine's trajectory.
+
+The sweep engine (:class:`repro_torch.dlrt.SweepSuperstep`) runs E
+experiments, each with its own strategy object of one class, through
+experiment 0's object: ``sweep_graph_state(strategies)`` stacks the
+experiments' states on a leading ``[E]`` axis (a fixed graph, the Morph
+state, a seed), and ``stacked_graph_round(gstate, rnd, sim)`` returns
+``(gstate, edges [E, n, n], W [E, n, n] or None)``, each experiment's its
+own strategy's solo ``graph_round`` would, bit for bit.  Morph also has
+``sweep_graph_round(gstate, rnd, sim, delta_r=None, beta=None)``, the
+per-experiment hyperparameter axes; without them it is ``graph_round``.
 """
 from __future__ import annotations
 
@@ -41,7 +51,8 @@ import torch
 from .. import fold_seed, resolve_device
 from ..kernels import ops
 from . import mixing, topology
-from .morph import MorphNoise, init_state, update_topology
+from .morph import (MorphGraphState, MorphNoise, init_state, stack_states,
+                    update_topology)
 from .selection import NEG_INF, gumbel, scatter_or, stable_topk
 
 
@@ -49,6 +60,30 @@ def _host_round(edges: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
     """A uniform strategy's ``(edges, W)`` as host arrays."""
     e = edges.cpu().numpy()
     return e, mixing.uniform_weights(e)
+
+
+def _same_shape(strategies, *attrs) -> None:
+    """A sweep's strategies share the attributes that fix its shapes."""
+    first = strategies[0]
+    for e, st in enumerate(strategies):
+        for a in attrs:
+            if getattr(st, a) != getattr(first, a):
+                raise ValueError(
+                    f"experiment {e}: {a}={getattr(st, a)!r} but "
+                    f"experiment 0 has {getattr(first, a)!r} (one shape "
+                    "for the whole sweep)")
+
+
+def _gumbel_stack(seeds, rnd: int, n: int, gen: torch.Generator,
+                  device) -> torch.Tensor:
+    """``[E, n, n]`` Gumbel scores, experiment ``e``'s from a generator
+    seeded ``fold_seed(seeds[e], rnd)`` as its solo draw, moved to
+    ``device`` in one copy."""
+    draws = []
+    for seed in seeds:
+        gen.manual_seed(fold_seed(seed, rnd))
+        draws.append(gumbel((n, n), gen, "cpu"))
+    return torch.stack(draws).to(device)
 
 
 class InGraphMorphStrategy:
@@ -91,12 +126,67 @@ class InGraphMorphStrategy:
                     noise: Optional[MorphNoise] = None):
         """Negotiate on round ``rnd % delta_r == 0`` (with ``noise`` as the
         draws when given), else reuse the held edges."""
-        if rnd % self.delta_r != 0:
+        return self.sweep_graph_round(gstate, rnd, sim, noise=noise)
+
+    def sweep_graph_state(self, strategies) -> MorphGraphState:
+        """The experiments' states (``strategies``, this one first)
+        stacked, each keeping its own generator."""
+        _same_shape(strategies, "n", "k", "view_size")
+        return stack_states([st.init_graph_state() for st in strategies])
+
+    def stacked_graph_round(self, gstate, rnd: int, sim: torch.Tensor,
+                            noise: Optional[MorphNoise] = None):
+        """:meth:`sweep_graph_round` without hyperparameter axes."""
+        return self.sweep_graph_round(gstate, rnd, sim, noise=noise)
+
+    def sweep_graph_round(self, gstate, rnd: int, sim: torch.Tensor,
+                          delta_r=None, beta=None,
+                          noise: Optional[MorphNoise] = None):
+        """:meth:`graph_round` with hyperparameter overrides (the
+        reference's ``sweep_graph_round``): ``delta_r`` replaces the
+        negotiation cadence and ``beta`` the selection's inverse
+        temperature; with both ``None`` this is :meth:`graph_round`.
+
+        On a stacked state (:meth:`sweep_graph_state`, ``sim [E, n, n]``)
+        ``delta_r`` and ``beta`` are one value an experiment; only the
+        experiments whose cadence is due negotiate (together, each with
+        its own generator, which advances only then; ``noise`` stacks the
+        draws of those experiments, in experiment order), the others keep
+        their edges.  ``k`` and ``view_size`` are experiment 0's."""
+        k, view = min(self.k, self.n - 1), min(self.view_size, self.n - 1)
+        if gstate.known.dim() == 2:
+            dr = self.delta_r if delta_r is None else int(delta_r)
+            if rnd % dr != 0:
+                return gstate, gstate.edges, None
+            new_state = update_topology(
+                gstate, sim, k=k, view_size=view,
+                beta=self.beta if beta is None else float(beta),
+                noise=noise)
+            return new_state, new_state.edges, None
+        E = gstate.known.shape[0]
+        drs = [self.delta_r] * E if delta_r is None \
+            else [int(d) for d in delta_r]
+        due = [e for e in range(E) if rnd % drs[e] == 0]
+        if not due:
             return gstate, gstate.edges, None
-        new_state = update_topology(
-            gstate, sim, k=min(self.k, self.n - 1),
-            view_size=min(self.view_size, self.n - 1), beta=self.beta,
-            noise=noise)
+        b = self.beta if beta is None else torch.as_tensor(
+            np.asarray(beta, np.float32)[due])
+        if len(due) == E:
+            new_state = update_topology(gstate, sim, k=k, view_size=view,
+                                        beta=b, noise=noise)
+            return new_state, new_state.edges, None
+        idx = torch.as_tensor(due, device=gstate.known.device)
+        sub = MorphGraphState(*(t[idx] for t in gstate[:4]),
+                              generator=tuple(gstate.generator[e]
+                                              for e in due))
+        new_sub = update_topology(sub, sim[idx], k=k, view_size=view,
+                                  beta=b, noise=noise)
+        merged = []
+        for old_t, new_t in zip(gstate[:4], new_sub[:4]):
+            t = old_t.clone()
+            t[idx] = new_t
+            merged.append(t)
+        new_state = MorphGraphState(*merged, generator=gstate.generator)
         return new_state, new_state.edges, None
 
     def round_edges(self, rnd: int, stacked_params=None):
@@ -140,6 +230,17 @@ class InGraphStaticStrategy:
         """The fixed ``(edges, W)``."""
         return gstate, self._edges, self._w
 
+    def sweep_graph_state(self, strategies):
+        """Each experiment's own fixed graph and weights, stacked: ``(edges
+        [E, n, n], W [E, n, n])``."""
+        _same_shape(strategies, "n")
+        return (torch.stack([st._edges for st in strategies]),
+                torch.stack([st._w for st in strategies]))
+
+    def stacked_graph_round(self, gstate, rnd: int, sim):
+        """Every experiment's fixed ``(edges, W)``."""
+        return gstate, gstate[0], gstate[1]
+
     def round_edges(self, rnd: int, stacked_params=None):
         """Host adapter: the fixed graph and MH weights (f64)."""
         return self._host.round_edges(rnd)
@@ -169,6 +270,18 @@ class InGraphFullyConnectedStrategy:
     def graph_round(self, gstate, rnd: int, sim):
         """The complete graph and ``1/n`` weights."""
         return gstate, self._edges, self._w
+
+    def sweep_graph_state(self, strategies):
+        """``(edges [E, n, n], W [E, n, n])``: the complete graph and
+        ``1/n`` weights once an experiment."""
+        _same_shape(strategies, "n")
+        E = len(strategies)
+        return (self._edges.expand(E, -1, -1).contiguous(),
+                self._w.expand(E, -1, -1).contiguous())
+
+    def stacked_graph_round(self, gstate, rnd: int, sim):
+        """Every experiment's complete graph and ``1/n`` weights."""
+        return gstate, gstate[0], gstate[1]
 
     def round_edges(self, rnd: int, stacked_params=None):
         """Host adapter: the complete graph and ``1/n`` weights (f64)."""
@@ -208,6 +321,22 @@ class InGraphEpidemicStrategy:
         out = scatter_or(idx, torch.ones_like(idx, dtype=torch.bool), n)
         edges = out.T.contiguous()          # edges[i, j]: j sends to i
         return gstate, edges, None
+
+    def sweep_graph_state(self, strategies):
+        """The experiments' seeds, each keying its own draws."""
+        _same_shape(strategies, "n", "k")
+        return tuple(st.seed for st in strategies)
+
+    def stacked_graph_round(self, gstate, rnd: int, sim,
+                            noise: Optional[torch.Tensor] = None):
+        """:meth:`graph_round` for every experiment: ``noise [E, n, n]``,
+        or experiment ``e``'s draw keyed ``fold_seed(gstate[e], rnd)``."""
+        n, k = self.n, min(self.k, self.n - 1)
+        if noise is None:
+            noise = _gumbel_stack(gstate, rnd, n, self._gen, self.device)
+        _, idx = stable_topk(torch.where(~self._eye, noise, NEG_INF), k)
+        out = scatter_or(idx, torch.ones_like(idx, dtype=torch.bool), n)
+        return gstate, out.transpose(-1, -2).contiguous(), None
 
     def round_edges(self, rnd: int, stacked_params=None):
         """Host adapter over :meth:`graph_round` (the engine's edges for
@@ -280,6 +409,27 @@ class InGraphEpidemicLocalStrategy:
         out = scatter_or(idx, pool.gather(-1, idx), n)
         edges = out.T.contiguous()          # edges[i, j]: j sends to i
         return gstate | edges, edges, None
+
+    def sweep_graph_state(self, strategies):
+        """``(views [E, n, n], seeds)``: each experiment's bootstrap view
+        and the seed keying its draws."""
+        _same_shape(strategies, "n", "k")
+        return (torch.stack([st.init_graph_state() for st in strategies]),
+                tuple(st.seed for st in strategies))
+
+    def stacked_graph_round(self, gstate, rnd: int, sim,
+                            noise: Optional[torch.Tensor] = None):
+        """:meth:`graph_round` for every experiment, each over its own
+        view (``noise [E, n, n]`` or each experiment's keyed draw)."""
+        views, seeds = gstate
+        n, k = self.n, min(self.k, self.n - 1)
+        if noise is None:
+            noise = _gumbel_stack(seeds, rnd, n, self._gen, self.device)
+        pool = views & ~self._eye
+        _, idx = stable_topk(torch.where(pool, noise, NEG_INF), k)
+        out = scatter_or(idx, pool.gather(-1, idx), n)
+        edges = out.transpose(-1, -2).contiguous()
+        return (views | edges, seeds), edges, None
 
     def round_edges(self, rnd: int, stacked_params=None):
         """Host adapter: :meth:`graph_round` carrying the evolving view

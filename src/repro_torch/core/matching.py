@@ -14,6 +14,12 @@ in blocks with one host check per block: a sweep at the fixpoint changes
 nothing, so the extra sweeps of the last block leave the edges exactly as
 the reference's loop does.  The sweep count never exceeds the
 reference's bound.
+
+:func:`match_dense` and :func:`masked_topk` also take leading batch
+dimensions (a sweep's experiments): every experiment sweeps in the same
+blocks, and one host check a block asks whether any of them changed.  An
+experiment at its fixpoint is left exactly as it is by the extra sweeps,
+so each one ends with the edges of its own call.
 """
 from __future__ import annotations
 
@@ -80,7 +86,8 @@ def deferred_acceptance(prefs: Sequence[Sequence[int]],
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int,
                 quota: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Boolean mask of each row's best ``k`` masked entries, ties to the
-    lower index; a per-row ``quota`` ``[rows, 1]`` may lower ``k``."""
+    lower index; a per-row ``quota`` ``[..., rows, 1]`` may lower ``k``.
+    Leading dimensions are batch dimensions."""
     _, idx = stable_topk(torch.where(mask, scores, NEG_INF), k)
     ok = mask.gather(-1, idx)                       # real candidates only
     if quota is not None:
@@ -98,8 +105,10 @@ def match_dense(recv_scores: torch.Tensor, send_scores: torch.Tensor,
     proposes earlier); ``send_scores[j, i]``: sender j's preference for
     receiver i; ``candidate_mask[i, j]``: i may contact j at all.
     ``rounds`` bounds the sweeps (default ``n * k_out``, the reference's
-    fixpoint bound)."""
-    n = recv_scores.shape[0]
+    fixpoint bound).  Leading dimensions of the three ``[..., n, n]``
+    inputs are independent problems, matched together (the module
+    docstring)."""
+    n = recv_scores.shape[-1]
     if rounds is None:
         rounds = n * max(k_out, 1)
     eye = torch.eye(n, dtype=torch.bool, device=candidate_mask.device)
@@ -107,13 +116,14 @@ def match_dense(recv_scores: torch.Tensor, send_scores: torch.Tensor,
 
     def sweep(accepted, rejected):
         avail = cand & ~accepted & ~rejected
-        need = k_in - accepted.sum(dim=1, keepdim=True)
+        need = k_in - accepted.sum(dim=-1, keepdim=True)
         proposals = masked_topk(recv_scores, avail, k_in, quota=need)
         pool = accepted | proposals                 # [recv, send]
-        new_accepted = masked_topk(send_scores, pool.T, k_out).T
+        new_accepted = masked_topk(send_scores, pool.transpose(-1, -2),
+                                   k_out).transpose(-1, -2)
         return new_accepted, rejected | (pool & ~new_accepted)
 
-    accepted = torch.zeros((n, n), dtype=torch.bool, device=cand.device)
+    accepted = torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
     rejected = torch.zeros_like(accepted)
     done = 0
     while done < rounds:

@@ -31,11 +31,12 @@ def uniform_weights(edges: np.ndarray) -> np.ndarray:
 
 def uniform_weights_torch(edges: torch.Tensor) -> torch.Tensor:
     """:func:`uniform_weights` on a bool tensor, in f32 (the reference's
-    ``uniform_weights_jax``)."""
-    n = edges.shape[0]
+    ``uniform_weights_jax``); leading dimensions are batch dimensions (the
+    row sums count 0/1 entries, exact in any order)."""
+    n = edges.shape[-1]
     w = edges.float() + torch.eye(n, dtype=torch.float32,
                                   device=edges.device)
-    return w / w.sum(dim=1, keepdim=True)
+    return w / w.sum(dim=-1, keepdim=True)
 
 
 def metropolis_hastings_weights(adj: np.ndarray) -> np.ndarray:

@@ -13,10 +13,19 @@ reference's ``jax.random`` draws); otherwise they come from the state's
 CPU ``torch.Generator``, which therefore advances only on negotiation
 rounds, as the reference's key does.  Drawing on the host keeps a run's
 graph sequence the same on any device.
+
+A sweep's experiments negotiate together: :func:`update_topology` also
+takes a state whose tensors carry a leading ``[E]`` axis and whose
+``generator`` is a tuple of E generators (:func:`stack_states`), with a
+``[E]`` axis on ``sim``, ``beta`` and ``noise``.  Each experiment gets the
+bits of its own call: the operations are elementwise, sorts, or exact sums
+of 0/1 counts, and the one product that sums real numbers (Eq. 4's
+numerator) runs per experiment, as a batched product may add in another
+order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -28,16 +37,19 @@ TIE_NOISE = 1e-4
 
 
 class MorphGraphState(NamedTuple):
-    """Controller state (leading axis = node where ``[n, ...]``)."""
+    """Controller state (leading axis = node where ``[n, ...]``; a sweep's
+    stacked state has ``[E, n, n]`` tensors and a tuple of E
+    generators)."""
     known: torch.Tensor          # [n, n] bool — partial views P_i
     sim: torch.Tensor            # [n, n] f32 — latest similarity estimates
     sim_valid: torch.Tensor      # [n, n] bool — usable estimates (C_A)
     edges: torch.Tensor          # [n, n] bool — current in-edge matrix
-    generator: torch.Generator   # CPU generator for the draws
+    generator: Union[torch.Generator, tuple]   # CPU generator(s), draws
 
 
 class MorphNoise(NamedTuple):
-    """The draws of one negotiation, each ``[n, n]`` f32 on the device."""
+    """The draws of one negotiation, each ``[n, n]`` f32 on the device
+    (``[E, n, n]`` for a sweep's experiments)."""
     select: torch.Tensor         # Gumbel, row i = node i's Eq.-5 picks
     inject: torch.Tensor         # Gumbel, row i = node i's random peers
     tie_recv: torch.Tensor       # U[0, 1e-4), receiver preference ties
@@ -67,16 +79,49 @@ def draw_noise(generator: torch.Generator, n: int, device) -> MorphNoise:
     return MorphNoise(sel, inj, ties[0], ties[1])
 
 
+def stack_noise(draws: Sequence[MorphNoise]) -> MorphNoise:
+    """Experiments' draws stacked on a leading ``[E]`` axis."""
+    return MorphNoise(*(torch.stack(field) for field in zip(*draws)))
+
+
+def stack_states(states: Sequence[MorphGraphState]) -> MorphGraphState:
+    """Experiments' states stacked on a leading ``[E]`` axis; the
+    generators stay each experiment's own (a tuple)."""
+    return MorphGraphState(
+        *(torch.stack(field) for field in list(zip(*states))[:4]),
+        generator=tuple(st.generator for st in states))
+
+
+def _eq4_numerator(sim: torch.Tensor, inf_mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """``sum_y sim[i, y] inf_mask[i, y, z] sim[y, z]``, one product per
+    experiment where there is an experiment axis (the solo call's own
+    product, so its summation order)."""
+    if sim.dim() == 2:
+        return torch.einsum("iy,iyz,yz->iz", sim, inf_mask, sim)
+    return torch.stack([_eq4_numerator(s, m) for s, m in zip(sim, inf_mask)])
+
+
 def update_topology(state: MorphGraphState, sim: torch.Tensor, k: int,
-                    view_size: int, beta: float,
+                    view_size: int, beta,
                     noise: Optional[MorphNoise] = None) -> MorphGraphState:
     """One Δ_r negotiation on the ``[n, n]`` Eq.-3 matrix ``sim``: returns
     the new state, whose ``edges`` (in-degree and out-degree <= ``k``) the
-    round mixes over uniformly (:func:`~.mixing.uniform_weights_torch`)."""
-    n = state.known.shape[0]
+    round mixes over uniformly (:func:`~.mixing.uniform_weights_torch`).
+
+    A stacked state (:func:`stack_states`) negotiates E experiments at
+    once: ``sim`` is ``[E, n, n]``, ``beta`` a number or one an experiment
+    (``[E]``), ``noise`` stacked (:func:`stack_noise`) or drawn from each
+    experiment's generator; experiment ``e`` gets its own call's bits."""
+    n = state.known.shape[-1]
     dev = state.known.device
+    batched = state.known.dim() == 3
     if noise is None:
-        noise = draw_noise(state.generator, n, dev)
+        noise = stack_noise([draw_noise(g, n, dev)
+                             for g in state.generator]) \
+            if batched else draw_noise(state.generator, n, dev)
+    if batched and isinstance(beta, torch.Tensor):
+        beta = beta.to(device=dev, dtype=torch.float32)[:, None, None]
     eye = torch.eye(n, dtype=torch.bool, device=dev)
 
     # Measurements: a node evaluates Eq. 3 on every model it receives.
@@ -85,9 +130,10 @@ def update_topology(state: MorphGraphState, sim: torch.Tensor, k: int,
     sim_valid = state.sim_valid | state.edges
 
     # Transitive estimates (Eq. 4) through shared informants y.
-    inf_mask = (sim_valid[:, :, None] & sim_valid.T[None, :, :]).float()
-    est_num = torch.einsum("iy,iyz,yz->iz", sim, inf_mask, sim)
-    est_cnt = inf_mask.sum(dim=1)
+    inf_mask = (sim_valid[..., :, :, None]
+                & sim_valid.transpose(-1, -2)[..., None, :, :]).float()
+    est_num = _eq4_numerator(sim, inf_mask)
+    est_cnt = inf_mask.sum(dim=-2)
     est = est_num / est_cnt.clamp_min(1.0)
     sim = torch.where(sim_valid, sim, est)
     sim_valid = sim_valid | (est_cnt > 0)
@@ -110,7 +156,7 @@ def update_topology(state: MorphGraphState, sim: torch.Tensor, k: int,
                  + torch.where(want, 2.0, 0.0)
                  + torch.where(fallback, -4.0, 0.0)
                  + noise.tie_recv)
-    send_pref = recv_pref.T + noise.tie_send
+    send_pref = recv_pref.transpose(-1, -2) + noise.tie_send
     edges = match_dense(recv_pref, send_pref, want | fallback, k, k)
 
     # Every matched edge delivers a model: a direct measurement.

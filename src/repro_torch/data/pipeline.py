@@ -3,7 +3,9 @@
 :class:`NodeBatcher` / :class:`StackedBatcher` are bit-for-bit numpy copies
 of ``repro.data.pipeline``'s host batchers.  :class:`DeviceDataStream`
 keeps the dataset and the ``[n, S]`` shard-index table on the device and
-draws every round's ``[n, b, ...]`` batch there, with no host transfer.
+draws every round's ``[n, b, ...]`` batch there, with no host transfer;
+:func:`stack_streams` stacks a sweep's per-experiment tables over one
+shared dataset.
 """
 from __future__ import annotations
 
@@ -94,18 +96,69 @@ class DeviceDataStream:
         self.n = len(parts)
         self._gen = torch.Generator(device=self.device)
 
+    def slots(self, rnd: int) -> torch.Tensor:
+        """Round ``rnd``'s ``[n, b]`` int64 slot positions inside each
+        node's shard (``0 <= slot < size``), from the generator keyed
+        ``fold_seed(seed, rnd)``."""
+        self._gen.manual_seed(fold_seed(self.seed, rnd))
+        u = torch.rand((self.n, self.batch), generator=self._gen,
+                       device=self.device)
+        take = (u * self.sizes[:, None]).long()
+        return torch.minimum(take, self.sizes[:, None] - 1)
+
     def draw(self, rnd: int, take: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         """Round ``rnd``'s ``[n, b, ...]`` batch.  ``take [n, b]`` (slot
         positions inside each node's shard, ``0 <= take < size``) replaces
-        the generator's draw."""
+        the generator's draw (:meth:`slots`)."""
         if take is None:
-            self._gen.manual_seed(fold_seed(self.seed, rnd))
-            u = torch.rand((self.n, self.batch), generator=self._gen,
-                           device=self.device)
-            take = (u * self.sizes[:, None]).long()
-            take = torch.minimum(take, self.sizes[:, None] - 1)
+            take = self.slots(rnd)
         else:
             take = torch.as_tensor(take, device=self.device).long()
         sel = self.index.gather(1, take)                         # [n, b]
         return {k: v[sel] for k, v in self.data.items()}
+
+
+def stack_streams(streams: Sequence[DeviceDataStream]):
+    """Stack per-experiment :class:`DeviceDataStream` index tables over one
+    shared dataset for the sweep engine — the port of
+    ``repro.data.pipeline.stack_streams``, with its checks and errors.
+
+    All streams must draw the same batch size from the same dataset (the
+    sweep keeps it on the device once; only the ``[n, S]`` tables are per
+    experiment).  Shorter tables are wrap-padded on their ``S`` axis up to
+    the widest stream's; padding past ``sizes`` is never indexed, so every
+    experiment's draws keep their bits.
+
+    Returns ``(data, index [E, n, S_max] int64, sizes [E, n] int64,
+    seeds [E] int64, batch)``, the tensors on experiment 0's device."""
+    streams = list(streams)
+    if not streams:
+        raise ValueError("stack_streams needs at least one stream")
+    first = streams[0]
+    for e, st in enumerate(streams):
+        if st.batch != first.batch:
+            raise ValueError(f"experiment {e}: batch {st.batch} != "
+                             f"{first.batch} (one vmapped draw shape)")
+        if st.n != first.n:
+            raise ValueError(f"experiment {e}: covers {st.n} nodes, "
+                             f"experiment 0 covers {first.n}")
+        same = set(st.data) == set(first.data) and all(
+            st.data[k].shape == first.data[k].shape
+            and torch.equal(st.data[k].to(first.device), first.data[k])
+            for k in first.data)
+        if not same:
+            raise ValueError(f"experiment {e}: dataset differs from "
+                             "experiment 0 — the sweep shares one "
+                             "device-resident dataset; vary the "
+                             "partition (index tables), not the data")
+    s_max = max(st.index.shape[1] for st in streams)
+    index = torch.stack([
+        torch.as_tensor(np.pad(st.index.cpu().numpy(),
+                               ((0, 0), (0, s_max - st.index.shape[1])),
+                               mode="wrap")) for st in streams])
+    sizes = torch.stack([st.sizes.cpu() for st in streams])
+    seeds = torch.as_tensor([st.seed for st in streams], dtype=torch.int64)
+    dev = first.device
+    return (first.data, index.to(dev), sizes.to(dev), seeds.to(dev),
+            first.batch)

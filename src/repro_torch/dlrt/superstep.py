@@ -113,25 +113,29 @@ def net_effective(edges: torch.Tensor, w: Optional[torch.Tensor],
     staleness-expanded weights, stale_counts [S] int32)``.  Receivers that
     are down or do not step keep their own model; uniform strategies
     average over what arrived, fixed-W ones fold the lost mass into
-    self-weight."""
-    n = edges.shape[0]
+    self-weight.  A leading ``[E]`` axis on every input (a sweep's
+    experiments) gives each experiment its own plan, bit for bit: the one
+    sum of real numbers (the lost mass) runs per experiment."""
+    n = edges.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=edges.device)
     active = up & step                   # receivers that mix
-    delivered = edges & ~drop & up[None, :] & active[:, None]
+    delivered = edges & ~drop & up[..., None, :] & active[..., :, None]
     if uniform:
         w_eff = uniform_weights_torch(delivered)
     else:
         support = delivered | eye
         w32 = w.float()
         kept = w32 * support
-        lost = (w32 * ~support).sum(dim=1)
-        w_eff = kept + torch.diag(lost)
-    w_eff = torch.where(active[:, None], w_eff, eye.float())
+        lost_terms = w32 * ~support
+        lost = lost_terms.sum(dim=1) if lost_terms.dim() == 2 else \
+            torch.stack([t.sum(dim=1) for t in lost_terms])
+        w_eff = kept + torch.diag_embed(lost)
+    w_eff = torch.where(active[..., :, None], w_eff, eye.float())
     d_idx = torch.where(eye, torch.zeros_like(stal), stal)
-    onehot = d_idx[:, :, None] == torch.arange(
-        S, dtype=d_idx.dtype, device=edges.device)[None, None, :]
-    w_stal = w_eff[:, :, None] * onehot
-    stale_counts = (onehot & delivered[:, :, None]).sum(dim=(0, 1)) \
+    onehot = d_idx[..., None] == torch.arange(
+        S, dtype=d_idx.dtype, device=edges.device)
+    w_stal = w_eff[..., None] * onehot
+    stale_counts = (onehot & delivered[..., None]).sum(dim=(-3, -2)) \
         .to(torch.int32)
     return delivered, d_idx, w_stal, stale_counts
 
@@ -154,12 +158,18 @@ def net_observed(rnd: int, lhist: torch.Tensor, d_idx: torch.Tensor,
                  delivered: torch.Tensor) -> torch.Tensor:
     """Sum over delivered edges of the content staleness: this round minus
     the sender's last completed step as of the snapshot each edge delivers
-    from (int32 scalar)."""
-    n = d_idx.shape[0]
+    from (int32 scalar; ``[E]`` with a leading experiment axis on every
+    input)."""
+    n = d_idx.shape[-1]
     sender = torch.arange(n, device=d_idx.device)[None, :].expand(n, n)
-    obs = rnd - lhist[sender, d_idx.long()]
-    return torch.where(delivered, obs, torch.zeros_like(obs)).sum() \
-        .to(torch.int32)
+    if d_idx.dim() == 2:
+        seen = lhist[sender, d_idx.long()]
+    else:
+        exp = torch.arange(d_idx.shape[0], device=d_idx.device)
+        seen = lhist[exp[:, None, None], sender, d_idx.long()]
+    obs = rnd - seen
+    return torch.where(delivered, obs, torch.zeros_like(obs)) \
+        .sum(dim=(-2, -1)).to(torch.int32)
 
 
 class Superstep:
@@ -446,6 +456,17 @@ class Superstep:
         dense[t_i, r_i, idx_np[t_i, r_i, s_i]] = True
         self.edge_history.extend(dense)
         return dense
+
+    def run_steps(self, rounds: int, chunk: Optional[int] = None) -> None:
+        """Throughput mode (the reference's ``run_steps``): rounds ``0 ..
+        rounds - 1`` from the current state in chunks of ``chunk`` (all at
+        once by default), no evaluation."""
+        chunk = chunk or rounds
+        start = 0
+        while start < rounds:
+            end = min(start + chunk, rounds) - 1
+            self._run_chunk(start, end)
+            start = end + 1
 
     def evaluate(self, rnd: int, edges: np.ndarray) -> RoundRecord:
         """Evaluate every node after round ``rnd`` and log the record."""

@@ -97,6 +97,16 @@
 // about two thirds of the peak rate (the barrier a chunk and the copies'
 // address work are the likely losses); the masked variant adds E's loads,
 // the conversion and a few register spills.
+// One W a row (a sweep's experiments in one launch).  Each table row names
+// its leaf's own W (or E); a solo call names the same one on every row.
+// The small route builds w_t from its first tile's W and builds it again,
+// from device memory, when a tile belongs to another W; the tiled route
+// reads each item's W where it reads W anyway.  The arithmetic of every
+// output is unchanged, so each leaf keeps the bits of a call of its own.
+// What it costs (chip_smoke.py phase 14(b), PERF.md): at n = 50 a block
+// changes W about every third tile, and the rebuilds make one launch over
+// 8 experiments' GN-LeNet leaves some 25% slower than 8 one-W launches;
+// past 128 nodes it is within 5% of them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,11 +151,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4],
   for (int c = 0; c < 4 && c < left; ++c) store(p + c, v[c]);
 }
 
-// One leaf of a grouped call: X [n, d], Y [m, d], the number of its first
-// item among all the call's items (64-column tiles on the small route,
-// 128 x 128 tiles on the tiled one), and whether X's and Y's rows all
-// start 16-byte aligned.
+// One leaf of a grouped call: its W [m, n] f32 (or E [n, n] bool), X
+// [n, d], Y [m, d], the number of its first item among all the call's
+// items (64-column tiles on the small route, 128 x 128 tiles on the tiled
+// one), and whether X's and Y's rows all start 16-byte aligned.  Each leaf
+// names its own W, so one launch mixes the leaves of several experiments,
+// each with its experiment's W; a solo call names the same W on every row.
 struct MixLeaf {
+  const void* w;
   const void* x;
   void* y;
   long long d;
@@ -189,6 +202,13 @@ __device__ __forceinline__ void load_tile(const MixLeaf& lf, long long c0,
   }
 }
 
+// The leaf of a grouped call that item `item` belongs to.
+__device__ __forceinline__ int leaf_of(const MixTable& table, long long item) {
+  int l = 0;
+  while (l + 1 < table.count && table.leaf[l + 1].item0 <= item) ++l;
+  return l;
+}
+
 // The small route.  A block of 16 kTy threads owns 8 kTy output rows x 64
 // columns of a tile: thread (ty, tx) the rows kUsed ty .. kUsed ty +
 // kUsed - 1 (kUsed is 8, or 7 where 7 rows a thread cover m) and the
@@ -200,12 +220,15 @@ __device__ __forceinline__ void load_tile(const MixLeaf& lf, long long c0,
 // tiles of its own and then takes tiles in turn from sched[0] (one
 // atomicAdd each, two tiles ahead), so no SM idles while another has
 // tiles queued; the last block to finish sets sched[0] and sched[1] back
-// to 0.  A tile's outputs do not depend on which block takes it.
+// to 0.  A tile's outputs do not depend on which block takes it.  A block
+// builds w_t from its first tile's W (staged in shared memory where
+// `w_fits` and that W is 16-byte aligned) and builds it again, from device
+// memory, whenever a tile's leaf names another W; the build is the same
+// arithmetic either way, so each leaf gets the bits of a call of its own.
 template <typename T, bool kMasked, int kTy, int kUsed>
 __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
-    mix_kernel(const void* __restrict__ wsrc, int w_staged,
-               const __grid_constant__ MixTable table, int m, int n,
-               int* __restrict__ sched) {
+    mix_kernel(int w_fits, const __grid_constant__ MixTable table, int m,
+               int n, int* __restrict__ sched) {
   constexpr int kBlock = 16 * kTy;
   constexpr int kTx = kItemCols / 4;  // threads along a tile's columns
   constexpr int kR = 8;              // rows per thread in w_t
@@ -231,11 +254,13 @@ __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
     tiles[0] = blockIdx.x;
     tiles[1] = blockIdx.x + gridDim.x;
   }
-  // W (or E) is copied whole into the second slot when it fits there
-  // (w_staged), ahead of the first tile, which then loads while W is
-  // built; it is read from device memory otherwise.
-  const unsigned char* wbytes = static_cast<const unsigned char*>(wsrc);
-  if (w_staged) {
+  // The first tile's W (or E) is copied whole into the second slot when it
+  // fits there and is aligned, ahead of the first tile, which then loads
+  // while W is built; it is read from device memory otherwise.  (A launch
+  // never has more blocks than tiles.)
+  const void* w_cur = table.leaf[leaf_of(table, blockIdx.x)].w;
+  const unsigned char* wbytes = static_cast<const unsigned char*>(w_cur);
+  if (w_fits && reinterpret_cast<uintptr_t>(w_cur) % 16 == 0) {
     const int bytes = m * n * (kMasked ? 1 : 4);
     unsigned char* stage = reinterpret_cast<unsigned char*>(ring + slot);
     for (int c = threadIdx.x; c * 16 < bytes; c += kBlock) {
@@ -246,9 +271,7 @@ __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
   }
   async_copy::commit();
   auto issue = [&](long long item, int k) {
-    int l = 0;
-    while (l + 1 < table.count && table.leaf[l + 1].item0 <= item) ++l;
-    const MixLeaf& lf = table.leaf[l];
+    const MixLeaf& lf = table.leaf[leaf_of(table, item)];
     load_tile<T, kBlock>(lf, (item - lf.item0) * kItemCols, n, threadIdx.x,
                          ring + (k % 2) * slot);
   };
@@ -261,28 +284,31 @@ __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
   // (E + I) times the reciprocal of each row's sum: for entries 0, 1 and 2
   // that is the IEEE quotient (E + I) / rowsum exactly, with one division
   // per row; the row sums are small integers, exact in any order (m == n).
-  auto w_at = [&](int i, int j) {
-    return kMasked ? (wbytes[i * n + j] ? 1.f : 0.f) + (i == j ? 1.f : 0.f)
-                   : reinterpret_cast<const float*>(wbytes)[i * n + j];
-  };
-  if (kMasked) {
-    if ((int)threadIdx.x < m) {
-      const int i = threadIdx.x;
-      float s = 0.f;
+  auto build = [&](const unsigned char* wb) {
+    auto w_at = [&](int i, int j) {
+      return kMasked ? (wb[i * n + j] ? 1.f : 0.f) + (i == j ? 1.f : 0.f)
+                     : reinterpret_cast<const float*>(wb)[i * n + j];
+    };
+    if (kMasked) {
+      if ((int)threadIdx.x < m) {
+        const int i = threadIdx.x;
+        float s = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < n; ++j) s += w_at(i, j);
-      inv_sum[i] = 1.f / s;
+        for (int j = 0; j < n; ++j) s += w_at(i, j);
+        inv_sum[i] = 1.f / s;
+      }
+      __syncthreads();
     }
+    for (int idx = threadIdx.x; idx < n * kLd; idx += kBlock) w_t[idx] = 0.f;
     __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < n * kLd; idx += kBlock) w_t[idx] = 0.f;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < m * n; idx += kBlock) {
-    const int i = idx / n;
-    const int j = idx % n;
-    w_t[j * kLd + at_row(i)] = kMasked ? w_at(i, j) * inv_sum[i]
-                                       : w_at(i, j);
-  }
+    for (int idx = threadIdx.x; idx < m * n; idx += kBlock) {
+      const int i = idx / n;
+      const int j = idx % n;
+      w_t[j * kLd + at_row(i)] = kMasked ? w_at(i, j) * inv_sum[i]
+                                         : w_at(i, j);
+    }
+  };
+  build(wbytes);
 
   const int tx = threadIdx.x % kTx;  // columns 4 tx .. 4 tx + 3
   const int ty = threadIdx.x / kTx;  // rows kUsed ty .. kUsed ty + kUsed - 1
@@ -297,11 +323,15 @@ __global__ void __launch_bounds__(16 * kTy, kWarpsPerSm * 32 / (16 * kTy))
     async_copy::commit();
     if (threadIdx.x == 0)
       tiles[(k + 2) % 3] = 2LL * gridDim.x + atomicAdd(sched, 1);
+    const MixLeaf& lf = table.leaf[leaf_of(table, item)];
+    if (lf.w != w_cur) {
+      // Every thread is past tile k - 1's products (the barrier above).
+      w_cur = lf.w;
+      build(static_cast<const unsigned char*>(w_cur));
+      __syncthreads();
+    }
     if (i0 >= m) continue;
 
-    int l = 0;
-    while (l + 1 < table.count && table.leaf[l + 1].item0 <= item) ++l;
-    const MixLeaf& lf = table.leaf[l];
     const T* xs = ring + (k % 2) * slot + 4 * tx;
     const float* ws = w_t + ty * kR;
     float acc[kUsed][4];
@@ -397,8 +427,12 @@ __device__ __forceinline__ void tiled_chunk(const float (*ws)[kWLd],
 // W's, transposed by 4-byte copies; the masked variant loads E's chunk
 // into registers, 8 entries a thread, and stores (E + I) / rowsum
 // transposed once the current chunk's products are done.  Both stages
-// are one chunk ahead of the products.
-template <typename T, bool kMasked>
+// are one chunk ahead of the products.  kOneW: every leaf names the same
+// W, passed as `wsrc` (a solo call); otherwise each item reads its
+// leaf's W from the table (a sweep; the per-item pointer added 16 bytes of
+// spills to the f32 kernel and some 5% at n = 1000, so a solo call keeps
+// this instantiation).
+template <typename T, bool kMasked, bool kOneW>
 __global__ void __launch_bounds__(kTiledThreads, kTiledPerSm)
     mix_tiled_kernel(const void* __restrict__ wsrc,
                      const __grid_constant__ MixTable table, int m, int n) {
@@ -418,21 +452,21 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledPerSm)
   const int wr = tid / kDepth;    // rows wr + kWRows q for q < kWPer
   const long long row_tiles = (m + kTileRows - 1) / kTileRows;
   const int chunks = (n + kDepth - 1) / kDepth;
-  const unsigned char* e = static_cast<const unsigned char*>(wsrc);
-  const float* w = static_cast<const float*>(wsrc);
 
-  int inv_i0 = -1;    // the row tile whose reciprocals inv_s holds
+  int inv_i0 = -1;             // the row tile whose reciprocals inv_s holds,
+  const void* inv_w = nullptr;  // of this E
   for (long long item = blockIdx.x; item < table.items; item += gridDim.x) {
-    int l = 0;
-    while (l + 1 < table.count && table.leaf[l + 1].item0 <= item) ++l;
-    const MixLeaf& lf = table.leaf[l];
+    const MixLeaf& lf = table.leaf[leaf_of(table, item)];
+    const void* const wp = kOneW ? wsrc : lf.w;
+    const unsigned char* e = static_cast<const unsigned char*>(wp);
+    const float* w = static_cast<const float*>(wp);
     const long long local = item - lf.item0;
     const int i0 = (int)(local % row_tiles) * kTileRows;
     const long long c0 = local / row_tiles * kTileCols;
     const T* x = static_cast<const T*>(lf.x);
     const long long d = lf.d;
 
-    if (kMasked && i0 != inv_i0) {
+    if (kMasked && (i0 != inv_i0 || (!kOneW && wp != inv_w))) {
       // 1 / rowsum(E + I) for the tile's rows: the sums are small
       // integers, exact in any order, and (E + I) times the reciprocal is
       // the quotient (E + I) / rowsum exactly for entries 0, 1 and 2.
@@ -453,6 +487,7 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledPerSm)
       }
       __syncthreads();
       inv_i0 = i0;
+      inv_w = wp;
     }
 
     // W (or E) staging: this thread's entries are rows i0 + wr + kWRows q
@@ -584,8 +619,8 @@ __global__ void __launch_bounds__(kTiledThreads, kTiledPerSm)
 // them per SM (fewer where shared memory holds fewer), never more than the
 // tiles.
 template <typename T, bool kMasked, int kTy, int kUsed>
-int launch_small(const void* w, const MixTable& table, int m, int n, int sms,
-                 int* sched, cudaStream_t stream) {
+int launch_small(const MixTable& table, int m, int n, int sms, int* sched,
+                 cudaStream_t stream) {
   if (table.items == 0) return (int)cudaSuccess;
   constexpr int kBlock = 16 * kTy;
   constexpr size_t kSharedMax = 227 * 1024;   // an SM's shared memory
@@ -595,8 +630,7 @@ int launch_small(const void* w, const MixTable& table, int m, int n, int sms,
                             / 128 * 128
                       + 2 * slot_bytes;
   const size_t w_bytes = (size_t)m * n * (kMasked ? 1 : 4);
-  const int w_staged = w_bytes <= slot_bytes
-                       && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int w_fits = w_bytes <= slot_bytes;
   auto kernel = mix_kernel<T, kMasked, kTy, kUsed>;
   static async_copy::KernelSetup setup;
   const cudaError_t err = async_copy::prepare(kernel, setup, smem);
@@ -605,8 +639,8 @@ int launch_small(const void* w, const MixTable& table, int m, int n, int sms,
   while (per_sm > 1 && per_sm * (smem + 1024) > kSharedMax) --per_sm;
   const long long slots = per_sm * sms;
   const long long blocks = table.items < slots ? table.items : slots;
-  kernel<<<(unsigned)blocks, kBlock, smem, stream>>>(w, w_staged, table, m,
-                                                     n, sched);
+  kernel<<<(unsigned)blocks, kBlock, smem, stream>>>(w_fits, table, m, n,
+                                                     sched);
   return (int)cudaGetLastError();
 }
 
@@ -614,94 +648,103 @@ int launch_small(const void* w, const MixTable& table, int m, int n, int sms,
 // multiple of the row tiles where there are more slots than row tiles (so
 // each block keeps one row tile), never more than the items.
 template <typename T, bool kMasked>
-int launch_tiled(const void* w, const MixTable& table, int m, int n, int sms,
+int launch_tiled(const MixTable& table, int m, int n, int sms,
                  cudaStream_t stream) {
   if (table.items == 0) return (int)cudaSuccess;
   const long long row_tiles = (m + kTileRows - 1) / kTileRows;
   long long slots = (long long)kTiledPerSm * sms;
   if (slots >= row_tiles) slots -= slots % row_tiles;
   const long long blocks = table.items < slots ? table.items : slots;
-  mix_tiled_kernel<T, kMasked>
-      <<<(unsigned)blocks, kTiledThreads, 0, stream>>>(w, table, m, n);
+  bool one_w = true;
+  for (int l = 1; l < table.count; ++l)
+    one_w = one_w && table.leaf[l].w == table.leaf[0].w;
+  if (one_w)
+    mix_tiled_kernel<T, kMasked, true>
+        <<<(unsigned)blocks, kTiledThreads, 0, stream>>>(table.leaf[0].w,
+                                                         table, m, n);
+  else
+    mix_tiled_kernel<T, kMasked, false>
+        <<<(unsigned)blocks, kTiledThreads, 0, stream>>>(nullptr, table, m,
+                                                         n);
   return (int)cudaGetLastError();
 }
 
-// leaves: `count` rows of (X pointer, Y pointer, D, first item) as int64.
+// leaves: `count` rows of (W pointer, X pointer, Y pointer, D, first item)
+// as int64.
 template <typename T, bool kMasked>
-int launch_mix(const void* w, const long long* leaves, int count, int m,
-               int n, int sms, int* sched, cudaStream_t stream) {
+int launch_mix(const long long* leaves, int count, int m, int n, int sms,
+               int* sched, cudaStream_t stream) {
   if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
   MixTable table;
   table.count = count;
   for (int l = 0; l < count; ++l) {
-    const long long* row = leaves + 4 * l;
+    const long long* row = leaves + 5 * l;
     MixLeaf& lf = table.leaf[l];
-    lf.x = reinterpret_cast<const void*>(row[0]);
-    lf.y = reinterpret_cast<void*>(row[1]);
-    lf.d = row[2];
-    lf.item0 = row[3];
-    lf.aligned = (row[0] % 16 == 0) && (row[1] % 16 == 0)
-                 && ((row[2] * (long long)sizeof(T)) % 16 == 0);
+    lf.w = reinterpret_cast<const void*>(row[0]);
+    lf.x = reinterpret_cast<const void*>(row[1]);
+    lf.y = reinterpret_cast<void*>(row[2]);
+    lf.d = row[3];
+    lf.item0 = row[4];
+    lf.aligned = (row[1] % 16 == 0) && (row[2] % 16 == 0)
+                 && ((row[3] * (long long)sizeof(T)) % 16 == 0);
   }
   const MixLeaf& last = table.leaf[count - 1];
   if (m > kSmallNodes || n > kSmallNodes) {
     // The tiled route: ceil(m / 128) items per 128-column stripe.
     table.items = last.item0 + (m + kTileRows - 1) / kTileRows
                                    * ((last.d + kTileCols - 1) / kTileCols);
-    return launch_tiled<T, kMasked>(w, table, m, n, sms, stream);
+    return launch_tiled<T, kMasked>(table, m, n, sms, stream);
   }
   table.items = last.item0 + (last.d + kItemCols - 1) / kItemCols;
   // Rows per thread: 8, or 7 where that covers m (m = 50 takes 8 x 7 rows,
   // not 8 x 8).
   if (m <= 56)
-    return launch_small<T, kMasked, 8, 7>(w, table, m, n, sms, sched,
+    return launch_small<T, kMasked, 8, 7>(table, m, n, sms, sched,
                                           stream);
   if (m <= 64)
-    return launch_small<T, kMasked, 8, 8>(w, table, m, n, sms, sched,
+    return launch_small<T, kMasked, 8, 8>(table, m, n, sms, sched,
                                           stream);
   if (m <= 112)
-    return launch_small<T, kMasked, 16, 7>(w, table, m, n, sms, sched,
-                                           stream);
-  return launch_small<T, kMasked, 16, 8>(w, table, m, n, sms, sched,
-                                         stream);
+    return launch_small<T, kMasked, 16, 7>(table, m, n, sms, sched,
+                                          stream);
+  return launch_small<T, kMasked, 16, 8>(table, m, n, sms, sched,
+                                          stream);
 }
 
 }  // namespace
 
-// w: [m, n] f32; leaves: `count` rows of int64 (X [n, d] pointer, Y [m, d]
-// pointer in X's type, d, index of the leaf's first item among the call's
-// items: graph_mix.py's plan_mix up to 128 nodes and rows, plan_tiled
-// past); sms: the device's SM count; sched: two int32 counters, 0 before
-// the call and left 0 by it (the small route's tile scheduler).
-extern "C" int graph_mix_f32(const void* w, const long long* leaves,
-                             int count, int m, int n, int sms, void* sched,
-                             void* stream) {
-  return launch_mix<float, false>(w, leaves, count, m, n, sms,
+// leaves: `count` rows of int64 (W [m, n] f32 pointer, X [n, d] pointer,
+// Y [m, d] pointer in X's type, d, index of the leaf's first item among the
+// call's items: graph_mix.py's plan_mix up to 128 nodes and rows,
+// plan_tiled past); sms: the device's SM count; sched: two int32 counters,
+// 0 before the call and left 0 by it (the small route's tile scheduler).
+extern "C" int graph_mix_f32(const long long* leaves, int count, int m, int n,
+                             int sms, void* sched, void* stream) {
+  return launch_mix<float, false>(leaves, count, m, n, sms,
                                   static_cast<int*>(sched),
                                   static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int graph_mix_bf16(const void* w, const long long* leaves,
-                              int count, int m, int n, int sms, void* sched,
-                              void* stream) {
-  return launch_mix<__nv_bfloat16, false>(w, leaves, count, m, n, sms,
+extern "C" int graph_mix_bf16(const long long* leaves, int count, int m,
+                              int n, int sms, void* sched, void* stream) {
+  return launch_mix<__nv_bfloat16, false>(leaves, count, m, n, sms,
                                           static_cast<int*>(sched),
                                           static_cast<cudaStream_t>(stream));
 }
 
-// e: [n, n] bool (one byte each); leaves as above with m == n.
-extern "C" int graph_mix_masked_f32(const void* e, const long long* leaves,
-                                    int count, int n, int sms, void* sched,
-                                    void* stream) {
-  return launch_mix<float, true>(e, leaves, count, n, n, sms,
+// leaves as above with an E [n, n] bool (one byte each) pointer in place
+// of W, and m == n.
+extern "C" int graph_mix_masked_f32(const long long* leaves, int count, int n,
+                                    int sms, void* sched, void* stream) {
+  return launch_mix<float, true>(leaves, count, n, n, sms,
                                  static_cast<int*>(sched),
                                  static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int graph_mix_masked_bf16(const void* e, const long long* leaves,
-                                     int count, int n, int sms, void* sched,
+extern "C" int graph_mix_masked_bf16(const long long* leaves, int count,
+                                     int n, int sms, void* sched,
                                      void* stream) {
-  return launch_mix<__nv_bfloat16, true>(e, leaves, count, n, n, sms,
+  return launch_mix<__nv_bfloat16, true>(leaves, count, n, n, sms,
                                          static_cast<int*>(sched),
                                          static_cast<cudaStream_t>(stream));
 }

@@ -8,6 +8,15 @@ kernels mask their ragged tails themselves, so nothing is padded here.
 On the card one launch takes the Gram matrix of every leaf, and one mixes
 every leaf (dense or CSR); on the CPU each leaf goes through the plain
 versions in turn.
+
+The dense forms also take a sweep's ``[E, n, ...]`` stack of E
+experiments' parameters: :func:`model_pairwise_cosine` with
+``experiments=True`` gives each experiment's Eq.-3 matrix, and
+:func:`mix_pytree` / :func:`mix_masked_pytree` given ``[E, m, n]``
+weights (or ``[E, n, n]`` edges) mix each experiment with its own, every
+leaf of every experiment in one grouped launch per
+:data:`~repro_torch.kernels.graph_mix.MAX_LEAVES` leaves.  Each
+experiment gets the bits of its own solo call.
 """
 from __future__ import annotations
 
@@ -30,34 +39,77 @@ def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
     return g / (norms[:, None] * norms[None, :])
 
 
-def model_pairwise_cosine(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+def model_pairwise_cosine(stacked: Dict[str, torch.Tensor],
+                          experiments: bool = False) -> torch.Tensor:
     """Eq. 3 on node-stacked parameters: per-leaf cosine, averaged in leaf
     order.  On the card the Gram matrices of all leaves come from one
     launch and the epilogue runs on their stack, with the same operations
     per element as :func:`pairwise_cosine`, so the result is the bits of
-    the leaf-by-leaf loop the CPU runs."""
+    the leaf-by-leaf loop the CPU runs.
+
+    ``experiments=True``: the leaves are ``[E, n, ...]``, and the result
+    is each experiment's ``[E, n, n]`` matrix; on the card one launch
+    takes the Gram matrices of every leaf of every experiment (up to
+    :data:`~repro_torch.kernels.pairwise_cosine.MAX_LEAVES` a launch), and
+    each experiment's mean still adds its leaves one after another from
+    leaf 0."""
     leaves = list(stacked.values())
-    n = leaves[0].shape[0]
-    if leaves[0].device.type == "cpu":
-        acc = torch.zeros((n, n), dtype=torch.float32)
-        for leaf in leaves:
-            acc += pairwise_cosine(leaf.reshape(n, -1))
-        return acc / len(leaves)
-    g = gram_matrices([leaf.reshape(n, -1) for leaf in leaves])
-    norms = torch.sqrt(torch.diagonal(g, dim1=1, dim2=2)).clamp_min(_EPS)
-    cos = g / (norms[:, :, None] * norms[:, None, :])
+    if experiments:
+        E, n = leaves[0].shape[:2]
+        if leaves[0].device.type == "cpu":
+            return torch.stack([model_pairwise_cosine(
+                {k: v[e] for k, v in stacked.items()}) for e in range(E)])
+        grams = [leaf[e].reshape(n, -1) for e in range(E) for leaf in leaves]
+    else:
+        n = leaves[0].shape[0]
+        if leaves[0].device.type == "cpu":
+            acc = torch.zeros((n, n), dtype=torch.float32)
+            for leaf in leaves:
+                acc += pairwise_cosine(leaf.reshape(n, -1))
+            return acc / len(leaves)
+        grams = [leaf.reshape(n, -1) for leaf in leaves]
+    # [E, L, n, n] (E = 1 without the experiment axis).
+    g = gram_matrices(grams).view(-1, len(leaves), n, n)
+    norms = torch.sqrt(torch.diagonal(g, dim1=2, dim2=3)).clamp_min(_EPS)
+    cos = g / (norms[..., :, None] * norms[..., None, :])
     # A running sum along the leaves adds them one after another from 0,
     # as the loop does, in one launch.
-    return torch.cumsum(cos, dim=0)[-1] / len(leaves)
+    mean = torch.cumsum(cos, dim=1)[:, -1] / len(leaves)
+    return mean if experiments else mean[0]
+
+
+def _mix_experiments(mix_leaves, mats: torch.Tensor,
+                     stacked: Dict[str, torch.Tensor], m: int,
+                     chunk_d: Optional[int]
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """Every leaf of every experiment of an ``[E, n, ...]`` stack through
+    one grouped call, experiment ``e``'s leaves with ``mats[e]``, written
+    into ``[E, m, ...]`` outputs."""
+    E, n = next(iter(stacked.values())).shape[:2]
+    outs = OrderedDict((k, torch.empty((E, m) + v.shape[2:], dtype=v.dtype,
+                                       device=v.device))
+                       for k, v in stacked.items())
+    ws, xs, ys = [], [], []
+    for e in range(E):
+        for k, v in stacked.items():
+            ws.append(mats[e])
+            xs.append(v[e].reshape(n, -1))
+            ys.append(outs[k][e].reshape(m, -1))
+    mix_leaves(ws, xs, chunk_d, out=ys)
+    return outs
 
 
 def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor],
                chunk_d: Optional[int] = None
                ) -> "OrderedDict[str, torch.Tensor]":
-    """Apply ``W [m, n]`` to every leaf (``[n, ...]`` -> ``[m, ...]``);
-    ``chunk_d`` bounds the plain version's buffers on the CPU, with the
-    same bits (:func:`repro_torch.kernels.ref.graph_mix`)."""
+    """Apply ``W [m, n]`` to every leaf (``[n, ...]`` -> ``[m, ...]``), or
+    ``W [E, m, n]`` to a sweep's ``[E, n, ...]`` leaves, each experiment
+    its own; ``chunk_d`` bounds the plain version's buffers on the CPU,
+    with the same bits (:func:`repro_torch.kernels.ref.graph_mix`)."""
     w = w.float().contiguous()
+    if w.dim() == 3:
+        return _mix_experiments(graph_mix_leaves, w, stacked, w.shape[1],
+                                chunk_d)
     m = w.shape[0]
     ys = graph_mix_leaves(w, [v.reshape(v.shape[0], -1)
                               for v in stacked.values()], chunk_d)
@@ -68,9 +120,13 @@ def mix_pytree(w: torch.Tensor, stacked: Dict[str, torch.Tensor],
 def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor],
                       chunk_d: Optional[int] = None
                       ) -> "OrderedDict[str, torch.Tensor]":
-    """Uniform-average mixing from the raw in-edge matrix, every leaf;
-    ``chunk_d`` as in :func:`mix_pytree`."""
+    """Uniform-average mixing from the raw in-edge matrix, every leaf
+    (``[E, n, n]`` edges: a sweep's experiments, each its own); ``chunk_d``
+    as in :func:`mix_pytree`."""
     edges = edges.contiguous()
+    if edges.dim() == 3:
+        return _mix_experiments(graph_mix_masked_leaves, edges, stacked,
+                                edges.shape[1], chunk_d)
     ys = graph_mix_masked_leaves(edges, [v.reshape(v.shape[0], -1)
                                          for v in stacked.values()], chunk_d)
     return OrderedDict((k, y.reshape(v.shape))

@@ -16,23 +16,21 @@
   keyed draws shared by the transport and the dense model;
 * :mod:`~repro_torch.netsim.dense`     — :class:`DenseNetwork`, the
   round-quantized model the round engine threads through every round
-  (``RunnerConfig.net``);
+  (``RunnerConfig.net``), and :class:`SweepNetwork`, one per experiment
+  stacked for the sweep engine;
 * :mod:`~repro_torch.netsim.async_runner` — :class:`AsyncRunner`, the
   event-driven runtime.
-
-The reference's ``SweepNetwork`` (the sweep engine's batched network) is
-not part of the port yet.
 """
 from . import profiles, sampling
 from .async_runner import AsyncConfig, AsyncRunner
-from .dense import DenseNetwork, NetDraws
+from .dense import DenseNetwork, NetDraws, SweepNetwork
 from .events import Event, EventLoop
 from .faults import FaultConfig, FaultModel
 from .messages import CTRL_BYTES, ModelTransfer, Packet
 from .transport import NetworkProfile, Partition, Transport, TransportStats
 
 __all__ = ["profiles", "sampling", "AsyncConfig", "AsyncRunner",
-           "DenseNetwork", "NetDraws", "Event", "EventLoop",
+           "DenseNetwork", "NetDraws", "SweepNetwork", "Event", "EventLoop",
            "FaultConfig", "FaultModel", "CTRL_BYTES", "ModelTransfer",
            "Packet", "NetworkProfile", "Partition", "Transport",
            "TransportStats"]

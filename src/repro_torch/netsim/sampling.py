@@ -11,6 +11,14 @@ not depend on the rounds that ran before (chunk invariance).  A
 ``torch.Generator`` cannot give threefry's bits, so every function also
 takes its uniforms as ``u``: the parity tests hand over the reference's.
 
+The reference's ``round_key(seed, rnd)`` (a threefry key) becomes
+:func:`round_key`, the integer ``fold_seed(seed, rnd)`` the stream's
+generator seed is folded from.  The sweep engine's folded twins
+(:func:`jitter_matrix_folded`, :func:`drop_matrix_folded`) always draw and
+take the profile's scale as a tensor, so one call serves a stack of
+experiments; ``u * 0 == 0`` and ``u < 0`` keep the unfolded functions'
+zero paths bit for bit.
+
 Entry ``[i, j]`` belongs to the edge *j sends to i* (receiver row, sender
 column).  The arithmetic is the reference's: the fixed part of the
 latency (base latency plus serialization) is one ``np.float32`` added to
@@ -34,17 +42,26 @@ STREAM_DROP_MODEL = 1
 STREAM_DROP_CTRL = 2
 
 
+def round_key(seed: int, rnd: int) -> int:
+    """The base key of one round's network draws, ``fold_seed(seed, rnd)``
+    (the reference's ``fold_in(PRNGKey(seed), rnd)``); each stream's
+    generator is seeded ``fold_seed(round_key(seed, rnd), stream)``."""
+    return fold_seed(seed, rnd)
+
+
 def uniform(seed: int, rnd: int, n: int, stream: int,
             device) -> torch.Tensor:
     """``[n, n]`` f32 uniform in ``[0, 1)`` keyed by ``(seed, rnd,
     stream)``, drawn on the CPU and moved to ``device``."""
-    gen = torch.Generator().manual_seed(fold_seed(fold_seed(seed, rnd),
+    gen = torch.Generator().manual_seed(fold_seed(round_key(seed, rnd),
                                                   stream))
     return torch.rand((n, n), generator=gen,
                       dtype=torch.float32).to(device)
 
 
-def _f32(x: float, device) -> torch.Tensor:
+def _f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.float32(x), device=device)
 
 
@@ -80,6 +97,30 @@ def drop_matrix(profile, rnd: int, n: int, device,
     if u is None:
         u = uniform(profile.seed, rnd, n, stream, device)
     return u.to(device) < _f32(profile.drop_rate, device)
+
+
+def jitter_matrix_folded(seed: int, rnd: int, n: int, jitter_s, device,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sweep's twin of :func:`jitter_matrix`: always draws (or takes
+    ``u``, which may be a stack of experiments' ``[E, n, n]`` uniforms) and
+    multiplies by ``jitter_s`` (a number, or an f32 tensor that broadcasts
+    against ``u``, one scale per experiment).  ``u * 0`` is exactly 0, so
+    a zero scale gives the unfolded zeros bit for bit."""
+    if u is None:
+        u = uniform(seed, rnd, n, STREAM_JITTER, device)
+    return u.to(device) * _f32(jitter_s, device)
+
+
+def drop_matrix_folded(seed: int, rnd: int, n: int, drop_rate, device,
+                       stream: int = STREAM_DROP_MODEL,
+                       u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sweep's twin of :func:`drop_matrix`: always draws (or takes
+    ``u``, as in :func:`jitter_matrix_folded`) and compares with
+    ``drop_rate`` (a number or a broadcasting f32 tensor).  ``u < 0`` is
+    all False, so a zero rate gives the unfolded mask bit for bit."""
+    if u is None:
+        u = uniform(seed, rnd, n, stream, device)
+    return u.to(device) < _f32(drop_rate, device)
 
 
 def round_time(rnd: int, round_s: float) -> np.float32:

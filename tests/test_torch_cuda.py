@@ -851,3 +851,152 @@ def test_cuda_wan_async_run_is_the_cpu_run(cuda_device, name):
     for key in cpu.params:
         err = float((card.params[key].cpu() - cpu.params[key]).abs().max())
         assert err <= 1e-5, (key, err)
+
+
+# ---------------------------------------------------------------------------
+# The sweep farm: one W per leaf
+# ---------------------------------------------------------------------------
+
+SWEEP_MIX = [(50, 3), (50, 8), (200, 3), (1000, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,E", SWEEP_MIX)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_sweep_per_row_w_is_the_one_w_launches(cuda_device, n, E,
+                                                    dtype):
+    """E experiments' GN-LeNet leaves in one grouped call, each row with
+    its experiment's W (or E), bit for bit E one-W calls of the same
+    leaves, on the small route (n = 50) and the tiled one (200, 1000), in
+    ceil(E L / MAX_LEAVES) launches."""
+    import importlib
+    gm = importlib.import_module("repro_torch.kernels.graph_mix")
+    gen = torch.Generator(device=cuda_device).manual_seed(n + E)
+    xs = [[torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype]) for d in GN_LENET] for _ in range(E)]
+    ws = torch.rand((E, n, n), generator=gen, device=cuda_device)
+    es = torch.rand((E, n, n), generator=gen, device=cuda_device) < 3.0 / n
+    L = len(GN_LENET)
+    flat = [x for row in xs for x in row]
+    before = (graph_mix.launches, graph_mix_masked.launches)
+    ys = graph_mix_leaves([ws[e] for e in range(E) for _ in GN_LENET], flat)
+    zs = graph_mix_masked_leaves([es[e] for e in range(E) for _ in GN_LENET],
+                                 flat)
+    torch.cuda.synchronize()
+    launches = -(-E * L // gm.MAX_LEAVES)
+    assert (graph_mix.launches - before[0],
+            graph_mix_masked.launches - before[1]) == (launches, launches)
+    for e in range(E):
+        one_w = graph_mix_leaves(ws[e], xs[e])
+        one_e = graph_mix_masked_leaves(es[e], xs[e])
+        for i in range(L):
+            assert torch.equal(ys[e * L + i], one_w[i]), (e, i)
+            assert torch.equal(zs[e * L + i], one_e[i]), (e, i)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_ops_are_each_experiments_own(cuda_device):
+    """Over an ``[E, 50, ...]`` stack of GN-LeNet's leaves the sweep's Eq.-3
+    matrices and mixes are each experiment's own calls bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    E, n = 5, 50
+    stacked = {str(i): torch.randn((E, n, d), generator=gen,
+                                   device=cuda_device)
+               for i, d in enumerate(GN_LENET)}
+    w = torch.softmax(torch.randn((E, n, n), generator=gen,
+                                  device=cuda_device), -1)
+    e = torch.rand((E, n, n), generator=gen, device=cuda_device) < 0.06
+    sim = ops.model_pairwise_cosine(stacked, experiments=True)
+    mixed, masked = ops.mix_pytree(w, stacked), \
+        ops.mix_masked_pytree(e, stacked)
+    for x in range(E):
+        one = {k: v[x].contiguous() for k, v in stacked.items()}
+        assert torch.equal(sim[x], ops.model_pairwise_cosine(one))
+        for k, v in ops.mix_pytree(w[x], one).items():
+            assert torch.equal(mixed[k][x], v)
+        for k, v in ops.mix_masked_pytree(e[x], one).items():
+            assert torch.equal(masked[k][x], v)
+
+
+def _tiny_sweep(device, name, model, seeds, net=None, **kw):
+    import numpy as np
+    from repro_torch.bench import common
+    from repro_torch.data import (DeviceDataStream, dirichlet_partition,
+                                  make_image_classification,
+                                  train_test_split)
+    from repro_torch.dlrt import RunnerConfig, SweepSpec, SweepSuperstep
+    from repro_torch.models import cnn_loss, cnn_params, mlp_loss, mlp_params
+    from repro_torch.optim import sgd
+    n = 6
+    ds = make_image_classification(300, num_classes=4, image_size=8, seed=0)
+    tr, te = train_test_split(ds, 0.25)
+    parts = dirichlet_partition(tr.labels, n, 0.5, np.random.default_rng(0))
+    init, loss = (mlp_params, mlp_loss) if model == "mlp" else (
+        lambda g: cnn_params(g, in_channels=3, num_classes=4, image_size=8,
+                             width=4), cnn_loss)
+    from repro_torch import fold_seed
+
+    class HostSlots(DeviceDataStream):
+        """Slots keyed on a CPU generator: the same batches on any
+        device (a stream's own generator lives on its device)."""
+
+        def slots(self, rnd):
+            gen = torch.Generator().manual_seed(fold_seed(self.seed, rnd))
+            sizes = self.sizes.cpu()[:, None]
+            u = torch.rand((self.n, self.batch), generator=gen)
+            return torch.minimum((u * sizes).long(), sizes - 1).to(device)
+
+    spec = SweepSpec(seeds=seeds)
+    return SweepSuperstep(
+        spec=spec, init_fn=init, loss_fn=loss, eval_fn=loss,
+        optimizer=sgd(0.05),
+        streams=[HostSlots(tr, parts, 4, seed=s, device=device)
+                 for s in seeds],
+        test_batch={"images": te.images[:32], "labels": te.labels[:32]},
+        strategies=[common.make_ingraph_strategy(name, common.ExpConfig(
+            n_nodes=n, k=2, seed=s), device) for s in seeds],
+        cfg=RunnerConfig(n_nodes=n, rounds=11, eval_every=5),
+        net=net, device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morph", "static", "el-oracle"])
+@pytest.mark.parametrize("model", ["mlp", "cnn"])
+def test_cuda_sweep_run_is_the_cpu_run(cuda_device, name, model):
+    """A tiny sweep (E = 3, n = 6, 11 rounds) on the card and on the CPU:
+    identical edges, comm bytes, parameters within 1e-5."""
+    import numpy as np
+    runs = [_tiny_sweep(d, name, model, (0, 1, 2))
+            for d in (cuda_device, "cpu")]
+    for r in runs:
+        r.run()
+    card, cpu = runs
+    for e in range(3):
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(card.edge_history[e], cpu.edge_history[e]))
+        assert card.comm_bytes(e) == cpu.comm_bytes(e)
+    for k in cpu.params:
+        err = float((card.params[k].cpu() - cpu.params[k]).abs().max())
+        assert err <= 1e-5, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mlp", "cnn"])
+def test_cuda_stacked_step_is_each_experiments_step(cuda_device, model):
+    """With deterministic cuDNN, one local step of the ``[E n]`` stack is
+    each experiment's own step of its n rows, bit for bit (the grouped
+    convolutions over E n groups keep each experiment's bits)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        sweep = _tiny_sweep(cuda_device, "morph", model, (0, 1, 2))
+        batch = sweep._batch(2)
+        stacked, _ = sweep._step(batch)
+        n = sweep.cfg.n_nodes
+        for e in range(sweep.E):
+            own, _ = sweep._local_step(sweep.experiment_params(e),
+                                       sweep._opt_state,
+                                       {k: v[e] for k, v in batch.items()})
+            for k, v in own.items():
+                assert torch.equal(stacked[k][e * n:(e + 1) * n], v), (e, k)
+    finally:
+        torch.backends.cudnn.deterministic = False

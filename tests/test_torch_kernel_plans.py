@@ -258,12 +258,14 @@ def test_grouped_mix_is_one_launch_with_the_planned_table(fake_cuda):
             graph_mix_masked.launches - before[1]) == (1, 1)
     (fn1, args1), (fn2, args2) = fake_cuda.calls
     assert (fn1, fn2) == ("graph_mix_f32", "graph_mix_masked_f32")
-    assert args1[2:6] == (len(ds), n, n, 132)
-    assert args2[2:5] == (len(ds), n, 132)
-    for args in (args1, args2):
-        table = _table(args[1], len(ds), 4)
-        assert table[:, 2].tolist() == ds
-        assert table[:, 3].tolist() == gm_mod.plan_mix(ds)
+    assert args1[1:5] == (len(ds), n, n, 132)
+    assert args2[1:4] == (len(ds), n, 132)
+    for args, src in ((args1, w), (args2, e)):
+        table = _table(args[0], len(ds), 5)
+        # A solo call names its one W (or E) on every row.
+        assert table[:, 0].tolist() == [src.data_ptr()] * len(ds)
+        assert table[:, 3].tolist() == ds
+        assert table[:, 4].tolist() == gm_mod.plan_mix(ds)
 
 
 @pytest.mark.parametrize("n", TILED_ROWS)
@@ -282,11 +284,78 @@ def test_grouped_mix_past_128_nodes_counts_a_launch_per_leaf(fake_cuda, n):
             graph_mix_masked.launches - before[1]) == (1, 1)
     (fn1, args1), (fn2, args2) = fake_cuda.calls
     assert (fn1, fn2) == ("graph_mix_f32", "graph_mix_masked_f32")
-    assert args1[2:5] == (len(ds), n, n) and args2[2:4] == (len(ds), n)
+    assert args1[1:4] == (len(ds), n, n) and args2[1:3] == (len(ds), n)
     for args in (args1, args2):
-        table = _table(args[1], len(ds), 4)
-        assert table[:, 2].tolist() == ds
-        assert table[:, 3].tolist() == gm_mod.plan_tiled(n, ds)
+        table = _table(args[0], len(ds), 5)
+        assert table[:, 3].tolist() == ds
+        assert table[:, 4].tolist() == gm_mod.plan_tiled(n, ds)
+
+
+@pytest.mark.parametrize("n", [50, 200])
+def test_grouped_mix_rows_carry_each_leafs_w(fake_cuda, n):
+    """Given one W (or E) per leaf, each row of the C table names its
+    leaf's own; the rest of the table is the one-W call's."""
+    ds = GN_LENET[:4]
+    xs = [torch.empty((n, d), device="meta") for d in ds]
+    ws = [torch.empty((n, n)) for _ in ds]
+    es = [torch.empty((n, n), dtype=torch.bool) for _ in ds]
+    graph_mix_leaves(ws, xs)
+    graph_mix_masked_leaves(es, xs)
+    plan = gm_mod.plan_tiled(n, ds) if n > gm_mod.SMALL_NODES \
+        else gm_mod.plan_mix(ds)
+    for (_, args), mats in zip(fake_cuda.calls, (ws, es)):
+        table = _table(args[0], len(ds), 5)
+        assert table[:, 0].tolist() == [m.data_ptr() for m in mats]
+        assert table[:, 3].tolist() == ds
+        assert table[:, 4].tolist() == plan
+    with pytest.raises(ValueError, match="3 matrices for 4 leaves"):
+        graph_mix_leaves(ws[:3], xs)
+
+
+@pytest.mark.parametrize("E", [3, 8])
+def test_sweep_mix_is_one_launch_per_max_leaves(fake_cuda, E):
+    """A sweep's ``[E, n, ...]`` stack mixes every leaf of every
+    experiment in ceil(E L / MAX_LEAVES) launches, experiment e's rows
+    naming its own W (or E) and writing into its slice of the outputs."""
+    n, ds = 50, GN_LENET
+    stacked = {str(i): torch.empty((E, n, d), device="meta")
+               for i, d in enumerate(ds)}
+    w = torch.rand((E, n, n))
+    e = torch.rand((E, n, n)) < 0.2
+    before = (graph_mix.launches, graph_mix_masked.launches)
+    mixed = ops.mix_pytree(w, stacked)
+    masked = ops.mix_masked_pytree(e, stacked)
+    assert all(tuple(mixed[k].shape) == tuple(masked[k].shape)
+               == tuple(v.shape) for k, v in stacked.items())
+    L = len(ds)
+    launches = -(-E * L // gm_mod.MAX_LEAVES)
+    assert (graph_mix.launches - before[0],
+            graph_mix_masked.launches - before[1]) == (launches, launches)
+    assert len(fake_cuda.calls) == 2 * launches
+    for calls, mats in ((fake_cuda.calls[:launches], w),
+                        (fake_cuda.calls[launches:], e)):
+        rows = np.concatenate([_table(args[0], args[1], 5)
+                               for _, args in calls])
+        want = [mats[x].data_ptr() for x in range(E) for _ in ds]
+        assert rows[:, 0].tolist() == want
+        assert rows[:, 3].tolist() == ds * E
+        # Each launch plans its own leaves.
+        at = 0
+        for _, args in calls:
+            widths = rows[at:at + args[1], 3].tolist()
+            assert rows[at:at + args[1], 4].tolist() == \
+                gm_mod.plan_mix(widths)
+            at += args[1]
+
+
+def test_sweep_similarity_is_one_gram_launch_per_max_leaves(fake_cuda):
+    E, n, ds = 8, 50, GN_LENET
+    stacked = {str(i): torch.empty((E, n, d), device="meta")
+               for i, d in enumerate(ds)}
+    before = gram_matrix.launches
+    sim = ops.model_pairwise_cosine(stacked, experiments=True)
+    assert tuple(sim.shape) == (E, n, n)
+    assert gram_matrix.launches - before == -(-E * len(ds) // pc.MAX_LEAVES)
 
 
 def test_grouped_mix_of_empty_leaves_launches_nothing(fake_cuda):
@@ -405,6 +474,38 @@ def test_cpu_grouped_forms_are_the_per_leaf_plain_versions(n, ds, dtype):
     assert tuple(g.shape) == (len(ds), n, n)
     for got, x in zip(g, xs):
         assert torch.equal(got, ref.gram_matrix(x))
+
+
+@pytest.mark.parametrize("n,ds", [(7, RAGGED), (20, GN_LENET[:4])])
+def test_cpu_sweep_forms_are_each_experiments_own(n, ds):
+    """Over an ``[E, n, ...]`` stack the parameter-dict ops give each
+    experiment the bits of its own call (and so of the plain versions)."""
+    E = 3
+    rng = np.random.default_rng(n)
+    stacked = {str(i): torch.as_tensor(rng.normal(size=(E, n, d))
+                                       .astype(np.float32))
+               for i, d in enumerate(ds)}
+    w = torch.softmax(torch.as_tensor(rng.normal(size=(E, n, n))
+                                      .astype(np.float32)), -1)
+    e = torch.as_tensor(rng.random((E, n, n)) < 0.3)
+    mixed = ops.mix_pytree(w, stacked)
+    masked = ops.mix_masked_pytree(e, stacked)
+    sim = ops.model_pairwise_cosine(stacked, experiments=True)
+    for x in range(E):
+        one = {k: v[x] for k, v in stacked.items()}
+        assert torch.equal(sim[x], ops.model_pairwise_cosine(one))
+        for k, v in ops.mix_pytree(w[x], one).items():
+            assert torch.equal(mixed[k][x], v)
+            assert torch.equal(v, ref.graph_mix(w[x], one[k]))
+        for k, v in ops.mix_masked_pytree(e[x], one).items():
+            assert torch.equal(masked[k][x], v)
+            assert torch.equal(v, ref.graph_mix_masked(e[x], one[k]))
+    # The CPU form writes into given outputs as the kernel does.
+    xs = [v[0] for v in stacked.values()]
+    outs = [torch.empty((n, d)) for d in ds]
+    got = graph_mix_leaves(w[0], xs, out=outs)
+    assert all(g is o and torch.equal(o, ref.graph_mix(w[0], x))
+               for g, o, x in zip(got, outs, xs))
 
 
 def _csr(n, k, seed, invalid=0.0):
