@@ -165,6 +165,24 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    shape; (d) tiny sweeps card == CPU (edges identical, parameters within
    1e-5, batches keyed on the CPU); (e) ``repro_torch.bench.fig14`` at its
    defaults, ``acceptance/bitwise_vs_singles`` = 1;
+15. the tuner (``repro_torch.tune``) and the last one-card figure scripts:
+   (a) resolution on the card: a temporary cache with an entry for the
+   tiny-MLP Morph workload at n = 16 (chunk 4, ``engine="sparse"``,
+   ``compress="int8"``); a runner with those knobs ``"auto"`` is bit for
+   bit the runner given the resolved values (parameters, edges, comm
+   bytes), its ``resolved_knobs.source`` is ``cache:<key>``, and the
+   committed ``cuda_default.json`` has the fig9/fig12 shapes; (b) the tuner
+   end to end at n = 16 over chunks (8, 16) and compress (none, int8) into
+   a temporary file, reloaded: its best candidate and ms a round;
+   (c) ``repro_torch.bench.fig12`` at 5 rounds (dense n = 100, 1000;
+   sparse n = 100, 1000, 10,000): each row's launches (one CSR launch a
+   round on the sparse rows; a Gram launch every fifth round and a masked
+   mix a round on the dense ones), peak memory, and the sparse engine past
+   ``SPARSE_EDGE_DECODE_MAX`` keeping ``(idx, mask)`` edges; (d)
+   ``repro_torch.bench.fig9`` at n = 16, 30 rounds, chunk 10, all four
+   rows, ``compiled-auto`` resolved through the committed cache; (e)
+   ``fig2``, ``fig67`` and ``fig3_curves`` (n = 4, 4 rounds) at smoke depth
+   through their ``main(argv)``;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -172,6 +190,7 @@ cuDNN convolutions and matmuls in every phase, so the card computes in
 full f32 like the plain versions it is compared with, and bf16 products
 reduce in f32.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -3578,6 +3597,243 @@ def sweep_path(dev):
     return totals, mixes
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the tuner and the last one-card figure scripts.
+# ---------------------------------------------------------------------------
+
+TUNE_N = 16
+TUNED_N = (16, 50, 100, 1000)      # the committed cache's shapes (fig9, 12)
+FIG12_ROUNDS, FIG9_ROUNDS, FIG9_CHUNK = 5, 30, 10
+
+
+@contextlib.contextmanager
+def scoped_env(**values):
+    """Environment variables set for the block and restored after it."""
+    import os
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def tune_resolution(dev, tmp):
+    """Phase 15(a): ``"auto"`` through a cache on the card, bit for bit the
+    resolved values passed explicitly; the committed cache's shapes."""
+    from repro_torch import tune as tt
+    factory = tt.mlp_runner_factory(TUNE_N, rounds=12, device=dev)
+    probe = factory(tt.Candidate())
+    shape = tt.shape_of(probe.cfg, probe.params)
+    if shape.key() != f"{dev.type}|n={TUNE_N}|d=1580|devices=1|net=0":
+        raise AssertionError(f"15(a): shape {shape.key()}")
+    entry = tt.TuneEntry(chunk=4, engine="sparse", compress="int8")
+    cache = tt.TuningCache()
+    cache.put(shape, entry)
+    path = str(Path(tmp) / "resolve.json")
+    cache.save(path)
+
+    def run(**knobs):
+        runner = factory(tt.Candidate())
+        runner.cfg = dataclasses.replace(runner.cfg, eval_every=5, **knobs)
+        runner.run()
+        return runner
+
+    with scoped_env(**{tt.ENV_CACHE: path}):
+        auto = run(chunk="auto", engine="auto", compress="auto")
+    explicit = run(chunk=4, engine="sparse", compress="int8")
+    knobs = auto.resolved_knobs
+    if knobs.source != f"cache:{shape.key()}" or \
+            (knobs.chunk, knobs.engine, knobs.compress) != (4, "sparse",
+                                                            "int8"):
+        raise AssertionError(f"15(a): resolved {knobs}")
+    same = (all(torch.equal(auto.params[k], explicit.params[k])
+                for k in auto.params)
+            and len(auto.edge_history) == len(explicit.edge_history) == 12
+            and all(np.array_equal(a, b) for a, b in
+                    zip(auto.edge_history, explicit.edge_history))
+            and [r.comm_bytes for r in auto.log.records]
+            == [r.comm_bytes for r in explicit.log.records])
+    if not same:
+        raise AssertionError("15(a): the auto run is not the explicit run")
+    default = tt.load_default_cache()
+    missing = [n for n in TUNED_N if default.get(tt.TuneShape(
+        backend="cuda", n=n, d=1580)) is None]
+    if missing:
+        raise AssertionError(f"15(a): {tt.DEFAULT_CACHE_PATH.name} has no "
+                             f"entry at n = {missing}")
+    log(f"phase 15(a): auto == explicit bit for bit at n={TUNE_N} "
+        f"({knobs.source}: chunk 4, sparse, int8); committed cache: "
+        + json.dumps({k: {"chunk": e.chunk, "engine": e.engine,
+                          "compress": e.compress,
+                          "ms": e.seconds_per_round * 1e3}
+                      for k, e in sorted(default.entries.items())}))
+
+
+def tune_end_to_end(dev, tmp):
+    """Phase 15(b): the tuner at n = 16 over a small space, into a file."""
+    from repro_torch import tune as tt
+    factory = tt.mlp_runner_factory(TUNE_N, device=dev)
+    probe = factory(tt.Candidate())
+    shape = tt.shape_of(probe.cfg, probe.params)
+    cands = tt.candidate_space(shape, chunks=(8, 16),
+                               compress_options=("none", "int8"))
+    path = Path(tmp) / "tuned.json"
+    cache = tt.TuningCache()
+    t0 = time.perf_counter()
+    result = tt.tune_into(cache, factory, shape=shape, candidates=cands,
+                          rounds=16, probe_rounds=8)
+    wall = time.perf_counter() - t0
+    cache.save(path)
+    entry = tt.TuningCache.load(path).get(shape)
+    best = result.best
+    if entry is None or (entry.chunk, entry.engine, entry.compress) != \
+            (best.chunk, best.engine, best.compress):
+        raise AssertionError(f"15(b): reloaded {entry} for {best}")
+    if dev.type == "cuda" and \
+            entry.tuned.get("card") != torch.cuda.get_device_name(0):
+        raise AssertionError(f"15(b): provenance {entry.tuned}")
+    log(f"phase 15(b): tuned {shape.key()} over {len(cands)} candidates "
+        f"({len(result.survivors)} survivors) in {wall:.1f} s: best "
+        f"{best.label()} at {entry.seconds_per_round * 1e3:.4f} ms a round; "
+        + json.dumps({c.label(): round(v * 1e3, 4)
+                      for c, v in result.seconds_per_round.items()}))
+
+
+def _records(module, argv):
+    with scoped_env(BENCH_DIR=""):          # records only, no file
+        return {r["key"]: r for r in module.main(argv)}
+
+
+def _add(totals, launches):
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def fig12_rows(dev):
+    """Phase 15(c): fig12 at 5 rounds; returns its launches."""
+    from repro_torch.bench import fig12
+    from repro_torch.dlrt.superstep import SPARSE_EDGE_DECODE_MAX
+    from repro_torch.kernels import reset_launches
+    reset_launches()
+    recs = _records(fig12, ["--rounds", str(FIG12_ROUNDS)])
+    counts = launch_counts()
+    refreshes = sum(1 for r in range(FIG12_ROUNDS) if r % 5 == 0)
+    totals, rows = {}, {}
+    for key, rec in recs.items():
+        if not key.startswith("throughput/"):
+            continue
+        engine, n = key.split("/")[1].split("_n")
+        got, calls = rec["launches"], rec["calls"]
+        rounds = calls * rec["rounds_per_call"]
+        want = {"gram_matrix": calls * refreshes if engine == "dense" else 0,
+                "graph_mix_masked": rounds if engine == "dense" else 0,
+                "graph_mix_sparse": rounds if engine == "sparse" else 0,
+                "graph_mix": 0, "selective_scan": 0}
+        if got != want:
+            raise AssertionError(f"15(c) {key}: launches {got} != {want}")
+        _add(totals, got)
+        rows[key.split("/")[1]] = {
+            "per_round_ms": 1e3 / rec["rounds_per_sec"],
+            "peak_gb": rec["peak_memory_bytes"] / 1e9, "launches": {
+                k: v for k, v in got.items() if v}}
+    if totals != {k: v for k, v in counts.items()}:
+        raise AssertionError(f"15(c): launches outside the rows "
+                             f"{counts} != {totals}")
+    if "throughput/sparse_n10000" not in recs or 10000 <= \
+            SPARSE_EDGE_DECODE_MAX:
+        raise AssertionError("15(c): no sparse row past the decode limit")
+    big = fig12.build(10000, 3, "sparse", 2, dev)
+    eng = big._make_engine()
+    eng.run_steps(2)
+    idx, mask = eng.edge_history[-1]
+    if len(eng.edge_history) != 2 or idx.shape != (10000, 3) \
+            or mask.shape != (10000, 3) or not all(
+                torch.isfinite(p).all() for p in eng.params.values()):
+        raise AssertionError("15(c): n = 10000 keeps no (idx, mask) pair")
+    derived = {k: recs[k]["value"] for k in recs if k.startswith("derived/")}
+    log(f"phase 15(c): fig12 at {FIG12_ROUNDS} rounds: {json.dumps(rows)}; "
+        f"{json.dumps(derived)}")
+    return counts
+
+
+def fig9_rows(dev):
+    """Phase 15(d): fig9 at n = 16, all four rows; returns its launches."""
+    from repro_torch import tune as tt
+    from repro_torch.bench import fig9
+    from repro_torch.kernels import reset_launches
+    reset_launches()
+    recs = _records(fig9, ["--nodes", str(TUNE_N), "--rounds",
+                           str(FIG9_ROUNDS), "--chunk", str(FIG9_CHUNK)])
+    counts = launch_counts()
+    warm = max(FIG9_ROUNDS // 10, 5)
+    refresh = lambda rounds: sum(1 for r in range(rounds) if r % 5 == 0)
+    rows, totals = {}, {}
+    for label in fig9.ENGINES:
+        rec = recs[f"{label}/n{TUNE_N}"]
+        got = rec["launches"]
+        if label.startswith("host"):
+            rounds = FIG9_ROUNDS
+            gram = 0 if label == "host-protocol" else refresh(rounds)
+        else:
+            rounds = rec["warm_rounds"] + 3 * rec["rounds_per_call"]
+            gram = refresh(rec["warm_rounds"]) \
+                + 3 * refresh(rec["rounds_per_call"])
+        want = {"gram_matrix": gram, "graph_mix_masked": rounds,
+                "graph_mix": 0, "graph_mix_sparse": 0, "selective_scan": 0}
+        if got != want:
+            raise AssertionError(f"15(d) {label}: launches {got} != {want}")
+        _add(totals, got)
+        rows[label] = {"rounds_per_sec": rec["rounds_per_sec"],
+                       **({"knobs": rec["knobs"]} if "knobs" in rec
+                          else {})}
+    if totals != counts:
+        raise AssertionError(f"15(d): launches outside the rows {counts}")
+    key = f"cuda|n={TUNE_N}|d=1580|devices=1|net=0"
+    entry = tt.load_default_cache().entries.get(key)
+    auto = rows["compiled-auto"]["knobs"]
+    if entry is None or auto["source"] != f"cache:{key}" \
+            or auto["chunk"] != entry.chunk:
+        raise AssertionError(f"15(d): compiled-auto resolved {auto}")
+    derived = {k: recs[k]["value"] for k in recs if k.startswith("derived/")}
+    log(f"phase 15(d): fig9 at n={TUNE_N} ({FIG9_ROUNDS} rounds, warm "
+        f"{warm}): {json.dumps(rows)}; {json.dumps(derived)}")
+    return counts
+
+
+def smoke_figures(dev):
+    """Phase 15(e): fig2, fig67 and fig3_curves at smoke depth."""
+    from repro_torch.bench import fig2, fig3_curves, fig67
+    with scoped_env(BENCH_DIR=""):          # records only, no file
+        fig2.main(["--trials", "4", "--sizes", "20"])
+        fig67.main(["--nodes", "12", "--rounds", "3", "--ks", "3"])
+        final = fig3_curves.main(["--rounds", "4", "--nodes", "4",
+                                  "--device", dev.type])
+    if set(final) != set(fig3_curves.STRATEGIES) or not all(
+            np.isfinite(v) for v in final.values()):
+        raise AssertionError(f"15(e): fig3_curves final variances {final}")
+    log(f"phase 15(e): fig2, fig67 and fig3_curves at smoke depth; "
+        f"fig3_curves final inter-node variance {json.dumps(final)}")
+
+
+def tune_path(dev):
+    """Phase 15: (a) to (e); returns fig12's and fig9's launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tune_resolution(dev, tmp)
+        tune_end_to_end(dev, tmp)
+    fig12_counts = fig12_rows(dev)
+    fig9_counts = fig9_rows(dev)
+    smoke_figures(dev)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return fig12_counts, fig9_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3641,6 +3897,7 @@ def main():
     table1_counts, host_counts = host_loop_path(dev)
     async_counts = async_path(dev)
     sweep_counts, sweep_mixes = sweep_path(dev)
+    fig12_counts, fig9_counts = tune_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
             k: v[name] for k, v in sweep_mixes.items()}
@@ -3675,6 +3932,8 @@ def main():
             "launches_table1": table1_counts[name],
             "launches_async": async_counts[name],
             "launches_sweep": sweep_counts[name],
+            "launches_fig12": fig12_counts[name],
+            "launches_fig9": fig9_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

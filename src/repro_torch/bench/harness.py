@@ -135,3 +135,37 @@ def sweep_experiment_records(b: Bench, prefix: str, spec, logs,
                        "accuracy_min": float(arr.min()),
                        "accuracy_max": float(arr.max())})
     return accs
+
+
+def knobs_dict(resolved) -> Dict:
+    """The knobs a round engine ran with (a runner's ``resolved_knobs``):
+    chunk, engine, codec spec and where they came from."""
+    return {"chunk": resolved.chunk, "engine": resolved.engine,
+            "compress": str(resolved.compress), "source": resolved.source}
+
+
+def launches() -> Dict[str, int]:
+    """Every kernel's launch count so far (0 on the CPU, where the
+    wrappers run their plain versions)."""
+    from ..kernels import KERNELS
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_memory_bytes(device) -> Optional[int]:
+    """The card's peak allocated bytes since the last reset (None on the
+    CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device)
+
+
+def reset_peak_memory(device) -> None:
+    """Start a new peak-memory window on the card."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)

@@ -101,7 +101,8 @@ class CompressConfig:
         """``"none"`` | ``"int8"`` | ``"fp8"`` | ``"topk[frac]"`` |
         ``"gamma[step]"`` and ``"+"``-joined combinations
         (``"int8+topk0.25"``); a :class:`CompressConfig` passes through.
-        ``"auto"`` is refused: the tuner that resolves it is not ported."""
+        ``"auto"`` is refused: :func:`repro_torch.tune.resolve_knobs`
+        resolves it before the codec is built."""
         if isinstance(spec, cls):
             return spec
         if spec is None:
@@ -110,9 +111,8 @@ class CompressConfig:
             raise TypeError("compress accepts a spec string or a "
                             f"CompressConfig, got {type(spec).__name__}")
         if spec == "auto":
-            raise TypeError('compress="auto" is resolved by a tuner, which '
-                            "this package does not have yet; pass a spec "
-                            "string or a CompressConfig")
+            raise TypeError('compress="auto" is resolved by repro_torch.'
+                            "tune.resolve_knobs before the codec is built")
         quant, frac, gamma = "none", None, None
         for term in spec.split("+"):
             term = term.strip()

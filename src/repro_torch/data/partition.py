@@ -1,8 +1,16 @@
-"""Non-IID Dirichlet partitioning (paper §IV-A1) — a bit-for-bit numpy
-copy of ``repro.data.partition.dirichlet_partition``."""
+"""Non-IID data partitioning (paper §IV-A1) — a bit-for-bit numpy copy of
+``repro.data.partition``.
+
+* :func:`dirichlet_partition` — per class, proportions over nodes drawn
+  from Dirichlet(alpha); alpha = 0.1 is the paper's CIFAR-10 split.
+* :func:`by_writer_partition` — FEMNIST-style: each node receives whole
+  writers.
+* :func:`heterogeneity` — mean total-variation distance of the per-node
+  label distributions (:func:`label_distributions`) from the global one.
+"""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -30,3 +38,36 @@ def dirichlet_partition(labels: np.ndarray, n_nodes: int, alpha: float,
         if min(len(p) for p in parts) >= min_per_node:
             return [np.asarray(sorted(p), np.int64) for p in parts]
     raise RuntimeError("dirichlet_partition failed to satisfy min_per_node")
+
+
+def by_writer_partition(writer_ids: np.ndarray, n_nodes: int,
+                        rng: np.random.Generator) -> List[np.ndarray]:
+    """FEMNIST-style: assign whole writers to nodes round-robin after a
+    random shuffle; every node gets >= 1 writer."""
+    writers = np.unique(writer_ids)
+    if len(writers) < n_nodes:
+        raise ValueError("need at least one writer per node")
+    rng.shuffle(writers)
+    parts = [[] for _ in range(n_nodes)]
+    for i, w in enumerate(writers):
+        parts[i % n_nodes].extend(np.flatnonzero(writer_ids == w).tolist())
+    return [np.asarray(sorted(p), np.int64) for p in parts]
+
+
+def label_distributions(labels: np.ndarray, parts: Sequence[np.ndarray],
+                        num_classes: int) -> np.ndarray:
+    """``[n_nodes, num_classes]`` empirical label distribution per node."""
+    out = np.zeros((len(parts), num_classes))
+    for i, p in enumerate(parts):
+        cnt = np.bincount(labels[p], minlength=num_classes)
+        out[i] = cnt / max(cnt.sum(), 1)
+    return out
+
+
+def heterogeneity(labels: np.ndarray, parts: Sequence[np.ndarray],
+                  num_classes: int) -> float:
+    """Mean total-variation distance between node and global label
+    distributions: 0 = IID, toward 1 = every node sees a single class."""
+    dists = label_distributions(labels, parts, num_classes)
+    glob = np.bincount(labels, minlength=num_classes) / len(labels)
+    return float(np.mean(np.abs(dists - glob).sum(axis=1) / 2))

@@ -58,7 +58,8 @@ class RunnerConfig:
     eval_batch_chunk: Optional[int] = None
     # Engine: "dense" (the [n, n] path), "sparse" (CSR adjacency, O(n k D)
     # mixing; a dense strategy there runs in compat mode) or "auto"
-    # (sparse for a sparse-native strategy, dense otherwise).
+    # (resolved through the repro_torch.tune cache for this run's shape;
+    # a sparse-native strategy always runs sparse).
     engine: str = "dense"
     # Compat-mode mixing of a dense strategy under engine="sparse":
     # "exact" mixes as the dense engine does (bitwise), "gather" converts
@@ -73,10 +74,19 @@ class RunnerConfig:
     # has the same bits whatever it is (None: whole leaves).  The card's
     # kernels block D themselves and do not read it.
     mix_chunk_d: Optional[int] = None
+    # Cap on the rounds the round engine runs between host decodes (int |
+    # "auto"); None runs each whole evaluation segment at once.  The
+    # trajectory has the same bits whatever it is.  "auto" here, in engine
+    # and in compress is resolved through the repro_torch.tune cache for
+    # this run's (backend, n, D, devices, net) shape before the engine is
+    # built, falling back to the hand-set default when the cache has no
+    # entry, so an "auto" run is bit for bit the resolved values passed
+    # explicitly (DecentralizedRunner.resolved_knobs says which).
+    chunk: Optional[object] = None
     # Compressed gossip (repro_torch.compress): "none", a codec spec such
-    # as "int8", "fp8" or "int8+topk0.75", or a CompressConfig.  A codec
-    # carries an error-feedback residual and the replicas every peer
-    # holds, mixes over the replicas with a consensus correction, and
+    # as "int8", "fp8" or "int8+topk0.75", a CompressConfig, or "auto".
+    # A codec carries an error-feedback residual and the replicas every
+    # peer holds, mixes over the replicas with a consensus correction, and
     # charges the analytic wire bytes; a disabled one is exactly "none".
     compress: object = "none"
     # Dense in-scan network model (repro_torch.netsim.DenseNetwork):
@@ -90,17 +100,21 @@ ENGINES = ("dense", "sparse")
 SPARSE_MIX_MODES = ("exact", "gather")
 
 
-def resolve_engine(cfg: RunnerConfig, strategy) -> str:
-    """The engine ``cfg`` selects for ``strategy``: ``"auto"`` resolved,
-    then the reference's checks (``ValueError`` for an unknown engine or
-    compat mix or a network model under the sparse engine, ``TypeError``
-    for a sparse-native strategy under the dense engine)."""
+def resolve_engine(cfg: RunnerConfig, strategy,
+                   engine: Optional[str] = None) -> str:
+    """The engine ``engine`` (``cfg.engine`` by default) selects for
+    ``strategy``, after the reference's checks (``ValueError`` for an
+    unknown engine or compat mix or a network model under the sparse
+    engine, ``TypeError`` for a sparse-native strategy under the dense
+    engine).  Under ``"auto"`` a sparse-native strategy runs sparse; a
+    dense strategy's ``"auto"`` is the tuning cache's to resolve
+    (:func:`repro_torch.tune.resolve_knobs`) and comes back as it is."""
     sparse_native = bool(getattr(strategy, "sparse", False))
-    engine = cfg.engine
-    if engine == "auto":
-        engine = "sparse" if sparse_native else "dense"
-    if engine not in ENGINES:
-        raise ValueError(f"engine={cfg.engine!r} not in {ENGINES + ('auto',)}")
+    engine = cfg.engine if engine is None else engine
+    if engine == "auto" and sparse_native:
+        engine = "sparse"
+    if engine not in ENGINES + ("auto",):
+        raise ValueError(f"engine={engine!r} not in {ENGINES + ('auto',)}")
     if cfg.sparse_mix not in SPARSE_MIX_MODES:
         raise ValueError(f"sparse_mix={cfg.sparse_mix!r} not in "
                          f"{SPARSE_MIX_MODES}")
@@ -247,7 +261,9 @@ class DecentralizedRunner:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
-        self.engine = resolve_engine(cfg, strategy)
+        resolve_engine(cfg, strategy)
+        # The knobs the last round engine was built with (repro_torch.tune).
+        self.resolved_knobs = None
         self.batcher = batcher
         self.test_batch = to_device(test_batch, self.device)
         if params is None:
@@ -281,18 +297,43 @@ class DecentralizedRunner:
         return make_evaluator(self._eval_fn,
                               batch_chunk=self.cfg.eval_batch_chunk)
 
+    def _knobs(self):
+        """``(knobs, engine)``: ``cfg``'s ``"auto"`` knobs resolved through
+        the tuning cache for this run's shape
+        (:func:`repro_torch.tune.resolve_knobs`), and the engine they
+        select; a sparse-native strategy under ``engine="auto"`` runs
+        sparse whatever the cache says, as the reference's does."""
+        from ..tune import AUTO, resolve_knobs
+        knobs = resolve_knobs(self.cfg, self.params)
+        engine = knobs.engine
+        if self.cfg.engine == AUTO and getattr(self.strategy, "sparse",
+                                               False):
+            engine = "sparse"
+        return knobs, engine
+
+    @property
+    def engine(self) -> str:
+        """The engine the next round engine runs: ``"dense"`` or
+        ``"sparse"``."""
+        return self._knobs()[1]
+
     def _make_engine(self):
-        """A round engine on the runner's current state; each ``run()``
-        builds a fresh one, so the codec's replicas and residual restart
-        from the parameters and from zero, and the network model's ring
-        from the parameters, as the reference's do."""
+        """A round engine on the runner's current state, its ``"auto"``
+        knobs resolved (:meth:`_knobs`; the values land in
+        ``resolved_knobs``); each ``run()`` builds a fresh one, so the
+        codec's replicas and residual restart from the parameters and from
+        zero, and the network model's ring from the parameters, as the
+        reference's do."""
         from .superstep import Superstep
+        knobs, engine = self._knobs()
+        self.resolved_knobs = knobs
         return Superstep(
             loss_fn=self._loss_fn, eval_fn=self._eval_fn,
             optimizer=self.opt, batcher=self.batcher,
             test_batch=self.test_batch, strategy=self.strategy,
             cfg=self.cfg, params=self.params, opt_state=self.opt_state,
-            device=self.device)
+            device=self.device, engine=engine, chunk=knobs.chunk,
+            compress=knobs.compress)
 
     def _round(self, rnd: int, stage: Callable = _unstaged) -> np.ndarray:
         """One host-loop round (reference ``runtime.py`` ``_round``);

@@ -182,11 +182,25 @@ class Superstep:
     the sparse path) and ``log`` the evaluation records.  With a network
     model, ``hist`` / ``lhist`` are the snapshot and last-step rings,
     ``delivered_history`` the per-round delivered edges and ``net_stats``
-    the delivered, dropped and staleness counters."""
+    the delivered, dropped and staleness counters.
+
+    ``engine`` and ``compress`` default to ``cfg``'s; ``chunk`` caps the
+    rounds run between host decodes (None: each evaluation segment at
+    once) and does not change the trajectory.  Each must arrive concrete:
+    ``"auto"`` is refused, as the runner resolves it through
+    :func:`repro_torch.tune.resolve_knobs` first."""
 
     def __init__(self, *, loss_fn: Callable, eval_fn: Callable, optimizer,
                  batcher, test_batch, strategy, cfg: RunnerConfig,
-                 params, opt_state, device):
+                 params, opt_state, device, engine: Optional[str] = None,
+                 chunk: Optional[int] = None, compress=None):
+        engine = cfg.engine if engine is None else engine
+        compress = cfg.compress if compress is None else compress
+        if engine == "auto" or isinstance(chunk, str) or compress == "auto":
+            raise TypeError(
+                "the engine takes concrete knobs; \"auto\" sentinels are "
+                "resolved by DecentralizedRunner via repro_torch.tune."
+                "resolve_knobs before the engine is built")
         if not getattr(strategy, "in_graph", False):
             raise TypeError(
                 f"strategy {getattr(strategy, 'name', strategy)!r} has no "
@@ -199,7 +213,8 @@ class Superstep:
         self.cfg = cfg
         self.device = device
         self.strategy = strategy
-        self.engine = resolve_engine(cfg, strategy)
+        self.engine = resolve_engine(cfg, strategy, engine)
+        self.chunk = chunk
         self.sparse_native = bool(getattr(strategy, "sparse", False))
         self.compat_gather = (self.engine == "sparse"
                               and not self.sparse_native
@@ -212,7 +227,7 @@ class Superstep:
         self.edge_history: list = []
         self._comm_bytes = 0
         self._last_isolated: Optional[int] = None
-        codec = CompressConfig.parse(cfg.compress)
+        codec = CompressConfig.parse(compress)
         # A disabled codec is exactly compress="none": no carry, no ops.
         self.codec = codec if codec.enabled else None
         model_bytes = cfg.model_bytes \
@@ -459,9 +474,10 @@ class Superstep:
 
     def run_steps(self, rounds: int, chunk: Optional[int] = None) -> None:
         """Throughput mode (the reference's ``run_steps``): rounds ``0 ..
-        rounds - 1`` from the current state in chunks of ``chunk`` (all at
-        once by default), no evaluation."""
-        chunk = chunk or rounds
+        rounds - 1`` from the current state in chunks of ``chunk`` (the
+        engine's ``chunk`` by default, all at once when neither is set),
+        no evaluation."""
+        chunk = chunk or self.chunk or rounds
         start = 0
         while start < rounds:
             end = min(start + chunk, rounds) - 1
@@ -478,13 +494,18 @@ class Superstep:
 
     def run(self, progress: Optional[Callable[[RoundRecord], None]] = None
             ) -> MetricsLog:
-        """All ``cfg.rounds`` rounds, evaluating at each chunk end; after
-        each chunk the strategy adopts the evolved graph state (where it
+        """All ``cfg.rounds`` rounds, evaluating at each evaluation round
+        (each segment run in pieces of at most ``chunk`` rounds); after
+        each segment the strategy adopts the evolved graph state (where it
         has ``set_graph_state``), as the reference's engine hands it
         back."""
         for start, end in eval_boundaries(self.cfg.rounds,
                                           self.cfg.eval_every):
-            edges_np = self._run_chunk(start, end)
+            s = start
+            while s <= end:
+                e = end if not self.chunk else min(s + self.chunk - 1, end)
+                edges_np = self._run_chunk(s, e)
+                s = e + 1
             if hasattr(self.strategy, "set_graph_state"):
                 self.strategy.set_graph_state(self.gstate, self.sim)
             rec = self.evaluate(end, edges_np[-1])

@@ -322,15 +322,27 @@ def test_replicas_are_the_sum_of_the_decoded_deltas(spec, monkeypatch):
         assert torch.equal(eng.hat[key], hat[key]), key
 
 
-def test_model_bytes_and_auto_are_the_references():
+def test_model_bytes_and_auto_are_the_references(monkeypatch):
     """Without a codec the comm accounting charges ``cfg.model_bytes`` when
-    it is set; ``compress="auto"`` is refused with a TypeError."""
+    it is set; ``compress="auto"`` resolves through the tuning cache, and
+    with no entry for the shape (the CPU) it is ``"none"``, bit for bit,
+    as the reference's is with no entry."""
+    import repro_torch.tune as tt
+    monkeypatch.delenv(tt.ENV_CACHE, raising=False)
     run = _port_runner(PORT_STRATEGIES["static"](), "none")
     run.cfg = RunnerConfig(n_nodes=N, rounds=2, eval_every=1,
                            model_bytes=1000)
     run.run()
     edges = sum(int(e.sum()) for e in run.edge_history)
     assert run.log.records[-1].comm_bytes == edges * 1000
+    plain = _port_runner(PORT_STRATEGIES["static"](), "none")
+    plain.run()
     run = _port_runner(PORT_STRATEGIES["static"](), "auto")
-    with pytest.raises(TypeError, match="auto"):
-        run.run()
+    run.run()
+    assert run.resolved_knobs.compress == "none"
+    assert run.resolved_knobs.source == \
+        f"default:cpu|n={N}|d=1580|devices=1|net=0"
+    for key in plain.params:
+        assert torch.equal(run.params[key], plain.params[key])
+    assert [r.comm_bytes for r in run.log.records] == \
+        [r.comm_bytes for r in plain.log.records]

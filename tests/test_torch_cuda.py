@@ -1000,3 +1000,78 @@ def test_cuda_stacked_step_is_each_experiments_step(cuda_device, model):
                 assert torch.equal(stacked[k][e * n:(e + 1) * n], v), (e, k)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# The tuner's knobs on the card (``chip_smoke.py`` phase 15).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [
+    dict(chunk=4, engine="sparse", compress="int8"),
+    dict(chunk=3, engine="dense", compress="int8+topk0.5")])
+def test_cuda_tune_auto_is_the_explicit_run(cuda_device, tmp_path,
+                                            monkeypatch, entry):
+    """A runner whose knobs are ``"auto"`` resolves them from a cache entry
+    for its card shape and is bit for bit the runner given the values."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import tune as tt
+    factory = tt.mlp_runner_factory(16, rounds=12, device=cuda_device)
+    probe = factory(tt.Candidate())
+    shape = tt.shape_of(probe.cfg, probe.params)
+    assert shape.key() == "cuda|n=16|d=1580|devices=1|net=0"
+    cache = tt.TuningCache()
+    cache.put(shape, tt.TuneEntry(**entry))
+    cache.save(tmp_path / "cache.json")
+
+    def run(**knobs):
+        runner = factory(tt.Candidate())
+        runner.cfg = dataclasses.replace(runner.cfg, eval_every=5, **knobs)
+        runner.run()
+        return runner
+
+    monkeypatch.setenv(tt.ENV_CACHE, str(tmp_path / "cache.json"))
+    auto = run(chunk="auto", engine="auto", compress="auto")
+    monkeypatch.delenv(tt.ENV_CACHE)
+    explicit = run(**entry)
+    assert auto.resolved_knobs.source == f"cache:{shape.key()}"
+    assert auto.resolved_knobs.engine == entry["engine"]
+    for k in auto.params:
+        assert torch.equal(auto.params[k], explicit.params[k]), k
+    assert all(np.array_equal(a, b) for a, b in
+               zip(auto.edge_history, explicit.edge_history))
+    assert [r.comm_bytes for r in auto.log.records] == \
+        [r.comm_bytes for r in explicit.log.records]
+
+
+@pytest.mark.cuda
+def test_cuda_tune_sparse_engine_past_the_decode_limit(cuda_device):
+    """fig12's sparse row past ``SPARSE_EDGE_DECODE_MAX`` nodes: the edge
+    history keeps ``(idx, mask)`` pairs, one CSR launch a round, and a
+    chunked run (``RunnerConfig.chunk``) gives the same bits."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.bench import fig12
+    from repro_torch.dlrt.superstep import SPARSE_EDGE_DECODE_MAX
+    n, rounds = SPARSE_EDGE_DECODE_MAX + 904, 6
+    runs = []
+    for chunk in (None, 4):
+        runner = fig12.build(n, 3, "sparse", rounds, cuda_device)
+        runner.cfg = dataclasses.replace(runner.cfg, chunk=chunk,
+                                         eval_every=3)
+        before = graph_mix_sparse.launches
+        runner.run()
+        assert graph_mix_sparse.launches - before == rounds
+        runs.append(runner)
+    whole, chunked = runs
+    assert len(whole.edge_history) == rounds
+    for (i1, m1), (i2, m2) in zip(whole.edge_history, chunked.edge_history):
+        assert i1.shape == m1.shape == (n, 3)
+        assert np.array_equal(i1, i2) and np.array_equal(m1, m2)
+    for k in whole.params:
+        assert torch.isfinite(whole.params[k]).all()
+        assert torch.equal(whole.params[k], chunked.params[k]), k
+    rec = whole.log.records[-1]
+    idx, mask = whole.edge_history[-1]
+    assert rec.isolated == int((~mask.any(axis=1)).sum())
+    assert [r.comm_bytes for r in whole.log.records] == \
+        [r.comm_bytes for r in chunked.log.records]
