@@ -184,6 +184,30 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    ``fig2``, ``fig67`` and ``fig3_curves`` (n = 4, 4 rounds) at smoke depth
    through their ``main(argv)``;
 
+16. the sharded superstep (``RunnerConfig(mesh_devices=1)``, DESIGN.md
+   §8) on one card, inside one one-rank NCCL group, GN-LeNet at full
+   width with fig3's settings on a ``DeviceDataStream``, ten rounds,
+   deterministic cuDNN, each run against the same run without a mesh and
+   with its counts set to 0 just before it and read just after: (a) the
+   gather schedule at n = 50 for Morph, Static and FC: identical edges,
+   parameters bit for bit (for Morph the no-mesh run mixes through the
+   masked kernel, the sharded one through ``graph_mix`` on
+   ``uniform_weights_torch``, and the two sum alike), one grouped
+   ``graph_mix`` launch a round and one Gram launch a refresh round for
+   Morph; (b) bit for bit too: the psum schedule at n = 50, Morph under
+   int8 on both schedules, Morph under fig11's WAN profile with gather
+   (identical delivered sets and counters), and sparse Morph at n = 1000
+   (phase 8's set-up) on both schedules against the single-device sparse
+   engine (identical ``(idx, mask)``; one grouped CSR launch a round for
+   the row block or the push partials);
+   (c) ms a round against the run without a mesh, host clock
+   around synchronised stages through the engines' ``stage`` hook
+   (``gather``, ``similarity``, ``controller``, ``mix``, ``reduce`` and the
+   rest), for dense Morph at n = 50 (gather and psum) and 1000 (the tiled
+   route) and sparse Morph at n = 1000; (d) ``repro_torch.bench.fig10 --devices 1`` on the
+   card (one NCCL rank in a child process) and ``--device cpu --devices 1
+   2 4 --rounds 20 --chunk 10`` (gloo ranks on the card's host);
+
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
 cuDNN convolutions and matmuls in every phase, so the card computes in
@@ -412,6 +436,42 @@ def check_sparse_grouped(dev, gen):
         f"k = 3 and n - 1 with invalid slots; f32, bf16) are one launch each "
         f"and {count} leaves equal the per-leaf calls and the plain version "
         f"bit for bit, the same twice")
+    check_sparse_blocks(dev, gen)
+
+
+def check_sparse_blocks(dev, gen):
+    """The CSR kernel as the sharded engine calls it, over GN-LeNet's
+    leaves at n = 1000: a receiver block whose own rows start at ``self0``
+    of a larger population (the gather row block of one rank of two), bit
+    for bit the plain version and those rows of the whole mix; and the
+    push partials (every receiver over one rank's senders, no self term),
+    bit for bit the plain version."""
+    from repro_torch.kernels import graph_mix_sparse_leaves, ref
+    n, half, count = LARGE_N, LARGE_N // 2, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        _, idx, w, w_self, mask = sparse_inputs(dev, gen, n, 1, K, dtype)
+        xs = [torch.randn((n, d), generator=gen, device=dev).to(dtype)
+              for d in GN_LENET_LEAVES]
+        whole = graph_mix_sparse_leaves(idx.to(torch.int32).contiguous(),
+                                        w, w_self, xs)
+        block = (idx[half:].to(torch.int32).contiguous(),
+                 w[half:].contiguous(), w_self[half:].contiguous())
+        ys = graph_mix_sparse_leaves(*block, xs, self0=half)
+        push = (idx.remainder(half).to(torch.int32).contiguous(), w)
+        parts = graph_mix_sparse_leaves(*push, None,
+                                        [x[:half] for x in xs], self0=None)
+        for x, y, full, part in zip(xs, ys, whole, parts):
+            if not (torch.equal(y, ref.graph_mix_sparse(*block, x, half))
+                    and torch.equal(y, full[half:])
+                    and torch.equal(part, ref.graph_mix_sparse(
+                        *push, None, x[:half], None))):
+                raise AssertionError(
+                    f"CSR block/partials D={x.shape[1]} {dtype}: not the "
+                    "plain version's bits")
+            count += 2
+    log(f"phase 3: CSR receiver block (self0 = {half} of {n} rows) and push "
+        f"partials (no self term) over GN-LeNet's leaves, f32 and bf16: "
+        f"{count} leaves bit for bit the plain version")
 
 
 def time_ms(fn, args_list, reps=30, warmup=3):
@@ -1106,7 +1166,8 @@ LARGE = dict(samples=15000, test=256, equal_shards=True)
 
 def make_runner(name, n, dev, rounds, eval_every, engine="dense",
                 sparse_mix="exact", eval_chunk=128, compress="none",
-                net=None, strategy=None, compiled=None, **setup):
+                net=None, strategy=None, compiled=None, mesh_devices=None,
+                collective="gather", **setup):
     from repro_torch.dlrt import DecentralizedRunner, RunnerConfig
     from repro_torch.models import cnn_loss
     from repro_torch.optim import sgd
@@ -1118,7 +1179,8 @@ def make_runner(name, n, dev, rounds, eval_every, engine="dense",
         cfg=RunnerConfig(n_nodes=n, rounds=rounds, eval_every=eval_every,
                          eval_batch_chunk=eval_chunk, engine=engine,
                          sparse_mix=sparse_mix, compress=compress, net=net,
-                         compiled=compiled),
+                         compiled=compiled, mesh_devices=mesh_devices,
+                         collective=collective),
         device=dev)
 
 
@@ -3834,6 +3896,250 @@ def tune_path(dev):
     return fig12_counts, fig9_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded superstep on one card.
+# ---------------------------------------------------------------------------
+
+SHARD_STRATEGIES = ("morph", "static", "fully-connected")
+SHARD_TIMED = {MAIN_N: 10, LARGE_N: 5}      # rounds timed a run in 16(c)
+
+
+@contextlib.contextmanager
+def one_rank_nccl_group():
+    """A one-rank NCCL process group on a ``file://`` store for the block:
+    runners given ``mesh_devices=1`` shard over it and leave it up."""
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=(Path(tmp) / "store").as_uri(),
+            world_size=1, rank=0, timeout=timedelta(seconds=300))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Deterministic cuDNN algorithms for the block, so two runs' local
+    steps agree bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def counted_run(name, n, dev, rounds=ROUNDS, **kw):
+    """``run_strategy`` with the counts set to 0 just before and read just
+    after: ``(runner, wall seconds, launches)``."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    runner, wall = run_strategy(name, n, dev, rounds, DELTA_R, **kw)
+    return runner, wall, launch_counts()
+
+
+def sharded_want(name, rounds=ROUNDS, engine="dense"):
+    """A sharded run's launches: one grouped ``graph_mix`` a round (the row
+    block or the psum partials, every dense strategy and the network
+    ring) and one grouped Gram a round for Morph (``sim_every`` 1); one
+    grouped CSR launch a round for the sparse engine (its row block or
+    its push partials)."""
+    from repro_torch.kernels import KERNELS
+    want = dict.fromkeys((k.__name__ for k in KERNELS), 0)
+    if engine == "dense":
+        want["graph_mix"] = rounds
+        want["gram_matrix"] = rounds if name == "morph" else 0
+    else:
+        want["graph_mix_sparse"] = rounds
+    return want
+
+
+def shard_pair(name, n, dev, totals, label, tol, plain=None, **kw):
+    """Phase 16(a), (b): one case without a mesh and on one rank, both
+    with deterministic cuDNN: identical edges (and delivered sets and
+    network counters), parameters within ``tol`` (bit for bit at 0),
+    equal comm bytes, finite values, :func:`sharded_want`'s launches.
+    ``plain`` is the run without a mesh where one was made already, as
+    ``(runner, wall, launches)``; returns it."""
+    engine = kw.get("engine", "dense")
+    plain_kw = {k: v for k, v in kw.items() if k != "collective"}
+    with deterministic_cudnn():
+        if plain is None:
+            plain = counted_run(name, n, dev, **plain_kw)
+        sharded, wall, got = counted_run(name, n, dev, mesh_devices=1, **kw)
+    plain, plain_wall, plain_got = made = plain
+    _add(totals, got)
+    if got != sharded_want(name, engine=engine):
+        raise AssertionError(f"16 {label}: launches {got} != "
+                             f"{sharded_want(name, engine=engine)}")
+    if len(plain.edge_history) != len(sharded.edge_history) or not all(
+            np.array_equal(a, b) for a, b in zip(plain.edge_history,
+                                                 sharded.edge_history)):
+        raise AssertionError(f"16 {label}: edges differ from the run "
+                             "without a mesh")
+    if plain.net_stats is not None:
+        same = all(np.array_equal(a, b) for a, b in zip(
+            plain.delivered_history, sharded.delivered_history)) and all(
+            np.array_equal(plain.net_stats[k], sharded.net_stats[k])
+            for k in plain.net_stats)
+        if not same:
+            raise AssertionError(f"16 {label}: delivered sets or network "
+                                 "counters differ")
+    bits = all(torch.equal(plain.params[k], sharded.params[k])
+               for k in plain.params)
+    gap = max(float((plain.params[k].float() - sharded.params[k].float())
+                    .abs().max()) for k in plain.params)
+    if (tol == 0.0 and not bits) or gap > tol:
+        raise AssertionError(f"16 {label}: parameters {gap:.3g} apart "
+                             f"(limit {tol:g}, bit for bit {bits})")
+    recs = sharded.log.records
+    if [r.comm_bytes for r in plain.log.records] != \
+            [r.comm_bytes for r in recs]:
+        raise AssertionError(f"16 {label}: comm bytes differ")
+    if not all(np.isfinite(r.mean_loss) for r in recs) or not all(
+            torch.isfinite(p).all() for p in sharded.params.values()):
+        raise AssertionError(f"16 {label}: non-finite values")
+    summary = {"bits": bits, "max_abs_diff": gap, "tol": tol,
+               "ms_per_round_incl_eval": wall / ROUNDS * 1e3,
+               "no_mesh_ms_per_round_incl_eval": plain_wall / ROUNDS * 1e3,
+               "accuracy": recs[-1].mean_accuracy,
+               "accuracy_equal": [r.mean_accuracy for r in recs] ==
+               [r.mean_accuracy for r in plain.log.records],
+               "comm_bytes": recs[-1].comm_bytes, "launches": got,
+               "no_mesh_launches": plain_got}
+    log(f"phase 16{label}: {json.dumps(summary)}")
+    return made
+
+
+def sharded_conformance(dev, totals):
+    """Phase 16(a) and (b)."""
+    # Every pair is held bit for bit: on one rank a reduce-scatter is a
+    # copy, the gather codec path is the single-device arithmetic, and the
+    # masked and general dense mixes and the sparse row block and partials
+    # reach kernels that sum in the same order.
+    for name in SHARD_STRATEGIES:
+        shard_pair(name, MAIN_N, dev, totals,
+                   f"(a) {name} n={MAIN_N} gather", 0.0)
+    shard_pair("morph", MAIN_N, dev, totals, f"(b) morph n={MAIN_N} psum",
+               0.0, collective="psum")
+    for col in ("gather", "psum"):
+        shard_pair("morph", MAIN_N, dev, totals,
+                   f"(b) morph n={MAIN_N} int8 {col}", 0.0,
+                   collective=col, compress="int8")
+    shard_pair("morph", MAIN_N, dev, totals,
+               f"(b) morph n={MAIN_N} fig11 wan gather", 0.0,
+               net=fig11_network("wan", MAIN_N, ROUNDS))
+    plain = None
+    for col in ("gather", "psum"):
+        plain = shard_pair("sparse-morph", LARGE_N, dev, totals,
+                           f"(b) sparse morph n={LARGE_N} {col}",
+                           0.0, plain=plain, collective=col,
+                           engine="sparse", eval_chunk=16, **LARGE)
+
+
+def shard_breakdown(dev, name, n, totals, engine="dense",
+                    collective="gather", **setup):
+    """Phase 16(c): ms a round of one case without a mesh and on one rank,
+    first the rounds alone (one synchronise each side), then by stage
+    through the engines' ``stage`` hook (each stage ends in a
+    synchronise); one warm round first, evaluation left out."""
+    from repro_torch import kernels
+    rounds = SHARD_TIMED[n]
+    out = {}
+    # One runner for both engines: each starts from its parameters, and
+    # the stream draws a round's batch from that round's key alone.
+    runner = make_runner(name, n, dev, 2 * rounds + 1, 10 ** 9,
+                         engine=engine, eval_chunk=16, collective=collective,
+                         **setup)
+    for label, mesh in (("no_mesh", None), ("one_rank", 1)):
+        runner.cfg = dataclasses.replace(runner.cfg, mesh_devices=mesh)
+        eng = runner._make_engine()
+        kernels.reset_launches()
+        eng.round(0)                               # warm (negotiates)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rnd in range(1, rounds + 1):
+            eng.round(rnd)
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) / rounds * 1e3
+        stages = {}
+
+        def timed(stage, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            stages[stage] = stages.get(stage, 0.0) \
+                + time.perf_counter() - t
+            return got
+
+        for rnd in range(rounds + 1, 2 * rounds + 1):
+            eng.round(rnd, stage=timed)
+        if mesh is not None:
+            _add(totals, launch_counts())
+        eng.close()
+        out[label] = {"ms_per_round": whole, "stages_ms": {
+            k: v / rounds * 1e3 for k, v in stages.items()}}
+    out["one_rank_over_no_mesh"] = out["one_rank"]["ms_per_round"] \
+        / out["no_mesh"]["ms_per_round"]
+    log(f"phase 16(c): {name} n={n} ({engine}, {collective}), {rounds} "
+        f"rounds each "
+        f"(negotiation every {DELTA_R}th): {json.dumps(out)}")
+    return out
+
+
+def fig10_rows(dev, totals):
+    """Phase 16(d): fig10 with one NCCL rank on the card, and with one,
+    two and four gloo ranks on the card's host."""
+    from repro_torch.bench import fig10
+    rounds, refreshes = 60, sum(1 for r in range(60) if r % 5 == 0)
+    with scoped_env(BENCH_DIR=""):           # records only, no file
+        card = {r["key"]: r for r in fig10.main(["--devices", "1"])}
+        host = {r["key"]: r for r in fig10.main(
+            ["--device", "cpu", "--devices", "1", "2", "4", "--rounds",
+             "20", "--chunk", "10"])}
+    row = card["sharded-d1/n100"]
+    want = dict(dict.fromkeys(row["launches"], 0), graph_mix=rounds,
+                gram_matrix=refreshes)
+    if row["launches"] != want or row["rounds"] != rounds:
+        raise AssertionError(f"16(d): fig10 card launches "
+                             f"{row['launches']} != {want}")
+    _add(totals, row["launches"])
+    rows = {f"card/{k}": v.get("value") for k, v in card.items()}
+    rows.update({f"host/{k}": v.get("value") for k, v in host.items()})
+    if not all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+               for v in rows.values()):
+        raise AssertionError(f"16(d): fig10 rows {rows}")
+    log(f"phase 16(d): fig10 (n = 100; card {rounds} rounds, chunk 20; "
+        f"host 20 rounds, chunk 10): "
+        f"{json.dumps(rows)}; card row launches "
+        f"{json.dumps(row['launches'])}")
+
+
+def sharded_path(dev):
+    """Phase 16: (a) to (d); returns the launches of its sharded runs."""
+    from repro_torch.kernels import KERNELS
+    t0 = time.perf_counter()
+    totals = dict.fromkeys((k.__name__ for k in KERNELS), 0)
+    with one_rank_nccl_group():
+        sharded_conformance(dev, totals)
+        t1 = time.perf_counter()
+        shard_breakdown(dev, "morph", MAIN_N, totals)
+        shard_breakdown(dev, "morph", MAIN_N, totals, collective="psum")
+        shard_breakdown(dev, "morph", LARGE_N, totals, **LARGE)
+        shard_breakdown(dev, "sparse-morph", LARGE_N, totals,
+                        engine="sparse", **LARGE)
+    t2 = time.perf_counter()
+    fig10_rows(dev, totals)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s ((a) and (b) "
+        f"{t1 - t0:.1f}, (c) {t2 - t1:.1f}, (d) "
+        f"{time.perf_counter() - t2:.1f})")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3898,6 +4204,7 @@ def main():
     async_counts = async_path(dev)
     sweep_counts, sweep_mixes = sweep_path(dev)
     fig12_counts, fig9_counts = tune_path(dev)
+    sharded_counts = sharded_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
             k: v[name] for k, v in sweep_mixes.items()}
@@ -3934,6 +4241,7 @@ def main():
             "launches_sweep": sweep_counts[name],
             "launches_fig12": fig12_counts[name],
             "launches_fig9": fig9_counts[name],
+            "launches_sharded": sharded_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

@@ -96,11 +96,13 @@ class Bench:
 
 def shape_dict(cfg, params, backend: str) -> Dict:
     """The run's shape as the reference records it: backend, n, the
-    per-node parameter count d, devices (1) and the network depth (0)."""
+    per-node parameter count d, devices (the node mesh's world size) and
+    the network depth (0)."""
+    from ..tune.resolve import mesh_world
     n = cfg.n_nodes
     return {"backend": backend, "n": n,
             "d": sum(v.numel() // n for v in params.values()),
-            "devices": 1, "net": 0}
+            "devices": mesh_world(cfg), "net": 0}
 
 
 def sweep_experiment_records(b: Bench, prefix: str, spec, logs,

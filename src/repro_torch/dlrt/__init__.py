@@ -1,17 +1,20 @@
 """Decentralized-learning runtime: the runner (its host loop and the dense
-and sparse round engines), the sweep farm (E experiments stacked on one
-device) and the round- and wall-clock-domain metrics."""
+and sparse round engines, on one device or sharded over the ranks of a
+process group), the sweep farm (E experiments stacked on one device) and
+the round- and wall-clock-domain metrics."""
 from .metrics import (MetricsLog, NetMetricsLog, NetRecord, RoundRecord,
                       internode_variance, net_staleness_mean)
 from .runtime import (DecentralizedRunner, RunnerConfig, evaluate_record,
                       host_params, make_evaluator, make_local_step,
                       make_round_record, stacked_model_bytes)
+from .sharded import COLLECTIVES, ShardedSuperstep
 from .superstep import Superstep, eval_boundaries
 from .sweep import SweepSpec, SweepSuperstep
 
-__all__ = ["MetricsLog", "NetMetricsLog", "NetRecord", "RoundRecord",
-           "internode_variance", "net_staleness_mean",
+__all__ = ["COLLECTIVES", "MetricsLog", "NetMetricsLog", "NetRecord",
+           "RoundRecord", "internode_variance", "net_staleness_mean",
            "DecentralizedRunner", "RunnerConfig", "evaluate_record",
            "host_params", "make_evaluator",
            "make_local_step", "make_round_record", "stacked_model_bytes",
-           "Superstep", "eval_boundaries", "SweepSpec", "SweepSuperstep"]
+           "ShardedSuperstep", "Superstep", "eval_boundaries", "SweepSpec",
+           "SweepSuperstep"]

@@ -1,5 +1,4 @@
-"""Decentralized-learning runner — the port of the single-device path of
-``repro.dlrt.runtime``.
+"""Decentralized-learning runner — the port of ``repro.dlrt.runtime``.
 
 Per round: a node-batched local SGD step, the strategy's topology, and
 row-stochastic mixing; evaluation of every node on the shared test set at
@@ -8,7 +7,9 @@ Two paths run the rounds (``RunnerConfig.compiled``):
 
 * the round engine (:mod:`repro_torch.dlrt.superstep`, dense or sparse)
   for an in-graph strategy: ``graph_round`` each round, the Eq.-3 cache
-  refreshed every ``sim_every`` rounds;
+  refreshed every ``sim_every`` rounds; with ``RunnerConfig.mesh_devices``
+  its node axis sharded over ``torch.distributed`` ranks
+  (:mod:`repro_torch.dlrt.sharded`);
 * the host loop (:meth:`DecentralizedRunner._round`) for any strategy
   with ``round_edges``, the host protocol and baselines included: the
   strategy sees the stacked models every ``sim_every`` rounds (a host
@@ -42,7 +43,8 @@ from .metrics import (MetricsLog, RoundRecord, internode_variance,
 @dataclass
 class RunnerConfig:
     """The experiment grid of the reference's ``RunnerConfig`` that the
-    single-device engines read."""
+    port's engines read (the reference's Pallas and ``block_d`` knobs have
+    no counterpart: the card runs the hand-written kernels)."""
     n_nodes: int                           # population size n
     rounds: int                            # total training rounds
     eval_every: int = 20                   # evaluation cadence (rounds)
@@ -92,8 +94,24 @@ class RunnerConfig:
     # Dense in-scan network model (repro_torch.netsim.DenseNetwork):
     # latency, staleness, drops, churn and stragglers priced inside every
     # round of the dense engine (DESIGN.md §9).  None = the idealized
-    # lockstep network.
+    # lockstep network.  Requires the round engine and, when sharded,
+    # collective="gather".
     net: Optional[object] = None
+    # Sharded round engine (repro_torch.dlrt.ShardedSuperstep, DESIGN.md
+    # §8): shard the node axis over this many torch.distributed ranks,
+    # one process each (NCCL on the card, gloo on the CPU).  None = the
+    # single-device engine; 0 = the initialised process group's world
+    # size; N > 0 = exactly N ranks.  Under torchrun (or
+    # repro_torch.launch.spawn) the mesh is the default process group;
+    # without one, N = 1 starts a one-rank group that the runner destroys
+    # after its run, and N > 1 raises.
+    mesh_devices: Optional[int] = None
+    # Sharded mixing schedule: "gather" (this rank's row block of W
+    # applied to the all-gathered population; bit for bit the
+    # single-device engine on the CPU), "psum" (partial products summed
+    # over the ranks by a reduce-scatter; f32-rounding-close), or "auto"
+    # (resolved through the repro_torch.tune cache like the other knobs).
+    collective: str = "gather"
 
 
 ENGINES = ("dense", "sparse")
@@ -323,17 +341,30 @@ class DecentralizedRunner:
         ``resolved_knobs``); each ``run()`` builds a fresh one, so the
         codec's replicas and residual restart from the parameters and from
         zero, and the network model's ring from the parameters, as the
-        reference's do."""
+        reference's do.  ``cfg.mesh_devices`` makes it the sharded engine
+        on a :func:`repro_torch.launch.make_superstep_mesh` mesh (call its
+        ``close()`` when done with it; :meth:`run` does)."""
         from .superstep import Superstep
         knobs, engine = self._knobs()
         self.resolved_knobs = knobs
-        return Superstep(
-            loss_fn=self._loss_fn, eval_fn=self._eval_fn,
-            optimizer=self.opt, batcher=self.batcher,
-            test_batch=self.test_batch, strategy=self.strategy,
-            cfg=self.cfg, params=self.params, opt_state=self.opt_state,
-            device=self.device, engine=engine, chunk=knobs.chunk,
-            compress=knobs.compress)
+        kw = dict(loss_fn=self._loss_fn, eval_fn=self._eval_fn,
+                  optimizer=self.opt, batcher=self.batcher,
+                  test_batch=self.test_batch, strategy=self.strategy,
+                  cfg=self.cfg, params=self.params,
+                  opt_state=self.opt_state, engine=engine,
+                  chunk=knobs.chunk, compress=knobs.compress)
+        if self.cfg.mesh_devices is None:
+            return Superstep(device=self.device, **kw)
+        from ..launch import make_superstep_mesh
+        from .sharded import ShardedSuperstep
+        mesh = make_superstep_mesh(self.cfg.mesh_devices or None,
+                                   device=self.device)
+        try:
+            return ShardedSuperstep(mesh=mesh, collective=knobs.collective,
+                                    **kw)
+        except BaseException:
+            mesh.close()
+            raise
 
     def _round(self, rnd: int, stage: Callable = _unstaged) -> np.ndarray:
         """One host-loop round (reference ``runtime.py`` ``_round``);
@@ -395,6 +426,12 @@ class DecentralizedRunner:
             raise TypeError(
                 "RunnerConfig.net (the dense in-scan network model) "
                 "requires the round engine — use an in-graph strategy")
+        if self.cfg.mesh_devices is not None:
+            raise TypeError(
+                "RunnerConfig.mesh_devices (the sharded superstep) shards "
+                "the round engine's node axis; the per-round host loop "
+                "runs on one device — use an in-graph strategy, or "
+                "mesh_devices=None for the host loop")
         comp = self.cfg.compress
         if comp is not None and comp != "none":
             from ..compress import CompressConfig
@@ -427,8 +464,11 @@ class DecentralizedRunner:
             compiled = getattr(self.strategy, "in_graph", False)
         if compiled:
             engine = self._make_engine()
-            self.log = engine.run(progress)
-            self.params, self.opt_state = engine.params, engine.opt_state
+            try:
+                self.log = engine.run(progress)
+                self.params, self.opt_state = engine.logical_state()
+            finally:
+                engine.close()
             self.edge_history = engine.edge_history
             self.delivered_history = engine.delivered_history
             self.net_stats = engine.net_stats

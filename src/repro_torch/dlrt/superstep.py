@@ -236,6 +236,8 @@ class Superstep:
         self._wire_bytes = model_bytes if self.codec is None \
             else wire_bytes_tree(params, cfg.n_nodes, self.codec)
         n = cfg.n_nodes
+        params = self.params = self._place(params)
+        self.opt_state = self._place(opt_state)
         self.net = cfg.net
         self.net_stats = None
         self.delivered_history: list = []
@@ -254,6 +256,19 @@ class Superstep:
         self._local_step = make_local_step(loss_fn, optimizer)
         self._evaluate = make_evaluator(eval_fn,
                                         batch_chunk=cfg.eval_batch_chunk)
+
+    def _place(self, tree):
+        """The state this engine keeps of a node-stacked tree: all of it
+        on one device (a sharded engine keeps its rank's rows)."""
+        return tree
+
+    def logical_state(self):
+        """``(params, opt_state)`` over all ``n`` nodes."""
+        return self.params, self.opt_state
+
+    def close(self) -> None:
+        """Release what the engine holds besides its tensors (a sharded
+        engine's own process group); nothing here."""
 
     def _init_net(self, params) -> None:
         """The network model's layout: the ring depth priced on the wire
@@ -280,15 +295,20 @@ class Superstep:
             return self.batcher.draw(rnd)
         return to_device(self.batcher.next(), self.device)
 
-    def _code(self, hat):
+    def _encode(self, hat):
         """One difference-coded error-feedback step against the replicas
-        ``hat``: encode ``(params - hat) + resid``, keep the new residual,
-        and return the advanced replicas ``hat + decode(wire)``."""
+        ``hat``: encode ``(params - hat) + resid`` and keep the new
+        residual; returns ``(wire, hat + decode(wire))``, the wire and the
+        advanced replicas."""
         delta = type(self.params)((k, v.float() - hat[k])
                                   for k, v in self.params.items())
-        _, dec, self.resid = encode_delta_payload(delta, self.resid,
-                                                  self.codec)
-        return type(dec)((k, hat[k] + v) for k, v in dec.items())
+        wire, dec, self.resid = encode_delta_payload(delta, self.resid,
+                                                     self.codec)
+        return wire, type(dec)((k, hat[k] + v) for k, v in dec.items())
+
+    def _code(self, hat):
+        """The advanced replicas of :meth:`_encode`."""
+        return self._encode(hat)[1]
 
     def _settle(self, mixed, decoded):
         """The round's new parameters: the mix itself without a codec, its
@@ -298,52 +318,115 @@ class Superstep:
         return apply_consensus_correction(mixed, self.params, decoded,
                                           self.codec.consensus_gamma)
 
-    def _graph_round(self, rnd: int, ctrl, stage: Callable = _unstaged):
-        """A dense strategy's round: the Eq.-3 refresh on ``ctrl`` every
-        ``sim_every`` rounds (for a strategy that reads it), then its graph
-        round; returns ``(edges, W)``."""
-        if self.strategy.needs_sim and rnd % self.cfg.sim_every == 0:
-            self.sim = stage("similarity",
-                             lambda: ops.model_pairwise_cosine(ctrl))
-        self.gstate, edges, w = stage(
-            "controller",
-            lambda: self.strategy.graph_round(self.gstate, rnd, self.sim))
-        return edges, w
+    # ------------------------------------------------------------------
+    # Where the population comes from and how it is mixed: one device's
+    # layout here; a sharded engine overrides these and keeps the rounds.
+    # ------------------------------------------------------------------
 
-    def round(self, rnd: int):
-        """One round; returns its ``[n, n]`` bool in-edge matrix, or its
-        ``(idx [n, k], mask [n, k])`` for a sparse-native strategy, or
-        :meth:`net_round`'s tuple under a network model."""
-        if self.net is not None:
-            return self.net_round(rnd)
-        self.params, self.opt_state = self._local_step(
-            self.params, self.opt_state, self._batch(rnd))
+    def _population(self, stage: Callable):
+        """Encode (under a codec) and bring in what the peers mix:
+        ``(decoded, full)``, ``decoded`` the advanced replicas (None without
+        a codec) and ``full`` a population gathered from other shards (None
+        here: every node is on this device)."""
         decoded = None
         if self.codec is not None:
-            decoded = self.hat = self._code(self.hat)
-        # What the peers mix this round, and what the controller reads.
-        src = self.params if decoded is None else decoded
-        ctrl = src if self.codec is None or self.codec.sim else self.params
-        if self.sparse_native:
-            self.gstate, adj = self.strategy.graph_round(
-                self.gstate, rnd,
-                ctrl if self.strategy.needs_params else None)
-            self.params = self._settle(sparse_mix_pytree(adj, src), decoded)
-            return adj.idx, adj.mask
-        edges, w = self._graph_round(rnd, ctrl)
+            decoded = self.hat = stage("encode", lambda: self._code(self.hat))
+        return decoded, None
+
+    def _view(self, ctrl, full, stage: Callable):
+        """The logical ``[n, ...]`` population the controller reads:
+        ``ctrl`` itself on one device."""
+        return ctrl
+
+    def _sparse_view(self, rnd: int, ctrl, full, stage: Callable):
+        """What a sparse-native strategy's controller reads this round:
+        :meth:`_view` if it reads the parameters, else None."""
+        if not self.strategy.needs_params:
+            return None
+        return self._view(ctrl, full, stage)
+
+    def _pad_mask(self, m: torch.Tensor) -> torch.Tensor:
+        """This engine's rows of a logical ``[n]`` mask: all of them."""
+        return m
+
+    def _mix(self, edges, w, src, full, stage: Callable):
+        """The dense round's mix of ``src`` by the round's edges or W."""
         # Under a codec the kernels mix the f32 replicas as they mix the
         # parameters.  The reference refuses its Pallas path with a codec
         # only because its dispatch reads the raw parameters; the
         # function is the same W @ decoded.
         chunk_d = self.cfg.mix_chunk_d
-        if self.compat_gather:
-            adj = dense_to_csr(edges, w, max(1, self.cfg.n_nodes - 1))
-            mixed = sparse_mix_pytree(adj, src)
-        elif self.strategy.uniform_mixing:
-            mixed = ops.mix_masked_pytree(edges, src, chunk_d)
-        else:
-            mixed = ops.mix_pytree(w, src, chunk_d)
-        self.params = self._settle(mixed, decoded)
+
+        def mix():
+            if self.compat_gather:
+                adj = dense_to_csr(edges, w, max(1, self.cfg.n_nodes - 1))
+                return sparse_mix_pytree(adj, src)
+            if self.strategy.uniform_mixing:
+                return ops.mix_masked_pytree(edges, src, chunk_d)
+            return ops.mix_pytree(w, src, chunk_d)
+        return stage("mix", mix)
+
+    def _sparse_mix(self, adj, src, full, stage: Callable):
+        """The sparse-native round's mix of ``src`` by ``adj``."""
+        return stage("mix", lambda: sparse_mix_pytree(adj, src))
+
+    def _ring(self, stage: Callable):
+        """The network ring the round mixes, ``[rows, S, ...]`` leaves, and
+        the population of its slot 0 as :meth:`_view` takes it (None: the
+        ring is this device's)."""
+        return self.hist, None
+
+    def _ring_rows(self, w_stal: torch.Tensor) -> torch.Tensor:
+        """This engine's rows of the staleness-expanded W, ``[n, n S]``."""
+        n = self.cfg.n_nodes
+        return w_stal.reshape(n, n * self.net_S)
+
+    # ------------------------------------------------------------------
+    # Rounds.
+    # ------------------------------------------------------------------
+
+    def _graph_round(self, rnd: int, ctrl, full, stage: Callable):
+        """A dense strategy's round: the Eq.-3 refresh on :meth:`_view`
+        every ``sim_every`` rounds (for a strategy that reads it), then its
+        graph round; returns ``(edges, W)``."""
+        if self.strategy.needs_sim and rnd % self.cfg.sim_every == 0:
+            pop = self._view(ctrl, full, stage)
+            self.sim = stage("similarity",
+                             lambda: ops.model_pairwise_cosine(pop))
+        self.gstate, edges, w = stage(
+            "controller",
+            lambda: self.strategy.graph_round(self.gstate, rnd, self.sim))
+        return edges, w
+
+    def round(self, rnd: int, stage: Callable = _unstaged):
+        """One round; returns its ``[n, n]`` bool in-edge matrix, or its
+        ``(idx [n, k], mask [n, k])`` for a sparse-native strategy, or
+        :meth:`net_round`'s tuple under a network model.
+
+        Each stage runs as ``stage(name, fn)`` (by default just ``fn()``):
+        batch, local_step, encode (under a codec), similarity (on its
+        cadence), controller, mix and settle (a sharded engine adds
+        gather and reduce)."""
+        if self.net is not None:
+            return self.net_round(rnd, stage)
+        batch = stage("batch", lambda: self._batch(rnd))
+        self.params, self.opt_state = stage("local_step", lambda: (
+            self._local_step(self.params, self.opt_state, batch)))
+        decoded, full = self._population(stage)
+        # What the peers mix this round, and what the controller reads.
+        src = self.params if decoded is None else decoded
+        ctrl = src if self.codec is None or self.codec.sim else self.params
+        if self.sparse_native:
+            view = self._sparse_view(rnd, ctrl, full, stage)
+            self.gstate, adj = stage("controller", lambda: (
+                self.strategy.graph_round(self.gstate, rnd, view)))
+            mixed = self._sparse_mix(adj, src, full, stage)
+            self.params = stage("settle",
+                                lambda: self._settle(mixed, decoded))
+            return adj.idx, adj.mask
+        edges, w = self._graph_round(rnd, ctrl, full, stage)
+        mixed = self._mix(edges, w, src, full, stage)
+        self.params = stage("settle", lambda: self._settle(mixed, decoded))
         return edges
 
     def net_round(self, rnd: int, stage: Callable = _unstaged):
@@ -352,19 +435,21 @@ class Superstep:
 
         Each stage runs as ``stage(name, fn)`` (by default just ``fn()``):
         batch, local_step (with the step mask's keep), masks, encode (under
-        a codec), similarity (on its cadence), controller, push,
-        delivery_plan, mix and settle, so a caller can time the round's own
-        code stage by stage."""
+        a codec), push, similarity (on its cadence), controller,
+        delivery_plan, mix and settle (a sharded engine gathers the ring
+        after the push), so a caller can time the round's own code stage
+        by stage."""
         net, n, S, dev = self.net, self.cfg.n_nodes, self.net_S, self.device
         r = min(rnd, self.cfg.rounds - 1)
         up, step = self._net_up[r], self._net_step[r]
+        keep = self._pad_mask(step)
         batch = stage("batch", lambda: self._batch(rnd))
 
         def local_step():
             new_p, new_o = self._local_step(self.params, self.opt_state,
                                             batch)
-            return (net_select(step, new_p, self.params),
-                    net_select(step, new_o, self.opt_state))
+            return (net_select(keep, new_p, self.params),
+                    net_select(keep, new_o, self.opt_state))
 
         def masks():
             draws = net.draws(rnd, n, dev)
@@ -380,9 +465,9 @@ class Superstep:
                     net_observed(rnd, self.lhist, d_idx, delivered))
 
         def mix():
-            flat = OrderedDict((k, h.reshape((n * S,) + h.shape[2:]))
-                               for k, h in self.hist.items())
-            return ops.mix_pytree(w_stal.reshape(n, n * S), flat,
+            flat = OrderedDict((k, h.reshape((-1,) + h.shape[2:]))
+                               for k, h in ring.items())
+            return ops.mix_pytree(self._ring_rows(w_stal), flat,
                                   self.cfg.mix_chunk_d)
 
         self.params, self.opt_state = stage("local_step", local_step)
@@ -395,9 +480,10 @@ class Superstep:
                 (k, h[:, 0]) for k, h in self.hist.items())))
         src = self.params if decoded is None else decoded
         ctrl = src if self.codec is None or self.codec.sim else self.params
-        edges, w = self._graph_round(rnd, ctrl, stage)
         self.hist, self.lhist = stage("push", lambda: net_push(
             src, (self.hist, self.lhist), rnd, step, S))
+        ring, full = self._ring(stage)
+        edges, w = self._graph_round(rnd, ctrl, full, stage)
         delivered, w_stal, stale_counts, obs_sum = stage("delivery_plan",
                                                          plan)
         mixed = stage("mix", mix)

@@ -355,7 +355,7 @@ class SweepSuperstep:
     def net_round(self, rnd: int, stage: Callable = _unstaged):
         """One round under the network model: ``(edges [E, n, n],
         delivered [E, n, n], stale_counts [E, S], obs_sum [E])``; stages
-        batch, local_step, masks, similarity, controller, push,
+        batch, local_step, masks, push, similarity, controller,
         delivery_plan and mix, as the solo engine's ``net_round``."""
         E, n, S, dev = self.E, self.cfg.n_nodes, self.net_S, self.device
         r = min(rnd, self.cfg.rounds - 1)
@@ -394,8 +394,8 @@ class SweepSuperstep:
         self.params = _split(flat, E)
         stal, drop = stage("masks", lambda: self.net.round_matrices(
             rnd, n, self._model_bytes, device=dev))
-        edges, w = self._graph_round(rnd, stage)
         self.hist, self.lhist = stage("push", push)
+        edges, w = self._graph_round(rnd, stage)
         delivered, w_stal, stale_counts, obs_sum = stage("delivery_plan",
                                                          plan)
         self.params = stage("mix", mix)

@@ -1,7 +1,11 @@
 // k-sparse graph mixing from CSR slots (DESIGN.md §11):
-//   out[i] = sum_s w[i, s] x[idx[i, s]] + w_self[i] x[i]
-// over node-stacked flattened parameters X [n, D], O(n k D) instead of the
-// dense mix's O(n^2 D), for every leaf of a parameter dict in one launch.
+//   out[i] = sum_s w[i, s] x[idx[i, s]] + w_self[i] x[self0 + i]
+// over node-stacked flattened parameters X [m, D] for n receivers, Y [n, D],
+// O(n k D) instead of the dense mix's O(n^2 D), for every leaf of a
+// parameter dict in one launch.  One device's layout is self0 = 0 and
+// m = n; a sharded engine's receiver block over the gathered population
+// takes self0 = its first row, and its push partials (every receiver's sum
+// over one rank's senders) take no self term (self0 < 0).
 //
 // Replaces the TPU kernel `graph_mix_sparse` in
 // repro/kernels/graph_mix_sparse.py (:60, pl.pallas_call at :78, body
@@ -69,7 +73,7 @@ constexpr int kLanes = 32;
 constexpr int kMaxLeaves = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-// One leaf of a grouped call: X [n, d], Y [n, d], the number of its first
+// One leaf of a grouped call: X [m, d], Y [n, d], the number of its first
 // item among all the call's items, and whether X's and Y's rows all start
 // 16-byte aligned.
 struct SparseLeaf {
@@ -162,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                       const float* __restrict__ w,
                       const float* __restrict__ w_self,
                       const __grid_constant__ SparseTable table, int n,
-                      int k) {
+                      int k, int self0) {
   constexpr int kW = Lane<T>::kWidth;
   constexpr int kStripe = kLanes * kW;
   const int lane = threadIdx.x % kLanes;
@@ -242,12 +246,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
           }
       }
     }
-    // The self term last, then the stores.
+    // The self term last (receiver r's own row is self0 + r; none for
+    // self0 < 0), then the stores.
+    if (self0 >= 0) {
 #pragma unroll
-    for (int q = 0; q < kRecv; ++q) {
-      float own[kW];
-      if (live) load_row<T, kW>(x, d, rows[q], col, aligned, own);
-      add_product<kW>(acc[q], __ldg(w_self + rows[q]), own);
+      for (int q = 0; q < kRecv; ++q) {
+        float own[kW];
+        if (live) load_row<T, kW>(x, d, self0 + rows[q], col, aligned, own);
+        add_product<kW>(acc[q], __ldg(w_self + rows[q]), own);
+      }
     }
     if (!live) continue;
     T* y = static_cast<T*>(lf.y);
@@ -269,8 +276,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 // leaves: `count` rows of (X pointer, Y pointer, D, first item) as int64.
 template <typename T>
 int launch(const void* idx, const void* w, const void* w_self,
-           const long long* leaves, int count, int n, int k, int sms,
-           cudaStream_t stream) {
+           const long long* leaves, int count, int n, int k, int self0,
+           int sms, cudaStream_t stream) {
   if (count < 1 || count > kMaxLeaves || n < 1 || k < 0)
     return (int)cudaErrorInvalidValue;
   constexpr int kStripe = kLanes * Lane<T>::kWidth;
@@ -296,32 +303,34 @@ int launch(const void* idx, const void* w, const void* w_self,
   const long long blocks = needed < slots ? needed : slots;
   sparse_mix_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const int*>(idx), static_cast<const float*>(w),
-      static_cast<const float*>(w_self), table, n, k);
+      static_cast<const float*>(w_self), table, n, k, self0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// idx: [n, k] int32 in [0, n); w: [n, k] f32; w_self: [n] f32; leaves:
-// `count` rows of int64 (X [n, d] pointer, Y [n, d] pointer in X's type,
-// d, index of the leaf's first item among the call's items, from
-// graph_mix_sparse.py's plan_sparse); sms: the device's SM count.  Invalid
-// slots must already point at their own row with weight 0 (the wrapper in
-// ops.mix_sparse parks them).
+// idx: [n, k] int32 in [0, m); w: [n, k] f32; w_self: [n] f32 (not read
+// for self0 < 0); leaves: `count` rows of int64 (X [m, d] pointer, Y [n, d]
+// pointer in X's type, d, index of the leaf's first item among the call's
+// items, from graph_mix_sparse.py's plan_sparse); self0: receiver 0's own
+// row of X, with self0 + n <= m (negative: no self term); sms: the
+// device's SM count.  Invalid slots must already point at a row of X with
+// weight 0 (the wrapper in ops.mix_sparse parks them on the own row).
 extern "C" int graph_mix_sparse_f32(const void* idx, const void* w,
                                     const void* w_self,
                                     const long long* leaves, int count, int n,
-                                    int k, int sms, void* stream) {
-  return launch<float>(idx, w, w_self, leaves, count, n, k, sms,
+                                    int k, int self0, int sms, void* stream) {
+  return launch<float>(idx, w, w_self, leaves, count, n, k, self0, sms,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int graph_mix_sparse_bf16(const void* idx, const void* w,
                                      const void* w_self,
                                      const long long* leaves, int count,
-                                     int n, int k, int sms, void* stream) {
-  return launch<__nv_bfloat16>(idx, w, w_self, leaves, count, n, k, sms,
-                               static_cast<cudaStream_t>(stream));
+                                     int n, int k, int self0, int sms,
+                                     void* stream) {
+  return launch<__nv_bfloat16>(idx, w, w_self, leaves, count, n, k, self0,
+                               sms, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* graph_mix_sparse_error_string(int err) {

@@ -1,6 +1,8 @@
 """k-sparse graph-mixing kernel (``csrc/graph_mix_sparse.cu``), the port of
-``repro.kernels.graph_mix_sparse``: ``out[i] = w_self[i] x[i] + sum_s
-w[i, s] x[idx[i, s]]`` straight from CSR slots.
+``repro.kernels.graph_mix_sparse``: ``out[i] = w_self[i] x[self0 + i] +
+sum_s w[i, s] x[idx[i, s]]`` straight from CSR slots (``self0`` 0 on one
+device; a sharded engine's receiver block gives its first row, its push
+partials None: no self term).
 
 :func:`graph_mix_sparse_leaves` mixes every leaf of a parameter dict with
 the same slots in one launch; :func:`graph_mix_sparse` is its one-leaf
@@ -12,7 +14,7 @@ tensors, never falling back from one to the other;
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,7 +22,7 @@ from . import cuda, ref
 
 _NAME = "graph_mix_sparse"
 _P, _I, _T = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-_ARGS = [_P, _P, _P, _T, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _T, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {"graph_mix_sparse_f32": _ARGS, "graph_mix_sparse_bf16": _ARGS}
 _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -66,23 +68,30 @@ def sparse_items(n: int, ds: Sequence[int], firsts: Sequence[int],
 
 
 def graph_mix_sparse_leaves(idx: torch.Tensor, w: torch.Tensor,
-                            w_self: torch.Tensor, xs: Sequence[torch.Tensor]
-                            ) -> List[torch.Tensor]:
-    """CSR mix of every ``X [n, D]`` in ``xs`` (f32 or bf16, one dtype,
-    any D each) -> ``[n, D]`` in X's dtype, accumulated in f32; one launch
-    (up to :data:`MAX_LEAVES` leaves).  ``idx [n, k]`` (int32 on the card,
-    each in ``[0, n)``), ``w [n, k]`` and ``w_self [n]`` f32; invalid
-    slots point at their own row with weight 0 (:func:`~.ops.mix_sparse`
-    parks them)."""
+                            w_self: Optional[torch.Tensor],
+                            xs: Sequence[torch.Tensor],
+                            self0: Optional[int] = 0) -> List[torch.Tensor]:
+    """CSR mix of every ``X [m, D]`` in ``xs`` (f32 or bf16, one dtype,
+    any D each) for the ``n`` receivers of ``idx [n, k]`` -> ``[n, D]`` in
+    X's dtype, accumulated in f32; one launch (up to :data:`MAX_LEAVES`
+    leaves).  Receiver i's own row is ``self0 + i`` (``self0 + n <= m``);
+    ``self0=None`` leaves the self term out (``w_self`` unread).  ``idx``
+    (int32 on the card, each in ``[0, m)``), ``w [n, k]`` and ``w_self
+    [n]`` f32; invalid slots point at a row of X with weight 0
+    (:func:`~.ops.mix_sparse` parks them)."""
     if not xs:
         return []
     if xs[0].device.type == "cpu":
-        return [ref.graph_mix_sparse(idx, w, w_self, x) for x in xs]
-    cuda.require("graph_mix_sparse", idx, w, w_self, *xs, dtypes=_DTYPES)
+        return [ref.graph_mix_sparse(idx, w, w_self, x, self0) for x in xs]
+    operands = (idx, w) if self0 is None else (idx, w, w_self)
+    cuda.require("graph_mix_sparse", *operands, *xs, dtypes=_DTYPES)
     n, k = idx.shape if idx.dim() == 2 else (-1, -1)
+    m = xs[0].shape[0] if xs[0].dim() == 2 else -1
     for x in xs:
-        if x.dim() != 2 or x.shape[0] != n:
-            raise ValueError(f"graph_mix_sparse: idx [n, k] and X [n, D] "
+        if x.dim() != 2 or x.shape[0] != m or (
+                self0 is not None and not 0 <= self0 <= m - n):
+            raise ValueError(f"graph_mix_sparse: idx [n, k], X [m, D] and "
+                             f"self0 {self0} (0 <= self0 <= m - n) "
                              f"disagree: {tuple(idx.shape)}, "
                              f"{tuple(x.shape)}")
         if x.dtype != xs[0].dtype:
@@ -90,12 +99,13 @@ def graph_mix_sparse_leaves(idx: torch.Tensor, w: torch.Tensor,
                              f"share one dtype, got {xs[0].dtype} and "
                              f"{x.dtype}")
     if idx.dtype != torch.int32 or w.dtype != torch.float32 \
-            or w_self.dtype != torch.float32 or tuple(w.shape) != (n, k) \
-            or tuple(w_self.shape) != (n,):
+            or tuple(w.shape) != (n, k) or self0 is not None and (
+                w_self.dtype != torch.float32
+                or tuple(w_self.shape) != (n,)):
         raise ValueError("graph_mix_sparse: needs idx [n, k] int32, w [n, k] "
                          "f32 and w_self [n] f32")
     dev, dtype = xs[0].device, xs[0].dtype
-    ys = [torch.empty_like(x) for x in xs]
+    ys = [x.new_empty((n, x.shape[1])) for x in xs]
     fn = cuda.function(_NAME, f"graph_mix_sparse_{_SUFFIX[dtype]}",
                        _SIGNATURES)
     sms, stream = cuda.sm_count(dev), cuda.stream_handle(dev)
@@ -107,9 +117,10 @@ def graph_mix_sparse_leaves(idx: torch.Tensor, w: torch.Tensor,
         for i, first in zip(chunk, plan_sparse(n, widths, size)):
             rows += [xs[i].data_ptr(), ys[i].data_ptr(), xs[i].shape[1],
                      first]
-        status = fn(idx.data_ptr(), w.data_ptr(), w_self.data_ptr(),
+        status = fn(idx.data_ptr(), w.data_ptr(),
+                    None if self0 is None else w_self.data_ptr(),
                     (ctypes.c_longlong * len(rows))(*rows), len(widths), n,
-                    k, sms, stream)
+                    k, -1 if self0 is None else self0, sms, stream)
         cuda.check(cuda.library(_NAME, _SIGNATURES), _NAME, status,
                    "graph_mix_sparse")
         graph_mix_sparse.launches += int(any(d > 0 for d in widths))
@@ -117,11 +128,12 @@ def graph_mix_sparse_leaves(idx: torch.Tensor, w: torch.Tensor,
 
 
 def graph_mix_sparse(idx: torch.Tensor, w: torch.Tensor,
-                     w_self: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """CSR mix of ``X [n, D]`` (f32 or bf16) -> ``[n, D]`` in ``x.dtype``,
+                     w_self: Optional[torch.Tensor], x: torch.Tensor,
+                     self0: Optional[int] = 0) -> torch.Tensor:
+    """CSR mix of ``X [m, D]`` (f32 or bf16) -> ``[n, D]`` in ``x.dtype``,
     accumulated in f32: the one-leaf case of
     :func:`graph_mix_sparse_leaves`."""
-    return graph_mix_sparse_leaves(idx, w, w_self, [x])[0]
+    return graph_mix_sparse_leaves(idx, w, w_self, [x], self0)[0]
 
 
 graph_mix_sparse.launches = 0

@@ -21,7 +21,7 @@ experiment gets the bits of its own solo call.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -133,16 +133,19 @@ def mix_masked_pytree(edges: torch.Tensor, stacked: Dict[str, torch.Tensor],
                        for (k, v), y in zip(stacked.items(), ys))
 
 
-def _csr_operands(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,
-                  mask: Optional[torch.Tensor]):
+def _csr_operands(idx: torch.Tensor, w: torch.Tensor,
+                  w_self: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor], self0: Optional[int] = 0):
     """The kernel's operands: invalid slots parked on the receiver's own
-    row with weight 0, idx int32, weights f32, all contiguous."""
+    row (``self0 + i``; row 0 without a self term) with weight 0, idx
+    int32, weights f32, all contiguous."""
     if mask is not None:
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-        idx = torch.where(mask, idx, rows)
+        idx = torch.where(mask, idx, rows + self0 if self0 is not None
+                          else torch.zeros_like(rows))
         w = torch.where(mask, w, 0.0)
     return (idx.to(torch.int32).contiguous(), w.float().contiguous(),
-            w_self.float().contiguous())
+            None if w_self is None else w_self.float().contiguous())
 
 
 def mix_sparse(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,
@@ -156,15 +159,32 @@ def mix_sparse(idx: torch.Tensor, w: torch.Tensor, w_self: torch.Tensor,
                             x.contiguous())
 
 
+def mix_sparse_leaves(idx: torch.Tensor, w: torch.Tensor,
+                      w_self: Optional[torch.Tensor],
+                      xs: List[torch.Tensor],
+                      mask: Optional[torch.Tensor] = None,
+                      self0: Optional[int] = 0) -> List[torch.Tensor]:
+    """:func:`mix_sparse` of every flat ``X [m, D]`` in ``xs`` for the
+    ``n`` receivers of ``idx``, giving ``[n, D]`` each: the operands are
+    prepared once, and on the card one launch mixes every leaf.  Receiver
+    i's own row is ``self0 + i`` (``None``: no self term, as
+    :func:`~.graph_mix_sparse.graph_mix_sparse_leaves`)."""
+    return graph_mix_sparse_leaves(
+        *_csr_operands(idx, w, w_self, mask, self0),
+        [x.contiguous() for x in xs], self0)
+
+
 def mix_sparse_pytree(idx: torch.Tensor, w: torch.Tensor,
-                      w_self: torch.Tensor, stacked: Dict[str, torch.Tensor],
-                      mask: Optional[torch.Tensor] = None
+                      w_self: Optional[torch.Tensor],
+                      stacked: Dict[str, torch.Tensor],
+                      mask: Optional[torch.Tensor] = None,
+                      self0: Optional[int] = 0
                       ) -> "OrderedDict[str, torch.Tensor]":
-    """:func:`mix_sparse` over every leaf of node-stacked parameters: the
-    operands are prepared once, and on the card one launch mixes every
-    leaf."""
-    ys = graph_mix_sparse_leaves(*_csr_operands(idx, w, w_self, mask),
-                                 [v.reshape(v.shape[0], -1).contiguous()
-                                  for v in stacked.values()])
-    return OrderedDict((k, y.reshape(v.shape))
+    """:func:`mix_sparse_leaves` over every leaf of node-stacked
+    parameters ``[m, ...]``, giving ``[n, ...]`` leaves."""
+    ys = mix_sparse_leaves(idx, w, w_self,
+                           [v.reshape(v.shape[0], -1)
+                            for v in stacked.values()], mask, self0)
+    n = idx.shape[0]
+    return OrderedDict((k, y.reshape((n,) + v.shape[1:]))
                        for (k, v), y in zip(stacked.items(), ys))

@@ -60,16 +60,21 @@ def graph_mix_masked(edges: torch.Tensor, x: torch.Tensor,
 
 
 def graph_mix_sparse(idx: torch.Tensor, w: torch.Tensor,
-                     w_self: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """CSR mix ``out[i] = sum_s w[i, s] x[idx[i, s]] + w_self[i] x[i]`` in
-    f32, cast to ``x.dtype``: the slots in slot order and then the self
-    term, each product rounded before its add, as the kernel sums."""
+                     w_self: Optional[torch.Tensor], x: torch.Tensor,
+                     self0: Optional[int] = 0) -> torch.Tensor:
+    """CSR mix ``out[i] = sum_s w[i, s] x[idx[i, s]] + w_self[i] x[self0 +
+    i]`` of ``x [m, D]`` for the ``n`` receivers of ``idx [n, k]``, in f32,
+    cast to ``x.dtype``: the slots in slot order and then the self term
+    (none for ``self0=None``), each product rounded before its add, as the
+    kernel sums."""
     xf = x.float()
     idx = idx.long()
-    acc = torch.zeros_like(xf)
+    n = idx.shape[0]
+    acc = xf.new_zeros((n, xf.shape[1]))
     for s in range(idx.shape[1]):
         acc = acc + w[:, s:s + 1].float() * xf[idx[:, s]]
-    acc = acc + w_self.float()[:, None] * xf
+    if self0 is not None:
+        acc = acc + w_self.float()[:, None] * xf[self0:self0 + n]
     return acc.to(x.dtype)
 
 

@@ -1,0 +1,117 @@
+"""The node mesh of the sharded round engine — the port of
+``repro.launch.mesh.make_superstep_mesh`` onto ``torch.distributed``.
+
+The reference shards the node axis over a 1-D ``("data",)`` JAX mesh and
+runs the round body under ``shard_map``.  Here each shard is a process:
+one rank per shard, SPMD, each running the per-shard body and meeting the
+others in collectives (NCCL for CUDA tensors, gloo for CPU tensors).  A
+:class:`NodeMesh` names this rank and its device; the mesh is always the
+default process group, on which every collective of the sharded engine
+runs.
+
+Three cases (:func:`make_superstep_mesh`):
+
+* a default process group is initialised (``torchrun``, or
+  :func:`repro_torch.launch.spawn`): the mesh is that group, and
+  ``num_devices`` must be its world size;
+* none is, and one shard is asked for: the mesh starts a one-rank group
+  of its own on a ``file://`` store in a fresh temporary directory, and
+  :meth:`NodeMesh.close` destroys it;
+* none is, and more shards are asked for: the ranks must be started
+  first, so it raises and says how.
+
+``make_production_mesh`` and ``make_sweep_mesh`` (the zoo's training mesh
+and the sweep's ``("exp", "data")`` mesh) are not ported.
+"""
+from __future__ import annotations
+
+import shutil
+import tempfile
+from dataclasses import dataclass
+from datetime import timedelta
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+# How long a collective waits for the other ranks before the run fails.
+DEFAULT_TIMEOUT = timedelta(seconds=300)
+
+
+def backend_for(device: torch.device) -> str:
+    """The collective backend for tensors on ``device``: NCCL on the card,
+    gloo on the CPU (never gloo staged through the host for CUDA)."""
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:(rank % device_count)`` on the card,
+    the CPU otherwise."""
+    if device.type != "cuda":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+@dataclass
+class NodeMesh:
+    """One rank's view of the node mesh, which is the default process
+    group: the world size (node-axis shard count), this rank and its
+    device.  ``owned`` says whether the mesh started the group itself."""
+    world: int
+    rank: int
+    device: torch.device
+    owned: bool = False
+    _store_dir: Optional[str] = None
+
+    def close(self) -> None:
+        """Destroy the group if this mesh started it (a group it was given
+        stays); a second call does nothing."""
+        if self.owned and dist.is_initialized():
+            dist.destroy_process_group()
+        self.owned = False
+        if self._store_dir is not None:
+            shutil.rmtree(self._store_dir, ignore_errors=True)
+            self._store_dir = None
+
+
+def make_superstep_mesh(num_devices: Optional[int] = None, *,
+                        device="cuda",
+                        timeout: timedelta = DEFAULT_TIMEOUT) -> NodeMesh:
+    """The node mesh for the sharded round engine (DESIGN.md §8): the
+    default process group when one is initialised (``num_devices`` None
+    or 0 means its world size, and any other value must equal it), else a
+    one-rank group of its own for ``num_devices`` None, 0 or 1 (NCCL for a
+    CUDA ``device``, gloo for the CPU, with a finite ``timeout``).  Rank r
+    works on ``cuda:(r % torch.cuda.device_count())`` on the card."""
+    dev = resolve_device(device)
+    want = backend_for(dev)
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        nd = world if not num_devices else num_devices
+        if nd != world:
+            raise ValueError(
+                f"num_devices={nd} != {world}, the process group's world "
+                "size: one rank runs one shard (start N ranks with torchrun "
+                "--nproc-per-node N)")
+        got = dist.get_backend()
+        if got != want:
+            raise ValueError(
+                f"the process group runs {got}, and a {dev.type} mesh "
+                f"takes {want}")
+        return NodeMesh(world, rank, rank_device(dev, rank))
+    if num_devices not in (None, 0, 1):
+        raise ValueError(
+            f"num_devices={num_devices} not in [1, 1] without a process "
+            f"group: start {num_devices} ranks with torchrun "
+            f"--nproc-per-node {num_devices} (or repro_torch.launch.spawn), "
+            "which initialise the default group, and build the mesh in "
+            "each")
+    store = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    dist.init_process_group(
+        want, init_method=(Path(store) / "store").as_uri(), world_size=1,
+        rank=0, timeout=timeout)
+    return NodeMesh(1, 0, rank_device(dev, 0), owned=True,
+                    _store_dir=store)

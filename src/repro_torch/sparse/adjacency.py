@@ -107,6 +107,27 @@ def to_dense(adj: SparseAdjacency):
     return edges, w
 
 
+def pad_adjacency(adj: SparseAdjacency, n_pad: int) -> SparseAdjacency:
+    """Grow the receiver axis to ``n_pad`` (the sharded engine's padded
+    node axis): padded rows have no in-edges (their slots name themselves,
+    weight 0, invalid) and keep their own model (``w_self = 1``), as the
+    dense engine's identity-tail ``embed_w`` does."""
+    pad = n_pad - adj.n
+    if pad <= 0:
+        return adj
+    k, dev = adj.k, adj.idx.device
+    tail = torch.arange(adj.n, n_pad, dtype=adj.idx.dtype, device=dev)
+    return SparseAdjacency(
+        idx=torch.cat([adj.idx, tail[:, None].expand(pad, k)]),
+        w=torch.cat([adj.w, torch.zeros((pad, k), dtype=torch.float32,
+                                        device=dev)]),
+        w_self=torch.cat([adj.w_self, torch.ones((pad,),
+                                                 dtype=torch.float32,
+                                                 device=dev)]),
+        mask=torch.cat([adj.mask, torch.zeros((pad, k), dtype=torch.bool,
+                                              device=dev)]))
+
+
 def _host(adj: SparseAdjacency):
     return (adj.idx.cpu().numpy(), adj.w.cpu().numpy().astype(np.float64),
             adj.w_self.cpu().numpy().astype(np.float64),

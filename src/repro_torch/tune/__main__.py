@@ -11,10 +11,12 @@ every node two samples there):
 
 The output file is merged over (same-shape entries replaced, other
 shapes kept), so caches accumulate across cards and populations;
-``--fresh`` starts empty.  The reference's ``--include-pallas`` and
-``--devices`` have no counterpart: every kernel here is the hand-written
-CUDA one, with no alternative path to time, and the port runs the node
-axis on one device.  Exit status 0 on success.
+``--fresh`` starts empty.  The reference's ``--include-pallas`` has no
+counterpart: every kernel here is the hand-written CUDA one, with no
+alternative path to time.  Its ``--devices`` is left out: the CLI tunes
+one-device shapes (a sharded shape's runs need one process per rank;
+``mlp_runner_factory(mesh_devices=...)`` builds them inside each).  Exit
+status 0 on success.
 """
 from __future__ import annotations
 

@@ -13,9 +13,9 @@ The committed default file, ``cuda_default.json``, was tuned on the card
 by ``python -m repro_torch.tune``; it holds no ``cpu|...`` entry, so on
 the CPU ``"auto"`` gives the defaults.  ``REPRO_TORCH_TUNE_CACHE`` points
 resolution at another file.  ``TuneEntry`` keeps the reference's
-``block_d``, ``collective`` and ``use_pallas`` fields: the port records
-them as written and never reads them (the card's kernels pick their own
-tiles, and one device runs the node axis).
+``block_d`` and ``use_pallas`` fields: the port records them as written
+and never reads them (the card's kernels pick their own tiles);
+``collective`` is the sharded engine's schedule, read by ``"auto"``.
 """
 from __future__ import annotations
 
@@ -57,8 +57,7 @@ class TuneEntry:
     hand-set defaults, so ``TuneEntry()`` is the no-entry fallback."""
     block_d: Optional[int] = None        # recorded, not read (reference
                                          # kernel D-block)
-    collective: str = "gather"           # recorded, not read (sharded
-                                         # mixing schedule)
+    collective: str = "gather"           # sharded mixing schedule
     chunk: Optional[int] = None          # rounds between host decodes
     use_pallas: bool = False             # recorded, not read
     engine: str = "dense"                # data plane: dense | sparse

@@ -5,9 +5,9 @@ the port of ``repro.tune.resolve``.
 the round engine is built.  Resolution is a pure function of ``(cfg,
 params, cache file contents)`` — no timing — so an ``"auto"`` run is
 bit for bit a run given the resolved values explicitly.  The port's
-knobs are ``chunk``, ``engine`` and ``compress``; the reference's
-``block_d`` and ``collective`` have no counterpart (the card's kernels
-pick their own tiles, and one device runs the node axis).
+knobs are ``chunk``, ``engine``, ``compress`` and ``collective``; the
+reference's ``block_d`` has no counterpart (the card's kernels pick their
+own tiles).
 """
 from __future__ import annotations
 
@@ -31,13 +31,28 @@ class ResolvedKnobs:
     # A codec spec string, or a CompressConfig passed through from an
     # explicit RunnerConfig; the engine parses it.
     compress: object = "none"
+    # The sharded engine's mixing schedule (read only with a mesh).
+    collective: str = "gather"
+
+
+def mesh_world(cfg) -> int:
+    """The node-axis shard count a configuration runs on: 1 without a
+    mesh, ``cfg.mesh_devices`` with one (0: the initialised process
+    group's world size, 1 without a group)."""
+    if cfg.mesh_devices is None:
+        return 1
+    if cfg.mesh_devices:
+        return cfg.mesh_devices
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def shape_of(cfg, params) -> TuneShape:
     """The :class:`TuneShape` of a runner configuration and its
     node-stacked parameters: the parameters' device type, the per-node
-    flattened parameter count, one device, and the network model's ring
-    depth on the per-transfer payload."""
+    flattened parameter count, the node mesh's world size
+    (:func:`mesh_world`), and the network model's ring depth on the
+    per-transfer payload."""
     from ..dlrt.runtime import stacked_model_bytes
     n = cfg.n_nodes
     leaves = list(params.values())
@@ -46,8 +61,8 @@ def shape_of(cfg, params) -> TuneShape:
     if cfg.net is not None:
         model_bytes = cfg.model_bytes or stacked_model_bytes(params, n)
         net = cfg.net.depth(model_bytes)
-    return TuneShape(backend=leaves[0].device.type, n=n, d=d, devices=1,
-                     net=net)
+    return TuneShape(backend=leaves[0].device.type, n=n, d=d,
+                     devices=mesh_world(cfg), net=net)
 
 
 def resolve_knobs(cfg, params,
@@ -59,10 +74,12 @@ def resolve_knobs(cfg, params,
     default (``TuneEntry()``'s field defaults) when the cache has none.
     """
     engine, compress = cfg.engine, cfg.compress
-    autos = (cfg.chunk == AUTO, engine == AUTO, compress == AUTO)
+    autos = (cfg.chunk == AUTO, engine == AUTO, compress == AUTO,
+             cfg.collective == AUTO)
     if not any(autos):
         return ResolvedKnobs(chunk=cfg.chunk, source="explicit",
-                             engine=engine, compress=compress)
+                             engine=engine, compress=compress,
+                             collective=cfg.collective)
     shape = shape_of(cfg, params)
     if cache is None:
         cache = load_default_cache()
@@ -74,4 +91,5 @@ def resolve_knobs(cfg, params,
         chunk=e.chunk if autos[0] else cfg.chunk,
         source=source,
         engine=e.engine if autos[1] else engine,
-        compress=e.compress if autos[2] else compress)
+        compress=e.compress if autos[2] else compress,
+        collective=e.collective if autos[3] else cfg.collective)

@@ -5,11 +5,13 @@ port of ``repro.tune.space`` with the reference's gating rules and order.
 * ``engine`` adds the sparse engine at each candidate-set size, except
   under a dense network model (``net > 0``), which the sparse engine
   does not run;
+* ``collective`` adds ``"psum"`` only when the node axis is sharded
+  (``devices > 1``) and no network model is on (``net == 0``), whose ring
+  only the gather schedule moves;
 * ``compress`` varies over the codec specs.
 
 There are no Pallas or ``block_d`` members: every kernel is the
-hand-written CUDA one, with no alternative path to choose; and
-``collective`` is ``"gather"`` alone, as the port runs one device.
+hand-written CUDA one, with no alternative path to choose.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ class Candidate:
     """One knob assignment the tuner times.  Fields mean what
     ``RunnerConfig``'s do; ``candidates`` is the sparse control plane's
     candidate-set size (a strategy knob, threaded through the workload
-    factory).  ``collective``, ``block_d`` and ``use_pallas`` keep the
-    reference's defaults so labels and cache entries match its own."""
+    factory).  ``block_d`` and ``use_pallas`` keep the reference's
+    defaults so labels and cache entries match its own."""
     chunk: int = 32
     collective: str = "gather"
     block_d: Optional[int] = None
@@ -63,12 +65,18 @@ def candidate_space(shape: TuneShape, *,
                     compress_options: Sequence[str]
                     = DEFAULT_COMPRESS) -> List[Candidate]:
     """Deterministically ordered candidates for ``shape``: chunk, then
-    engine, then codec, as the reference orders its space without Pallas
-    members (see the module docstring for the gating rules)."""
+    collective, then engine, then codec, as the reference orders its space
+    without Pallas members (see the module docstring for the gating
+    rules)."""
+    collectives = ["gather"]
+    if shape.devices > 1 and shape.net == 0:
+        collectives.append("psum")
     engines = [("dense", None)]
     if include_sparse and shape.net == 0:
         engines += [("sparse", cc) for cc in sparse_candidates]
-    return [Candidate(chunk=c, engine=eng, candidates=cc, compress=comp)
+    return [Candidate(chunk=c, collective=col, engine=eng, candidates=cc,
+                      compress=comp)
             for c in chunks
+            for col in collectives
             for eng, cc in engines
             for comp in compress_options]

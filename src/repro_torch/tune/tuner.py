@@ -75,6 +75,14 @@ def prune(scores: Dict[Candidate, float], *, prune_ratio: float = 2.0,
     return surv
 
 
+def _close(engine) -> None:
+    """Release a timed engine's process group, where it started one (the
+    sweep adapter's engines have nothing to close)."""
+    close = getattr(engine, "close", None)
+    if close is not None:
+        close()
+
+
 def time_engine(engine, chunk: int, rounds: int,
                 warm_chunks: int = 2) -> float:
     """The default timer: ``warm_chunks`` warm chunks (the first calls'
@@ -118,7 +126,10 @@ def tune(make_runner: Callable[[Candidate], object], *,
     result = TuneResult(shape=shape, best=candidates[0], survivors=[])
     for cand in candidates:
         engine = make_runner(cand)._make_engine()
-        spr = timer(engine, cand.chunk, probe_rounds, 1)
+        try:
+            spr = timer(engine, cand.chunk, probe_rounds, 1)
+        finally:
+            _close(engine)
         result.stage1_scores[cand] = spr
         if verbose:
             print(f"tune,stage1,{shape.key()},{cand.label()},"
@@ -128,7 +139,10 @@ def tune(make_runner: Callable[[Candidate], object], *,
                              prune_ratio=prune_ratio, keep=keep)
     for cand in result.survivors:
         engine = make_runner(cand)._make_engine()
-        spr = timer(engine, cand.chunk, rounds, 2)
+        try:
+            spr = timer(engine, cand.chunk, rounds, 2)
+        finally:
+            _close(engine)
         result.seconds_per_round[cand] = spr
         if verbose:
             print(f"tune,stage2,{shape.key()},{cand.label()},"

@@ -25,15 +25,17 @@ SHARDS = ("dirichlet", "equal")
 
 def mlp_runner_factory(n: int, *, batch: int = 4, rounds: int = 10 ** 9,
                        seed: int = 0, k: int = 3, sim_every: int = 5,
-                       net=None, shards: str = "dirichlet", device="cuda"
-                       ) -> Callable[[Candidate], object]:
+                       net=None, shards: str = "dirichlet", device="cuda",
+                       mesh_devices=None) -> Callable[[Candidate], object]:
     """``make_runner(candidate)`` for the tiny-MLP Morph workload at
     population size ``n`` on ``device`` (fig9's configuration:
     ``sim_every=5``, ``view_size=k+2``; ``shards`` picks the module
     docstring's Dirichlet or equal shards).  Each call builds a fresh
     runner from the same seed with the candidate's knobs set concretely;
     a sparse candidate runs the sparse-native Morph control plane with the
-    candidate's candidate-set size."""
+    candidate's candidate-set size.  ``mesh_devices`` shards the node axis
+    (``RunnerConfig.mesh_devices``) and the candidate's ``collective``
+    picks the schedule."""
     from ..bench.common import tiny_mlp_experiment
     from ..core import InGraphMorphStrategy
     from ..data import StackedBatcher
@@ -74,7 +76,8 @@ def mlp_runner_factory(n: int, *, batch: int = 4, rounds: int = 10 ** 9,
                 n_nodes=n, rounds=rounds, eval_every=10 ** 9,
                 sim_every=sim_every, seed=seed, compiled=True,
                 chunk=cand.chunk, engine=cand.engine,
-                compress=cand.compress, net=net),
+                compress=cand.compress, net=net,
+                mesh_devices=mesh_devices, collective=cand.collective),
             device=device)
 
     return make_runner

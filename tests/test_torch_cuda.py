@@ -259,6 +259,43 @@ def test_cuda_grouped_csr_is_the_per_leaf_calls_and_plain(cuda_device, n, k,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,half", [(50, 25), (1000, 500), (7, 3)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_csr_block_and_push_partials_are_plain(cuda_device, n, half,
+                                                     dtype):
+    """The CSR kernel as a sharded engine calls it: a receiver block whose
+    own rows start at ``self0`` of the gathered population is those rows
+    of the whole mix and the plain version bit for bit; the push partials
+    (every receiver over one rank's senders, no self term) are the plain
+    version bit for bit; one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + half)
+    xs = [torch.randn((n, d), generator=gen, device=cuda_device).to(
+        DTYPES[dtype]) for d in GN_LENET]
+    scores = torch.rand((n, n), generator=gen, device=cuda_device)
+    scores.fill_diagonal_(-1.0)
+    idx = scores.topk(3, dim=1).indices.to(torch.int32)
+    w = torch.rand((n, 3), generator=gen, device=cuda_device)
+    w_self = torch.rand((n,), generator=gen, device=cuda_device)
+    whole = graph_mix_sparse_leaves(idx, w, w_self, xs)
+    block = (idx[half:].contiguous(), w[half:].contiguous(),
+             w_self[half:].contiguous())
+    before = graph_mix_sparse.launches
+    ys = graph_mix_sparse_leaves(*block, xs, self0=half)
+    push = (idx.remainder(half).contiguous(), w)
+    parts = graph_mix_sparse_leaves(*push, None, [x[:half] for x in xs],
+                                    self0=None)
+    assert graph_mix_sparse.launches == before + 2
+    for x, y, full, part in zip(xs, ys, whole, parts):
+        assert y.shape == (n - half, x.shape[1]) and part.shape == x.shape
+        assert torch.equal(y, full[half:])
+        assert torch.equal(y, ref.graph_mix_sparse(*block, x, half))
+        assert torch.equal(part, ref.graph_mix_sparse(*push, None, x[:half],
+                                                      None))
+    with pytest.raises(ValueError, match="self0"):
+        graph_mix_sparse_leaves(*block, xs, self0=half + 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n,d", [(1, 8, 512), (3, 10, 300), (77, 128, 129),
                                    (129, 200, 300), (1000, 130, 64),
                                    (5, 1000, 2400)])
@@ -1075,3 +1112,66 @@ def test_cuda_tune_sparse_engine_past_the_decode_limit(cuda_device):
     assert rec.isolated == int((~mask.any(axis=1)).sum())
     assert [r.comm_bytes for r in whole.log.records] == \
         [r.comm_bytes for r in chunked.log.records]
+
+
+# The sharded superstep on the card (``chip_smoke.py`` phase 16): one NCCL
+# rank, the mesh's own group.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collective", ["gather", "psum"])
+@pytest.mark.parametrize("name", ["morph", "static"])
+def test_cuda_one_rank_sharded_run_is_the_run_without_a_mesh(
+        cuda_device, name, collective):
+    """``RunnerConfig(mesh_devices=1)`` on the card starts a one-rank NCCL
+    group, runs the sharded engine through one grouped ``graph_mix``
+    launch a round (and one Gram launch a refresh round for Morph) and
+    destroys the group; against the same run without a mesh the edges are
+    identical and the parameters bit for bit (Static's W reaches the same
+    kernel both ways; Morph's masked and general mixes sum alike)."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import tune as tt
+    from repro_torch.kernels import reset_launches
+    rounds = 12
+    factory = tt.mlp_runner_factory(16, rounds=rounds, device=cuda_device)
+    runs, counts = [], []
+    for mesh in (None, 1):
+        runner = factory(tt.Candidate())
+        if name == "static":
+            from repro_torch.core import InGraphStaticStrategy
+            runner.strategy = InGraphStaticStrategy(n=16, degree=3, seed=0,
+                                                    device=cuda_device)
+        runner.cfg = dataclasses.replace(runner.cfg, eval_every=5,
+                                         mesh_devices=mesh,
+                                         collective=collective)
+        reset_launches()
+        runner.run()
+        counts.append((gram_matrix.launches, graph_mix.launches,
+                       graph_mix_masked.launches))
+        runs.append(runner)
+    assert not dist.is_initialized()
+    plain, sharded = runs
+    refreshes = sum(1 for r in range(rounds) if r % 5 == 0)
+    gram = refreshes if name == "morph" else 0
+    assert counts[1] == (gram, rounds, 0)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(plain.edge_history, sharded.edge_history))
+    for k in plain.params:
+        assert torch.equal(plain.params[k], sharded.params[k]), k
+    assert [r.comm_bytes for r in plain.log.records] == \
+        [r.comm_bytes for r in sharded.log.records]
+
+
+@pytest.mark.cuda
+def test_cuda_fig10_refuses_more_ranks_than_cards(cuda_device, capsys):
+    """NCCL takes one rank a card: fig10 stops before starting a child,
+    with the reference's error line and status 3."""
+    from repro_torch.bench import fig10
+    have = torch.cuda.device_count()
+    with pytest.raises(SystemExit) as stop:
+        fig10.main(["--devices", "1", str(have + 1), "--nodes", "8",
+                    "--rounds", "2", "--chunk", "2"])
+    assert stop.value.code == 3
+    assert f"fig10_error,need_{have + 1}_devices,have_{have}" in \
+        capsys.readouterr().err

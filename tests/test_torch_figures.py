@@ -160,3 +160,30 @@ def test_figure_scripts_without_jax(tmp_path):
         _records(tmp_path / "BENCH_torch_fig2.json")
     assert "derived/slack_helps_isolation" in \
         _records(tmp_path / "BENCH_torch_fig67.json")
+
+
+def test_fig10_without_jax(tmp_path):
+    """fig10 at smoke depth (two gloo ranks, n = 8, 4 rounds) in a fresh
+    interpreter that never loads JAX: one row of rounds a second over a
+    padded node axis, the shape naming the mesh's two devices."""
+    code = ("import sys\n"
+            "from repro_torch.bench import fig10\n"
+            "fig10.main(['--device', 'cpu', '--devices', '2', '--nodes', "
+            "'7', '--rounds', '4', '--chunk', '2'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, BENCH_DIR=str(tmp_path),
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = _records(tmp_path / "BENCH_torch_fig10.json")
+    row = rec["sharded-d2/n7"]
+    assert row["rounds_per_sec"] > 0 and row["rounds"] == 4
+    assert row["shape"] == {"backend": "cpu", "n": 7, "d": 1580,
+                            "devices": 2, "net": 0}
+    assert row["knobs"]["backend"] == "gloo"
+    assert set(row["launches"].values()) == {0}       # plain versions
+    assert rec["per_round_ms/d2_n7"]["wall_clock_s"] > 0
+    assert not any(k.startswith("derived/") for k in rec)

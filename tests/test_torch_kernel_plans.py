@@ -385,11 +385,34 @@ def test_grouped_csr_is_one_launch_with_the_planned_table(fake_cuda, n,
     ((fn, args),) = fake_cuda.calls
     suffix = "f32" if dtype == "float32" else "bf16"
     assert fn == f"graph_mix_sparse_{suffix}"
-    assert args[4:8] == (len(ds), n, k, 132)
+    assert args[4:9] == (len(ds), n, k, 0, 132)
     table = _table(args[3], len(ds), 4)
     assert table[:, 2].tolist() == ds
     assert table[:, 3].tolist() == gs_mod.plan_sparse(
         n, ds, xs[0].element_size())
+
+
+@pytest.mark.parametrize("self0", [None, 0, 7])
+def test_csr_block_and_push_partials_pass_their_own_rows(fake_cuda, self0):
+    """A receiver block over a larger population gives the kernel its own
+    rows' offset and ``[n, D]`` outputs planned over its n receivers;
+    push partials (``self0=None``) give -1 and no ``w_self``; a block
+    that runs past the population is refused."""
+    n, m, k = 9, 16, 2
+    xs = [torch.empty((m, d), device="meta") for d in (64, 10)]
+    idx = torch.empty((n, k), dtype=torch.int32, device="meta")
+    w = torch.empty((n, k), device="meta")
+    w_self = None if self0 is None else torch.empty((n,), device="meta")
+    ys = graph_mix_sparse_leaves(idx, w, w_self, xs, self0=self0)
+    assert [tuple(y.shape) for y in ys] == [(n, 64), (n, 10)]
+    ((_, args),) = fake_cuda.calls
+    assert args[4:9] == (2, n, k, -1 if self0 is None else self0, 132)
+    assert (args[2] is None) == (self0 is None)
+    table = _table(args[3], 2, 4)
+    assert table[:, 3].tolist() == gs_mod.plan_sparse(n, [64, 10], 4)
+    with pytest.raises(ValueError, match="self0"):
+        graph_mix_sparse_leaves(idx, w, torch.empty((n,), device="meta"),
+                                xs, self0=m - n + 1)
 
 
 def test_grouped_csr_splits_past_max_leaves(fake_cuda):

@@ -439,7 +439,7 @@ def test_stage_hook_runs_the_round_unchanged(compress):
         b = hooked.net_round(rnd, stage)
         want = ["batch", "local_step", "masks"] \
             + (["encode"] if compress != "none" else []) \
-            + ["similarity", "controller", "push", "delivery_plan", "mix",
+            + ["push", "similarity", "controller", "delivery_plan", "mix",
                "settle"]
         assert seen == want, rnd
         for x, y in zip(a, b):
