@@ -7,7 +7,7 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
 
 1. a CUDA device is present; print ``nvidia-smi``'s name and power limit;
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-   (four sources, one ``nvcc`` each, all at once);
+   (five sources, one ``nvcc`` each, all at once);
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (n = 50; D = 10, 32, 64, 2400, 40960, 51200) and awkward
    ones (n = 7, 33; D = 129, 8199), f32 and bf16; the dense mixes also at
@@ -208,6 +208,31 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    card (one NCCL rank in a child process) and ``--device cpu --devices 1
    2 4 --rounds 20 --chunk 10`` (gloo ranks on the card's host);
 
+17. decentralized LM training (``repro_torch.dlrt.distributed``,
+   ``python -m repro_torch.launch.train``): (a) the selective scan's
+   backward kernel against autograd through the plain scan at phase 3's
+   scan shapes and the served shape, f32, bf16 and the serving mix, with
+   and without the last state's cotangent, two calls the same bits, and
+   timed at the served shape beside its bound; (b) Llama-3.2-3B at its
+   published widths (d_model 3,072, 24/8 heads, d_ff 8,192, vocab 128,256,
+   tied, bf16) with 8 of its 28 layers, n = 8, ten rounds of the train
+   step as the launcher runs it (sgd 0.05, k = 3, view 5, beta 500,
+   delta_r 5, batch 8 of 128 tokens from streams over 2,048 of its ids):
+   the loss finite and lower at the last round than at the first, one
+   Gram launch on each topology round and one masked-mix launch per group
+   of leaves every round, the stage breakdown, peak memory beside the
+   reckoning, and the Gram and masked-mix kernels on a leaf of the
+   embedding's shape (3.15 B elements, rows 6 and 7 wholly past 2^31)
+   whose rows differ, against f64 and their plain versions, with planted
+   faults (node 7's row one element off, rows 6 and 7 swapped) shown to
+   break the limits;
+   (c) reduced Llama-3.2-3B and Jamba without experts, three rounds each
+   (a topology round first) on the card and on the CPU from one state:
+   identical edges, parameters within 1e-4; (d) ``make_serve_step`` each
+   node's ``decode_step`` bit for bit; (e) the launcher at ``--reduced
+   --nodes 8 --rounds 20`` exits 0, and Jamba with experts is refused;
+   ``launches_train`` in every kernel row counts (b) and (c)'s card runs;
+
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
 cuDNN convolutions and matmuls in every phase, so the card computes in
@@ -268,6 +293,9 @@ def tolerance(name, n, bf16, k=None):
     """
     if name == "selective_scan":
         return SCAN_TOL
+    if name == "selective_scan_bwd":
+        # atol is relative to each gradient's largest magnitude (phase 17).
+        return SCAN_BWD_TOL, SCAN_BWD_TOL
     atol = {"gram_matrix": 5e-5, "graph_mix": 1e-4 * math.sqrt(n),
             "graph_mix_masked": 1e-4,
             "graph_mix_sparse": 1e-4 * math.sqrt((k or 0) + 1)}[name]
@@ -1197,7 +1225,8 @@ def run_strategy(name, n, dev, rounds, eval_every, **kw):
 
 def main_path(dev):
     from repro_torch import kernels
-    from repro_torch.kernels import graph_mix, graph_mix_masked, gram_matrix
+    from repro_torch.kernels import (graph_mix, graph_mix_masked,
+                                     gram_matrix, selective_scan_bwd)
     # One-time costs (cuDNN and CUDA context set-up, first calls of each
     # operator) land in a two-round warm-up, not in the first strategy.
     run_strategy("morph", MAIN_N, dev, 2, DELTA_R)
@@ -1243,9 +1272,13 @@ def main_path(dev):
                                   "graph_mix"), got))}
         log(f"phase 4: {name} n={MAIN_N} {ROUNDS} rounds: "
             f"{json.dumps(summary)}")
+    if selective_scan_bwd.launches:
+        raise AssertionError(f"phase 4 launched the scan's backward "
+                             f"{selective_scan_bwd.launches} times")
     return {"gram_matrix": gram_matrix.launches,
             "graph_mix": graph_mix.launches,
-            "graph_mix_masked": graph_mix_masked.launches}
+            "graph_mix_masked": graph_mix_masked.launches,
+            "selective_scan_bwd": selective_scan_bwd.launches}
 
 
 def morph_breakdown(dev, n=MAIN_N, rounds=10, phase=5, **setup):
@@ -1544,7 +1577,8 @@ def jamba_serving_config():
     """Jamba-1.5-Large at its published widths, one whole period of 8
     layers (7 Mamba, attention at index 4), and every MoE layer Jamba's
     dense SwiGLU at d_ff 24,576: four MoE layers of 16 experts do not fit
-    one card (ROADMAP queue 1 item 16 ports MoE on deepseek-moe-16b)."""
+    one card (ROADMAP queue 1 item 5, "Model zoo, the rest", ports MoE
+    on deepseek-moe-16b)."""
     from repro_torch.configs import get_config
     cfg = get_config("jamba-1.5-large-398b")
     return dataclasses.replace(
@@ -3495,8 +3529,8 @@ def per_row_mix(dev):
 
 class SweepStages:
     """Host-clock time of a round's stages, each ending in a synchronise
-    (the ``stage`` hook of ``SweepSuperstep.round`` and
-    ``Superstep.net_round``)."""
+    (the ``stage`` hook of ``SweepSuperstep.round``,
+    ``Superstep.net_round`` and the LM train step)."""
 
     def __init__(self):
         self.ms = {}
@@ -3795,7 +3829,8 @@ def fig12_rows(dev):
         want = {"gram_matrix": calls * refreshes if engine == "dense" else 0,
                 "graph_mix_masked": rounds if engine == "dense" else 0,
                 "graph_mix_sparse": rounds if engine == "sparse" else 0,
-                "graph_mix": 0, "selective_scan": 0}
+                "graph_mix": 0, "selective_scan": 0,
+                "selective_scan_bwd": 0}
         if got != want:
             raise AssertionError(f"15(c) {key}: launches {got} != {want}")
         _add(totals, got)
@@ -3846,7 +3881,8 @@ def fig9_rows(dev):
             gram = refresh(rec["warm_rounds"]) \
                 + 3 * refresh(rec["rounds_per_call"])
         want = {"gram_matrix": gram, "graph_mix_masked": rounds,
-                "graph_mix": 0, "graph_mix_sparse": 0, "selective_scan": 0}
+                "graph_mix": 0, "graph_mix_sparse": 0, "selective_scan": 0,
+                "selective_scan_bwd": 0}
         if got != want:
             raise AssertionError(f"15(d) {label}: launches {got} != {want}")
         _add(totals, got)
@@ -4140,6 +4176,519 @@ def sharded_path(dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: decentralized LM training (the launcher's path) and the scan's
+# backward kernel.
+# ---------------------------------------------------------------------------
+
+# The least the S6 backward needs per (t, channel, state) element, whatever
+# the kernel.  It has no bit contract (it is held to autograd at
+# SCAN_BWD_TOL), so every product that feeds an add counts as one FFMA.
+# h_{t-1} again, since [b, L, di, ds] is never stored: dt a (FMUL), its
+# exponential by the forward's expf (6 FP32-pipe instructions around its
+# MUFU.EX2, counted as the forward's row counts them: the recompute and the
+# carry must use the factor the forward multiplied by, so that the states
+# are the forward's and the gradients those of the function it computed),
+# q = exp h_{t-1} (FMUL) and h_t = (dt x) b + q (FFMA), dt x once a
+# channel: 9.  The step: g = dy c + exp' g' (FMUL, FFMA); e = g q (FMUL);
+# the sums over the states into dx of g b and into ddt of e a (2 FFMA);
+# da += e dt (FFMA); dc += dy h and db += g (dt x) over the channels
+# (2 FFMA): 8.  17 in all, and one MUFU.EX2.
+SCAN_BWD_FP32_PER_ELEMENT = 17
+SCAN_BWD_MUFU_PER_ELEMENT = 1
+# The backward kernel against autograd through the plain scan: each
+# gradient within 1e-4 of its largest magnitude, plus 1e-4 of the value
+# (and one bf16 ulp where the gradient is bf16): both differ where their
+# exp does, as the forward, and in the order of their sums over the states
+# (dx, ddt), the channels (db, dc) and batch and time (da).
+SCAN_BWD_TOL = 1e-4
+SCAN_GRADS = ("dx", "ddt", "db", "dc", "da", "dh0")
+# 17(b): Llama-3.2-3B at its published widths with 8 of its 28 layers,
+# bf16, trained as launch/train.py does it (n = 8, sgd 0.05, Morph k = 3,
+# view 5, beta 500, delta_r 5; batch 8 of 128 tokens a node), 10 rounds,
+# on token streams over TRAIN_IDS of its 128,256 ids.
+TRAIN_LAYERS, TRAIN_N, TRAIN_ROUNDS, TRAIN_IDS = 8, 8, 10, 2048
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STREAM = 8, 128, 20_000
+# 17(b): the Gram kernel's cosine of a leaf of the embedding's shape (D =
+# 394 M a node) against f64.  Its f32 sums run chains of about 3 M
+# products a block, so each Gram entry is off by some sqrt(3e6) x 2^-24,
+# about 1e-4 of |x_i| |x_j|; the limit is ten times that.  The leaf's rows
+# (embedding_like_leaf) have cosines a_i a_j from 0.012 to 0.79, so a row
+# read from a wrong offset (past 2^31) or a swapped pair of rows moves an
+# entry by 0.01 or more; the planted faults show it.
+EMBED_COS_ATOL = 1e-3
+
+
+def scan_grads_close(got, want, worst, what):
+    """Hold the backward kernel's gradients to the plain version's within
+    :data:`SCAN_BWD_TOL`; keep the worst |err| by the inputs' type."""
+    key = "float32" if got[0].dtype == torch.float32 else "bfloat16"
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"scan backward {what} {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rtol = SCAN_BWD_TOL + (BF16_ULP if got[SCAN_GRADS.index(name)].dtype
+                               == torch.bfloat16 else 0.0)
+        atol = SCAN_BWD_TOL * float(w.abs().max())
+        excess = float((diff - rtol * w.abs()).max())
+        worst[key] = max(worst[key], float(diff.max()))
+        if not excess <= atol:
+            raise AssertionError(f"scan backward {what} {name}: |err| "
+                                 f"exceeds {rtol} * |want| by {excess} > "
+                                 f"{atol}")
+
+
+def check_scan_backward(dev):
+    """17(a): the backward kernel, given the tile states of a forward
+    launch as the training path gives them, against autograd through the
+    plain scan at phase 3's scan shapes and the served shape, each type,
+    with and without the last state's cotangent, and two calls the same
+    bits."""
+    from repro_torch.kernels import ref, selective_scan_bwd
+    from repro_torch.kernels.selective_scan import _forward
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    count = 0
+    for shape in SCAN_SHAPES + [SERVED_SCAN]:
+        served = shape == SERVED_SCAN
+        for label, types in SCAN_TYPES.items():
+            args = scan_inputs(dev, gen, *shape, types)
+            _, _, tiles = _forward(*args, keep_tiles=True)
+            bt, L, di, ds = shape
+            dy = torch.randn((bt, L, di), generator=gen, device=dev)
+            dh = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
+            for last in ((dh,) if served else (dh, None)):
+                got = selective_scan_bwd(*args, dy, last, tiles)
+                want = ref.selective_scan_bwd(*args, dy, last)
+                scan_grads_close(got, want, worst, f"{shape} {label}")
+                again = selective_scan_bwd(*args, dy, last, tiles)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"scan backward {shape} {label}: "
+                                         "two calls differ")
+                count += 1
+                del got, want, again
+    log(f"phase 17(a): {count} scan backward kernel/plain comparisons "
+        f"within atol {SCAN_BWD_TOL} x max|grad| and rtol {SCAN_BWD_TOL} "
+        f"(+ one bf16 ulp), each twice with the same bits (shapes "
+        f"{SCAN_SHAPES + [SERVED_SCAN]}, types {list(SCAN_TYPES)}); worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def time_scan_backward(dev):
+    """17(a): the backward kernel at the served shape with apply_mamba's
+    types (dh given), inputs rotated through more than L2, against
+    autograd through the plain scan; no library call computes it.  The
+    bound is phase 3's four parts for the backward's counts
+    (:data:`SCAN_BWD_FP32_PER_ELEMENT`): bytes (x, dt, b, c, a, h0, dy
+    and dh read once; the gradients written once; the tile states are
+    this design's own scratch, not the function's), exponentials, FP32
+    lanes, issue."""
+    from repro_torch.kernels import ref, selective_scan_bwd
+    from repro_torch.kernels.selective_scan import _forward
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bt, L, di, ds = SERVED_SCAN
+    sets = []
+    for _ in range(3):
+        args = scan_inputs(dev, gen, *SERVED_SCAN, SCAN_TYPES["serving"])
+        _, _, tiles = _forward(*args, keep_tiles=True)
+        dy = torch.randn((bt, L, di), generator=gen, device=dev)
+        dh = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
+        sets.append((*args, dy, dh, tiles))
+
+    def kernel(x, dt, b, c, a, h0, dy, dh, tiles):
+        return selective_scan_bwd(x, dt, b, c, a, h0, dy, dh, tiles)
+
+    t = {**timings((kernel, sets), None, reps=10),
+         "plain_ms": time_ms(lambda *s: ref.selective_scan_bwd(*s[:8]),
+                             sets[:1], reps=1, warmup=1),
+         "library": "none: no single PyTorch call computes the S6 "
+                    "recurrence's backward"}
+    x, dt, b, c, a, h0, dy, dh, _ = sets[0]
+    size = lambda *ts: sum(v.numel() * v.element_size() for v in ts)
+    # Read: x, dt, b, c, a, h0, dy, dh; written: dx, ddt, db, dc (the
+    # inputs' types), da and dh0 (f32).
+    nbytes = size(x, dt, b, c, a, h0, dy, dh) + size(x, dt, b, c, a, h0)
+    elements = bt * L * di * ds
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "mufu": elements * SCAN_BWD_MUFU_PER_ELEMENT
+             / (SFU_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+             "f32_issue": elements * SCAN_BWD_FP32_PER_ELEMENT
+             / (FP32_PER_CLOCK_PER_SM * sms * clock) * 1e3,
+             "issue": elements
+             * (SCAN_BWD_FP32_PER_ELEMENT + SCAN_BWD_MUFU_PER_ELEMENT)
+             / (ISSUE_PER_CLOCK_PER_SM * sms * clock) * 1e3}
+    t["bound_ms"] = max(parts.values())
+    t["bound_part"] = max(parts, key=parts.get)
+    t["bound_by"] = "bytes" if t["bound_part"] == "bytes" else "operations"
+    t["bound_parts_ms"] = parts
+    t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    t["sm_clock_mhz"], t["sms"] = clock / 1e6, sms
+    t["shape"] = [bt, L, di, ds, "x bf16, dt f32, b/c bf16; dy, dh f32"]
+    log(f"phase 17(a): selective_scan_bwd at {SERVED_SCAN}: "
+        f"{json.dumps(t)}")
+    return t
+
+
+def full_width_train_config():
+    """17(b): Llama-3.2-3B at its published widths with TRAIN_LAYERS of its
+    28 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-3b"),
+                               num_layers=TRAIN_LAYERS)
+
+
+def train_batchers(n, seed0=1000):
+    """Each node's batches as launch/train.py builds them, over a stream
+    of TRAIN_IDS token ids (valid ids of the full vocabulary; a stream
+    over all 128,256 would need a 131 GB transition matrix)."""
+    from repro_torch.data import TokenBatcher, make_token_stream
+    return [TokenBatcher(make_token_stream(
+        TRAIN_STREAM, TRAIN_IDS, seed=seed0 + i,
+        concentration=0.05 + 0.1 * (i % 4)), TRAIN_BATCH, TRAIN_SEQ, seed=i)
+        for i in range(n)]
+
+
+def next_batch(batchers):
+    nbs = [b.next() for b in batchers]
+    return {k: np.stack([nb[k] for nb in nbs]) for k in ("tokens", "labels")}
+
+
+def train_full_width(dev):
+    """17(b): ten rounds of the full-width train step with its stage
+    breakdown, peak memory against the reckoning, and launch counts; then
+    :func:`embedding_past_2_31` on a leaf of the embedding's shape with the
+    run's last edges.  Returns the launches."""
+    from repro_torch import kernels
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step)
+    from repro_torch.dlrt.distributed import MIX_GROUP_BYTES
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = full_width_train_config()
+    n = TRAIN_N
+    opt = sgd(0.05)
+    hp = MorphHParams(k=min(3, n - 1), view_size=min(5, n - 1), beta=500.0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, n, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = flatten(state.params)
+    per_node = sum(v[0].numel() for v in params.values())
+    population = sum(v.numel() * v.element_size() for v in params.values())
+    groups = ops.mix_groups(params, MIX_GROUP_BYTES)
+    largest = max(sum(params[k].numel() * params[k].element_size()
+                      for k in g) for g in groups)
+    batchers = train_batchers(n)
+    steps = {topo: make_train_step(cfg, opt, hp, do_topology=topo)
+             for topo in (True, False)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    losses, rounds_ms, timers = [], [], []
+    for rnd in range(TRAIN_ROUNDS):
+        batch = next_batch(batchers)
+        timer = SweepStages()
+        t1 = time.perf_counter()
+        state, m = steps[rnd % DELTA_R == 0](state, batch, stage=timer)
+        torch.cuda.synchronize()
+        rounds_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        timers.append(timer.ms)
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    topo_rounds = sum(1 for r in range(TRAIN_ROUNDS) if r % DELTA_R == 0)
+    want = dict.fromkeys(got, 0)
+    want.update(gram_matrix=topo_rounds,
+                graph_mix_masked=TRAIN_ROUNDS * len(groups))
+    if got != want:
+        raise AssertionError(f"17(b): launches {got} != {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"17(b): losses {losses}: not finite or not "
+                             "lower at the last round than at the first")
+    stages = {}
+    for name in timers[0] | timers[-1]:
+        per = [t.get(name, 0.0) for t in timers]
+        stages[name] = {"mean_ms": float(np.mean(per)),
+                        "steady_mean_ms": float(np.mean(per[1:]))}
+    total = sum(v["steady_mean_ms"] for v in stages.values())
+    for v in stages.values():
+        v["share"] = v["steady_mean_ms"] / total
+    # Reckoning: the population, one node's gradients, its f32 logits
+    # (and their softmax), and the mix's largest group of new leaves.
+    logits = TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4
+    reckoned = population + population // n + 2 * logits + largest
+    rec = {"config": {"d_model": cfg.d_model, "layers": cfg.num_layers,
+                      "heads": [cfg.num_heads, cfg.num_kv_heads],
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                      "tied": cfg.tie_embeddings, "dtype": cfg.param_dtype,
+                      "remat": cfg.remat},
+           "nodes": n, "params_per_node": per_node,
+           "population_gb": population / 1e9, "init_s": init_s,
+           "losses": losses, "round_ms": rounds_ms,
+           "steady_round_ms": float(np.mean(rounds_ms[1:])),
+           "stages": stages, "mix_groups": len(groups),
+           "mix_largest_group_gb": largest / 1e9,
+           "peak_gb": peak / 1e9, "peak_over_base_gb": (peak - base) / 1e9,
+           "reckoned_gb": reckoned / 1e9, "launches": got}
+    log(f"phase 17(b): llama3.2-3b full width, {TRAIN_LAYERS} layers, "
+        f"n = {n}, {TRAIN_ROUNDS} rounds: {json.dumps(rec)}")
+
+    edges = state.morph.edges.clone(memory_format=torch.contiguous_format)
+    shape = tuple(params["embed.table"].shape)
+    del state, params
+    torch.cuda.empty_cache()
+    embedding_past_2_31(dev, edges, shape)
+    return got
+
+
+def embedding_like_leaf(dev, n, d, seed=19):
+    """``[n, d]`` bf16 rows ``a_i s + sqrt(1 - a_i^2) z_i`` with one shared
+    normal ``s``, each node's own normal ``z_i`` and ``a_i = (i + 1) / (n +
+    1)``: cosines about ``a_i a_j``, different for every pair, so a row
+    read from another offset or another node's place changes them (the
+    trained leaf's rows are near consensus, with every cosine near 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shared = torch.randn(d, generator=gen, device=dev)
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for i in range(n):
+        a = (i + 1) / (n + 1)
+        out[i] = (torch.randn(d, generator=gen, device=dev)
+                  .mul_(math.sqrt(1 - a * a)).add_(shared, alpha=a))
+    del shared
+    return out
+
+
+def embedding_past_2_31(dev, edges, shape, step=1 << 25):
+    """17(b): the Gram and masked-mix kernels on an embedding-shaped leaf
+    (:func:`embedding_like_leaf`, ``[n, 128,256 x 3,072]``, 3.15 B elements
+    at n = 8; rows 6 and 7 start past 2^31): the cosine against the Gram
+    matrix in f64 within :data:`EMBED_COS_ATOL`, the mix against its plain
+    version column block by column block.  Then planted faults, each
+    undone bit for bit: node 7's row one element off and rows 6 and 7
+    swapped must break the cosine's limit, node 7's row one element off
+    the mix's."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    n = shape[0]
+    emb = embedding_like_leaf(dev, n, math.prod(shape[1:]))
+    gram = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    for c0 in range(0, emb.shape[1], step):
+        block = emb[:, c0:c0 + step].double()
+        gram += block @ block.T
+        del block
+    norms = torch.sqrt(torch.diagonal(gram))
+    true_cos = gram / (norms[:, None] * norms[None, :])
+
+    def cos_err():
+        return float((ops.pairwise_cosine(emb).double() - true_cos)
+                     .abs().max())
+
+    def mix_excess():
+        """The largest ``|err| - rtol |want|`` of the kernel's mix of
+        ``emb`` over ``want``, the plain mix of the leaf as it was made."""
+        mixed = kernels.graph_mix_masked(edges, emb)
+        atol, rtol = tolerance("graph_mix_masked", n, True)
+        excess = -math.inf
+        for c0 in range(0, emb.shape[1], step):
+            w = want[:, c0:c0 + step].float()
+            diff = (mixed[:, c0:c0 + step].float() - w).abs()
+            excess = max(excess, float((diff - rtol * w.abs()).max()))
+        return excess, atol
+
+    err = cos_err()
+    if not err <= EMBED_COS_ATOL:
+        raise AssertionError(f"17(b): the embedding-shaped leaf's cosine is "
+                             f"{err} from f64's > {EMBED_COS_ATOL}")
+    worst = {"graph_mix_masked": {"float32": 0.0, "bfloat16": 0.0}}
+    mixed = kernels.graph_mix_masked(edges, emb)
+    want = torch.empty_like(emb)
+    for c0 in range(0, emb.shape[1], step):
+        want[:, c0:c0 + step] = ref.graph_mix_masked(
+            edges, emb[:, c0:c0 + step])
+        compare("graph_mix_masked", mixed[:, c0:c0 + step],
+                want[:, c0:c0 + step], n, torch.bfloat16,
+                "embedding-shaped leaf", worst)
+    del mixed
+
+    faults = {}
+    emb[7] = emb[7].roll(1)                       # node 7 one element off
+    faults["cos_row7_shifted"] = cos_err()
+    faults["mix_row7_shifted"], mix_atol = mix_excess()
+    emb[7] = emb[7].roll(-1)
+    emb[[6, 7]] = emb[[7, 6]]
+    faults["cos_rows67_swapped"] = cos_err()
+    emb[[6, 7]] = emb[[7, 6]]
+    if not (faults["cos_row7_shifted"] > EMBED_COS_ATOL
+            and faults["cos_rows67_swapped"] > EMBED_COS_ATOL
+            and faults["mix_row7_shifted"] > mix_atol):
+        raise AssertionError(f"17(b): a planted fault passes the limits "
+                             f"(cosine {EMBED_COS_ATOL}, mix excess "
+                             f"{mix_atol}): {faults}")
+    if cos_err() != err:
+        raise AssertionError("17(b): the leaf did not come back from the "
+                             "planted faults")
+    log(f"phase 17(b): an embedding-shaped leaf [{n}, {emb.shape[1]}] "
+        f"({emb.numel()} elements, cosines "
+        f"{float(true_cos.min()):.4f} to "
+        f"{float((true_cos - torch.eye(n, device=dev)).max()):.4f} off the "
+        f"diagonal): the Gram kernel's cosine within {err} of f64's (limit "
+        f"{EMBED_COS_ATOL}); the masked mix within tolerance of its plain "
+        f"version, worst {json.dumps(worst['graph_mix_masked'])}; planted "
+        f"faults caught: {json.dumps(faults)} (mix excess limit "
+        f"{mix_atol})")
+    del emb, want
+    torch.cuda.empty_cache()
+
+
+def reduced_train_config(arch):
+    """17(c): the reduced config (Jamba without experts)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(
+            cfg, moe=None, pattern=tuple(dataclasses.replace(s, moe=False)
+                                         for s in cfg.pattern))
+    return cfg.reduced()
+
+
+def train_card_vs_cpu(dev):
+    """17(c): reduced Llama-3.2-3B and Jamba without experts, 3 rounds (a
+    topology round first) on the card and on the CPU from one state:
+    identical edges, parameters within 1e-4.  Returns the card runs'
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    totals = dict.fromkeys(launch_counts(), 0)
+    out = {}
+    for arch in ("llama3.2-3b", "jamba-1.5-large-398b"):
+        cfg = reduced_train_config(arch)
+        n = 4
+        cpu = init_train_state(cfg, sgd(0.05), n, seed=5, device="cpu")
+        card = train_state_to(cpu, dev)
+        steps = {topo: make_train_step(cfg, sgd(0.05),
+                                       MorphHParams(k=2, view_size=3),
+                                       do_topology=topo)
+                 for topo in (True, False)}
+        rng = np.random.default_rng(5)
+        gaps = []
+        for rnd in range(3):
+            toks = rng.integers(0, cfg.vocab_size, (n, 2, 33)).astype(
+                np.int32)
+            batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+            cpu, _ = steps[rnd == 0](cpu, batch)
+            kernels.reset_launches()
+            card, _ = steps[rnd == 0](card, batch)
+            torch.cuda.synchronize()
+            _add(totals, launch_counts())
+            if not torch.equal(card.morph.edges.cpu(), cpu.morph.edges):
+                raise AssertionError(f"17(c) {arch} round {rnd}: edges "
+                                     "differ")
+            want = flatten(cpu.params)
+            gap = max(float((v.cpu() - want[k]).abs().max())
+                      for k, v in flatten(card.params).items())
+            if not gap <= 1e-4:
+                raise AssertionError(f"17(c) {arch} round {rnd}: params "
+                                     f"{gap} > 1e-4")
+            gaps.append(gap)
+        out[arch] = gaps
+    if not (totals["selective_scan"] and totals["selective_scan_bwd"]
+            and totals["gram_matrix"] and totals["graph_mix_masked"]):
+        raise AssertionError(f"17(c): card launches {totals}")
+    log(f"phase 17(c): card == CPU, identical edges, params within 1e-4 "
+        f"(max |gap| by round {json.dumps(out)}); card launches "
+        f"{json.dumps(totals)}")
+    return totals
+
+
+def serve_step_bits(dev):
+    """17(d): make_serve_step on reduced Llama-3.2-3B gives each node's
+    own decode_step bit for bit."""
+    from repro_torch.dlrt import (init_node_caches, init_train_state,
+                                  make_serve_step)
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_map
+    cfg = reduced_train_config("llama3.2-3b")
+    n, b, max_len = 3, 2, 8
+    params = init_train_state(cfg, sgd(0.05), n, seed=6, device=dev).params
+    cache = init_node_caches(cfg, n, b, max_len, device=dev)
+    own = [model.init_cache(cfg, b, max_len, device=dev) for _ in range(n)]
+    serve = make_serve_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for pos in range(5):
+        toks = torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
+                             device=dev)
+        logits, cache = serve(params, cache, toks, pos)
+        for i in range(n):
+            want, own[i] = model.decode_step(
+                tree_map(lambda v: v[i], params), own[i], toks[i], pos, cfg)
+            if not torch.equal(logits[i], want):
+                raise AssertionError(f"17(d): node {i} at {pos}: serve_step "
+                                     "differs from decode_step")
+    log(f"phase 17(d): make_serve_step on reduced llama3.2-3b, n = {n}, "
+        "5 positions: each node's decode_step bit for bit")
+
+
+def launcher_runs(dev):
+    """17(e): ``python -m repro_torch.launch.train --arch llama3.2-3b
+    --reduced --nodes 8 --rounds 20`` exits 0 on the card; Jamba keeps
+    refusing its MoE layers."""
+    import os
+    from repro_torch.launch import train
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3.2-3b", "--reduced", "--nodes", "8", "--rounds", "20"],
+        env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "done: 20 rounds" not in proc.stdout:
+        raise AssertionError(f"17(e): the launcher exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    try:
+        train.main(["--arch", "jamba-1.5-large-398b", "--reduced",
+                    "--rounds", "1"])
+    except NotImplementedError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("17(e): Jamba with experts trained")
+    lines = proc.stdout.strip().splitlines()
+    log(f"phase 17(e): launcher exit 0 in {wall:.1f} s: {lines[0]!r} ... "
+        f"{lines[-2]!r} {lines[-1]!r}; jamba-1.5-large-398b: {refusal!r}")
+
+
+def train_path(dev):
+    """Phase 17: (a) to (e); returns the backward kernel's worst errors and
+    times and the launches of the training runs on the card."""
+    t0 = time.perf_counter()
+    worst = check_scan_backward(dev)
+    times = time_scan_backward(dev)
+    t1 = time.perf_counter()
+    totals = train_full_width(dev)
+    t2 = time.perf_counter()
+    _add(totals, train_card_vs_cpu(dev))
+    serve_step_bits(dev)
+    t3 = time.perf_counter()
+    launcher_runs(dev)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
+        f"(b) {t2 - t1:.1f}, (c) and (d) {t3 - t2:.1f}, (e) "
+        f"{time.perf_counter() - t3:.1f})")
+    return worst, times, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4205,6 +4754,8 @@ def main():
     sweep_counts, sweep_mixes = sweep_path(dev)
     fig12_counts, fig9_counts = tune_path(dev)
     sharded_counts = sharded_path(dev)
+    worst["selective_scan_bwd"], times["selective_scan_bwd"], \
+        train_counts = train_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
             k: v[name] for k, v in sweep_mixes.items()}
@@ -4223,11 +4774,17 @@ def main():
                                     ":78"),
                "selective_scan": ("src/repro_torch/kernels/csrc/"
                                   "selective_scan.cu",
-                                  "src/repro/kernels/selective_scan.py:75")}
+                                  "src/repro/kernels/selective_scan.py:75"),
+               "selective_scan_bwd": (
+                   "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                   "none: the backward of src/repro/models/mamba.py:82-123 "
+                   "(jax.grad through lax.associative_scan; the Pallas "
+                   "scan at src/repro/kernels/selective_scan.py:75 has no "
+                   "backward)")}
     rows = []
     smallest_n = min(n for n, _ in AWKWARD)     # graph_mix's tightest atol
     for name in ("gram_matrix", "graph_mix_masked", "graph_mix",
-                 "graph_mix_sparse", "selective_scan"):
+                 "graph_mix_sparse", "selective_scan", "selective_scan_bwd"):
         t = times[name]
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
@@ -4242,6 +4799,7 @@ def main():
             "launches_fig12": fig12_counts[name],
             "launches_fig9": fig9_counts[name],
             "launches_sharded": sharded_counts[name],
+            "launches_train": train_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

@@ -1,7 +1,7 @@
 """Per-node batching pipelines.
 
-:class:`NodeBatcher` / :class:`StackedBatcher` are bit-for-bit numpy copies
-of ``repro.data.pipeline``'s host batchers.  :class:`DeviceDataStream`
+:class:`NodeBatcher` / :class:`StackedBatcher` / :class:`TokenBatcher` are
+bit-for-bit numpy copies of ``repro.data.pipeline``'s host batchers.  :class:`DeviceDataStream`
 keeps the dataset and the ``[n, S]`` shard-index table on the device and
 draws every round's ``[n, b, ...]`` batch there, with no host transfer;
 :func:`stack_streams` stacks a sweep's per-experiment tables over one
@@ -162,3 +162,24 @@ def stack_streams(streams: Sequence[DeviceDataStream]):
     dev = first.device
     return (first.data, index.to(dev), sizes.to(dev), seeds.to(dev),
             first.batch)
+
+
+class TokenBatcher:
+    """Next-token LM batches from a per-node token stream: ``batch``
+    windows of ``seq + 1`` tokens at random starts, split into ``tokens``
+    and the ``labels`` one position on, both ``[batch, seq]`` int32."""
+
+    def __init__(self, tokens: np.ndarray, batch_size: int, seq_len: int,
+                 seed: int):
+        self.tokens = tokens
+        self.batch = batch_size
+        self.seq = seq_len
+        self.rng = np.random.default_rng(seed)
+
+    def next(self) -> Dict[str, np.ndarray]:
+        starts = self.rng.integers(0, len(self.tokens) - self.seq - 1,
+                                   self.batch)
+        idx = starts[:, None] + np.arange(self.seq + 1)[None]
+        window = self.tokens[idx]
+        return {"tokens": window[:, :-1].astype(np.int32),
+                "labels": window[:, 1:].astype(np.int32)}

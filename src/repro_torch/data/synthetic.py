@@ -1,5 +1,7 @@
-"""Offline synthetic image datasets — a bit-for-bit numpy copy of
-``repro.data.synthetic`` (class prototypes + smooth per-sample noise)."""
+"""Offline synthetic datasets — a bit-for-bit numpy copy of
+``repro.data.synthetic``: class-conditional images (class prototypes +
+smooth per-sample noise) and an order-1 Markov token stream for the model
+zoo's LM training."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -50,6 +52,25 @@ def make_image_classification(n_samples: int, *, num_classes: int = 10,
         imgs += styles[writer_ids]
     imgs = np.clip(imgs, -2.0, 2.0).astype(np.float32)
     return ImageDataset(imgs, labels, writer_ids, num_classes)
+
+
+def make_token_stream(n_tokens: int, vocab: int, *, seed: int = 0,
+                      concentration: float = 0.2) -> np.ndarray:
+    """Order-1 Markov chain with Dirichlet-sparse rows (a learnable LM
+    stream: its transitions give a loss well below ``ln(vocab)``).
+
+    As in the reference, the transition matrix is ``[vocab, vocab]`` f64,
+    which is 131 GB at a full vocabulary of 128,256: the stream is for
+    reduced vocabularies (ROADMAP queue 3)."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.full(vocab, concentration), size=vocab)
+    cum = np.cumsum(trans, axis=1)
+    toks = np.empty(n_tokens, np.int32)
+    toks[0] = rng.integers(vocab)
+    u = rng.random(n_tokens)
+    for t in range(1, n_tokens):
+        toks[t] = np.searchsorted(cum[toks[t - 1]], u[t])
+    return np.clip(toks, 0, vocab - 1)
 
 
 def train_test_split(ds: ImageDataset, test_frac: float, seed: int = 0

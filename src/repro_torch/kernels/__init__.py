@@ -1,15 +1,15 @@
 """Hand-written Hopper kernels (``csrc/*.cu``) for the TPU kernels on the
-dense and sparse Morph paths and on the model zoo's Mamba prefill, with
-their plain PyTorch versions (:mod:`.ref`) and the parameter-dict wrappers
-(:mod:`.ops`)."""
+dense and sparse Morph paths and on the model zoo's Mamba layers (the
+scan, and its backward for training), with their plain PyTorch versions
+(:mod:`.ref`) and the parameter-dict wrappers (:mod:`.ops`)."""
 from .graph_mix import (graph_mix, graph_mix_leaves, graph_mix_masked,
                         graph_mix_masked_leaves)
 from .graph_mix_sparse import graph_mix_sparse, graph_mix_sparse_leaves
 from .pairwise_cosine import gram_matrices, gram_matrix
-from .selective_scan import selective_scan
+from .selective_scan import selective_scan, selective_scan_bwd
 
 KERNELS = (gram_matrix, graph_mix, graph_mix_masked, graph_mix_sparse,
-           selective_scan)
+           selective_scan, selective_scan_bwd)
 
 
 def reset_launches() -> None:
@@ -21,4 +21,5 @@ def reset_launches() -> None:
 __all__ = ["KERNELS", "graph_mix", "graph_mix_leaves", "graph_mix_masked",
            "graph_mix_masked_leaves", "graph_mix_sparse",
            "graph_mix_sparse_leaves", "gram_matrices",
-           "gram_matrix", "reset_launches", "selective_scan"]
+           "gram_matrix", "reset_launches", "selective_scan",
+           "selective_scan_bwd"]

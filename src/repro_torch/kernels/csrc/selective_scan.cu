@@ -75,6 +75,12 @@
 //   lanes, and y differs from the plain version only where their `exp`
 //   does.
 //
+// - Tile states for the backward.  Given h_tiles, the kernel also stores h
+//   as each 32-step tile starts ([batch, tiles, di, ds] f32: 134 MB at the
+//   served shape), one predicated 16-byte store per lane a tile; the
+//   backward (selective_scan_bwd.cu) recomputes every tile from it.
+//   Serving passes null and stores nothing.
+//
 // Types.  x, dt, b and c are each f32 or bf16, as the Pallas kernel takes
 // them.  apply_mamba passes dt in f32 (after the softplus); the bf16 dt
 // instantiations are kept on purpose, for callers that hold dt in bf16 (the
@@ -111,6 +117,7 @@ struct Args {
   const float* h0;    // [batch, di, ds]
   float* y;           // [batch, L, di]
   float* h_out;       // [batch, di, ds]
+  float* h_tiles;     // [batch, tiles, di, ds] or null: h at tile starts
   int L, di, chan_tiles;
   int x_vec, dt_vec;  // rows of x / dt are 16-byte aligned
 };
@@ -310,6 +317,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fetch(t + kStages - 1);
     convert(t + 1);
 
+    // The backward (selective_scan_bwd.cu) recomputes each tile from the
+    // state it starts with.
+    if (args.h_tiles != nullptr && active)
+      store_states<SPL>(args.h_tiles + (((long long)batch * tiles + t) * di
+                                        + ch) * DS + q * SPL, h);
+
     const unsigned char* s = stage(t);
     const TX* const xs = reinterpret_cast<const TX*>(s) + cl;
     const TDT* const dts = reinterpret_cast<const TDT*>(s + Lay::kX) + cl;
@@ -367,8 +380,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 template <int DS, typename TX, typename TDT, typename TBC>
 int launch(const void* x, const void* dt, const void* b, const void* c,
-           const void* a, const void* h0, void* y, void* h_out, int batch,
-           int L, int di, cudaStream_t stream) {
+           const void* a, const void* h0, void* y, void* h_out,
+           void* h_tiles, int batch, int L, int di, cudaStream_t stream) {
   constexpr int G = lanes<DS>();
   using Lay = Layout<DS, G, TX, TDT, TBC>;
   const int chan_tiles = (di + Lay::kChannels - 1) / Lay::kChannels;
@@ -381,7 +394,8 @@ int launch(const void* x, const void* dt, const void* b, const void* c,
   if (err != cudaSuccess) return (int)err;
   Args args{x, dt, b, c, static_cast<const float*>(a),
             static_cast<const float*>(h0), static_cast<float*>(y),
-            static_cast<float*>(h_out), L, di, chan_tiles,
+            static_cast<float*>(h_out), static_cast<float*>(h_tiles), L, di,
+            chan_tiles,
             reinterpret_cast<uintptr_t>(x) % 16 == 0
                 && (size_t)di * sizeof(TX) % 16 == 0,
             reinterpret_cast<uintptr_t>(dt) % 16 == 0
@@ -393,60 +407,63 @@ int launch(const void* x, const void* dt, const void* b, const void* c,
 template <int DS, typename TX, typename TDT>
 int by_bc(bool bc_bf16, const void* x, const void* dt, const void* b,
           const void* c, const void* a, const void* h0, void* y, void* h_out,
-          int batch, int L, int di, cudaStream_t stream) {
+          void* h_tiles, int batch, int L, int di, cudaStream_t stream) {
   return bc_bf16 ? launch<DS, TX, TDT, __nv_bfloat16>(x, dt, b, c, a, h0, y,
-                                                      h_out, batch, L, di,
-                                                      stream)
+                                                      h_out, h_tiles, batch,
+                                                      L, di, stream)
                  : launch<DS, TX, TDT, float>(x, dt, b, c, a, h0, y, h_out,
-                                              batch, L, di, stream);
+                                              h_tiles, batch, L, di, stream);
 }
 
 template <int DS, typename TX>
 int by_dt(bool dt_bf16, bool bc_bf16, const void* x, const void* dt,
           const void* b, const void* c, const void* a, const void* h0,
-          void* y, void* h_out, int batch, int L, int di,
+          void* y, void* h_out, void* h_tiles, int batch, int L, int di,
           cudaStream_t stream) {
   return dt_bf16 ? by_bc<DS, TX, __nv_bfloat16>(bc_bf16, x, dt, b, c, a, h0,
-                                                y, h_out, batch, L, di,
-                                                stream)
+                                                y, h_out, h_tiles, batch, L,
+                                                di, stream)
                  : by_bc<DS, TX, float>(bc_bf16, x, dt, b, c, a, h0, y, h_out,
-                                        batch, L, di, stream);
+                                        h_tiles, batch, L, di, stream);
 }
 
 template <int DS>
 int by_x(bool x_bf16, bool dt_bf16, bool bc_bf16, const void* x,
          const void* dt, const void* b, const void* c, const void* a,
-         const void* h0, void* y, void* h_out, int batch, int L, int di,
-         cudaStream_t stream) {
+         const void* h0, void* y, void* h_out, void* h_tiles, int batch,
+         int L, int di, cudaStream_t stream) {
   return x_bf16 ? by_dt<DS, __nv_bfloat16>(dt_bf16, bc_bf16, x, dt, b, c, a,
-                                           h0, y, h_out, batch, L, di, stream)
+                                           h0, y, h_out, h_tiles, batch, L,
+                                           di, stream)
                 : by_dt<DS, float>(dt_bf16, bc_bf16, x, dt, b, c, a, h0, y,
-                                   h_out, batch, L, di, stream);
+                                   h_out, h_tiles, batch, L, di, stream);
 }
 
 }  // namespace
 
 // x, dt: [batch, L, di]; b, c: [batch, L, ds] (each f32, or bf16 where its
 // flag is set; b and c share a type); a: [di, ds] f32; h0: [batch, di, ds]
-// f32 -> y: [batch, L, di] f32, h_out: [batch, di, ds] f32.  ds is 4, 8 or
-// 16; L >= 1.  Returns a cudaError_t.
+// f32 -> y: [batch, L, di] f32, h_out: [batch, di, ds] f32, and, unless
+// h_tiles is null, h_tiles: [batch, ceil(L / 32), di, ds] f32, the state
+// each 32-step tile starts from (tile 0's is h0).  ds is 4, 8 or 16;
+// L >= 1.  Returns a cudaError_t.
 extern "C" int selective_scan(const void* x, const void* dt, const void* b,
                               const void* c, const void* a, const void* h0,
-                              void* y, void* h_out, int batch, int L, int di,
-                              int ds, int x_bf16, int dt_bf16, int bc_bf16,
-                              void* stream) {
+                              void* y, void* h_out, void* h_tiles, int batch,
+                              int L, int di, int ds, int x_bf16, int dt_bf16,
+                              int bc_bf16, void* stream) {
   if (batch < 1 || L < 1 || di < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ds) {
     case 4:
       return by_x<4>(x_bf16, dt_bf16, bc_bf16, x, dt, b, c, a, h0, y, h_out,
-                     batch, L, di, st);
+                     h_tiles, batch, L, di, st);
     case 8:
       return by_x<8>(x_bf16, dt_bf16, bc_bf16, x, dt, b, c, a, h0, y, h_out,
-                     batch, L, di, st);
+                     h_tiles, batch, L, di, st);
     case 16:
       return by_x<16>(x_bf16, dt_bf16, bc_bf16, x, dt, b, c, a, h0, y, h_out,
-                      batch, L, di, st);
+                      h_tiles, batch, L, di, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

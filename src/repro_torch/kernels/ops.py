@@ -52,7 +52,7 @@ def model_pairwise_cosine(stacked: Dict[str, torch.Tensor],
     takes the Gram matrices of every leaf of every experiment (up to
     :data:`~repro_torch.kernels.pairwise_cosine.MAX_LEAVES` a launch), and
     each experiment's mean still adds its leaves one after another from
-    leaf 0."""
+    leaf 0.  Leaves of several dtypes take one launch per dtype."""
     leaves = list(stacked.values())
     if experiments:
         E, n = leaves[0].shape[:2]
@@ -69,13 +69,65 @@ def model_pairwise_cosine(stacked: Dict[str, torch.Tensor],
             return acc / len(leaves)
         grams = [leaf.reshape(n, -1) for leaf in leaves]
     # [E, L, n, n] (E = 1 without the experiment axis).
-    g = gram_matrices(grams).view(-1, len(leaves), n, n)
+    g = _gram_by_dtype(grams).view(-1, len(leaves), n, n)
     norms = torch.sqrt(torch.diagonal(g, dim1=2, dim2=3)).clamp_min(_EPS)
     cos = g / (norms[..., :, None] * norms[..., None, :])
     # A running sum along the leaves adds them one after another from 0,
     # as the loop does, in one launch.
     mean = torch.cumsum(cos, dim=1)[:, -1] / len(leaves)
     return mean if experiments else mean[0]
+
+
+def _gram_by_dtype(xs: List[torch.Tensor]) -> torch.Tensor:
+    """:func:`gram_matrices` of leaves of one or more dtypes (a bf16
+    model's f32 Mamba leaves): one grouped call per dtype, stacked in leaf
+    order."""
+    dtypes = {x.dtype for x in xs}
+    n = xs[0].shape[0]
+    out = torch.empty((len(xs), n, n), dtype=torch.float32,
+                      device=xs[0].device)
+    for dtype in sorted(dtypes, key=str):
+        idx = [i for i, x in enumerate(xs) if x.dtype == dtype]
+        out[idx] = gram_matrices([xs[i] for i in idx])
+    return out
+
+
+def mix_groups(stacked: Dict[str, torch.Tensor], group_bytes: int
+               ) -> List[List[str]]:
+    """The leaves of :func:`mix_masked_in_place`'s groups, in leaf order:
+    consecutive leaves of one dtype, a group closed before it would pass
+    ``group_bytes`` (a larger leaf is a group of its own)."""
+    groups: List[List[str]] = []
+    size, dtype = 0, None
+    for k, v in stacked.items():
+        nbytes = v.numel() * v.element_size()
+        if not groups or v.dtype != dtype or size + nbytes > group_bytes:
+            groups.append([])
+            size, dtype = 0, v.dtype
+        groups[-1].append(k)
+        size += nbytes
+    return groups
+
+
+def mix_masked_in_place(edges: torch.Tensor,
+                        stacked: Dict[str, torch.Tensor],
+                        group_bytes: int) -> int:
+    """:func:`mix_masked_pytree` of node-stacked leaves written over them,
+    so that the mix never holds a second population: the leaves go in
+    groups (:func:`mix_groups`), each group one grouped call into fresh
+    outputs that are copied over its inputs before the next group starts,
+    so the extra memory is one group.  Returns the number of groups (on
+    the card, of launches for up to
+    :data:`~repro_torch.kernels.graph_mix.MAX_LEAVES` leaves a group)."""
+    edges = edges.contiguous()
+    groups = mix_groups(stacked, group_bytes)
+    for keys in groups:
+        xs = [stacked[k].reshape(stacked[k].shape[0], -1) for k in keys]
+        ys = graph_mix_masked_leaves(edges, xs)
+        for x, y in zip(xs, ys):
+            x.copy_(y)
+        del ys
+    return len(groups)
 
 
 def _mix_experiments(mix_leaves, mats: torch.Tensor,

@@ -98,6 +98,23 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                       dy: torch.Tensor, dh: Optional[torch.Tensor] = None):
+    """The scan's vector-Jacobian product by autograd through
+    :func:`selective_scan`: the cotangents ``dy`` of ``y`` and ``dh`` of the
+    last state (None: zero) -> ``(dx, ddt, db, dc, da, dh0)``, each in its
+    input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, b, c, a, h0)]
+        y, h = selective_scan(*ins)
+        outs, cots = [y], [dy.to(y.dtype)]
+        if dh is not None:
+            outs.append(h)
+            cots.append(dh.to(h.dtype))
+        return torch.autograd.grad(outs, ins, cots, allow_unused=False)
+
+
 def sum_states(hc: torch.Tensor) -> torch.Tensor:
     """``y = sum_s hc[..., s]`` in the scan kernel's order: each group of 4
     consecutive states in state order (``p_q``), then the groups pairwise,

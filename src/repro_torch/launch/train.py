@@ -1,0 +1,114 @@
+"""End-to-end decentralized training launcher (the port of
+``repro.launch.train``).
+
+Trains a population of nodes on synthetic non-IID token streams (each
+node's own Markov "dialect") with the in-graph Morph controller: every
+round each node's local step, on every ``--delta-r``-th round a Morph
+negotiation on Eq. 3 (the Gram kernel), and the uniform mix over the new
+edges (the masked-mix kernel).  Runs on the card unless ``--device cpu``:
+
+  python -m repro_torch.launch.train --arch llama3.2-3b --reduced \\
+      --nodes 8 --rounds 200 --batch 8 --seq 128
+
+The token streams build a ``[vocab, vocab]`` transition matrix, as the
+reference's do, so an unreduced vocabulary needs more host memory than a
+machine has (ROADMAP queue 3).  ``--mesh single|multi`` (the production
+mesh and its sharding policies) and ``--checkpoint-dir`` are not ported
+(ROADMAP queue 1 item 5, "Model zoo, the rest") and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..data import TokenBatcher, make_token_stream
+from ..dlrt.distributed import (MorphHParams, init_train_state,
+                                make_train_step)
+from ..optim import sgd
+
+_WAITS = 'not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest")'
+
+
+def build_batcher(args, cfg, node: int) -> TokenBatcher:
+    """Node ``node``'s batches: a Markov stream whose transitions depend
+    on the node (non-IID local distributions)."""
+    toks = make_token_stream(args.stream_len, cfg.vocab_size,
+                             seed=1000 + node,
+                             concentration=0.05 + 0.1 * (node % 4))
+    return TokenBatcher(toks, args.batch, args.seq, seed=node)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the CPU smoke-scale variant")
+    ap.add_argument("--nodes", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="per-node batch size")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--k", type=int, default=3, help="Morph in-degree")
+    ap.add_argument("--view-size", type=int, default=5)
+    ap.add_argument("--beta", type=float, default=500.0)
+    ap.add_argument("--delta-r", type=int, default=5)
+    ap.add_argument("--microbatch", type=int, default=None)
+    ap.add_argument("--stream-len", type=int, default=200_000)
+    ap.add_argument("--mesh", choices=("none", "single", "multi"),
+                    default="none")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="where to train (the card unless 'cpu')")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(f"--mesh {args.mesh}: the production mesh "
+                                  f"and its sharding policies are {_WAITS}")
+    if args.checkpoint_dir:
+        raise NotImplementedError(f"--checkpoint-dir: checkpoints are "
+                                  f"{_WAITS}")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    opt = sgd(args.lr)
+    hp = MorphHParams(k=min(args.k, args.nodes - 1),
+                      view_size=min(args.view_size, args.nodes - 1),
+                      beta=args.beta)
+    state = init_train_state(cfg, opt, args.nodes, seed=0,
+                             device=args.device)
+    step_topo = make_train_step(cfg, opt, hp, microbatch=args.microbatch,
+                                do_topology=True)
+    step_plain = make_train_step(cfg, opt, hp, microbatch=args.microbatch,
+                                 do_topology=False)
+    batchers = [build_batcher(args, cfg, i) for i in range(args.nodes)]
+
+    t0 = time.time()
+    for rnd in range(args.rounds):
+        node_batches = [b.next() for b in batchers]
+        stacked = {k: np.stack([nb[k] for nb in node_batches])
+                   for k in ("tokens", "labels")}
+        step = step_topo if rnd % args.delta_r == 0 else step_plain
+        state, metrics = step(state, stacked)
+        if rnd % args.log_every == 0 or rnd == args.rounds - 1:
+            loss = float(metrics["loss"])
+            deg = state.morph.edges.sum(1).cpu().numpy()
+            print(f"round {rnd:5d}  loss {loss:.4f}  "
+                  f"in-deg [{deg.min()}..{deg.max()}]  "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+    print(f"done: {args.rounds} rounds in {time.time() - t0:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,7 +9,8 @@ f32 products of the activations' values (the reference's
 ``v``'s dtype before the second product, as the reference does.  The
 reference's mesh helpers are single-device no-ops here, so the chunked
 path never fuses (batch, heads).  Cross-attention is not ported yet
-(ROADMAP queue 1 item 16, with Whisper).
+(ROADMAP queue 1 item 5, "Model zoo, the rest", with
+Whisper).
 """
 from __future__ import annotations
 

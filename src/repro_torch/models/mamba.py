@@ -7,8 +7,11 @@ across chunks.  Here :func:`apply_mamba` launches the hand-written
 selective-scan kernel (:func:`repro_torch.kernels.selective_scan`) once
 per layer over the whole sequence, carrying ``h`` inside the kernel; it
 computes the same ``y`` (without the ``D x`` skip, added here) and, for
-CPU tensors, runs the kernel's plain version.  Decode is the exact
-one-step recurrence on the carried state, as in the reference.
+CPU tensors, runs the kernel's plain version.  Under autograd the scan's
+gradient on the card is the backward kernel (``csrc/selective_scan_bwd.cu``)
+and on the CPU autograd through the plain scan, where the reference
+differentiates its associative scan.  Decode is the exact one-step
+recurrence on the carried state, as in the reference.
 
 State carried between tokens:
   ``h``    [batch, d_inner, d_state]  SSM hidden state (f32)

@@ -1,30 +1,61 @@
 """Arch-agnostic model API of the model zoo: the port of
-``repro.models.model``'s serving half.
+``repro.models.model``.
 
   ``init_params(cfg, seed, device)``                   -> params tree
   ``forward(params, batch, cfg, last_only=...)``       -> (logits, aux)
+  ``loss_fn(params, batch, cfg)``                      -> (loss, metrics)
   ``init_cache(cfg, batch, max_len, device=...)``      -> decode cache
   ``decode_step(params, cache, tokens, pos, cfg)``     -> (logits, cache)
   ``greedy_generate(params, cfg, prompt, steps)``      -> tokens
 
 ``init_params`` and ``init_cache`` run on the card unless the caller
 passes ``device="cpu"``; the others run where their inputs lie.
-``batch`` holds ``tokens`` [b, s] (int).  ``loss_fn`` waits for the
-training slice (ROADMAP queue 1 item 16).
+``batch`` holds ``tokens`` [b, s] (int) and, for ``loss_fn``, ``labels``
+[b, s] (int; ``IGNORE_INDEX`` = -100 masks a position).  The stub
+modality frontends are not ported (ROADMAP queue 1 item 5), so logits and
+labels always have one length.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..tree import flatten
 from . import transformer
 
+IGNORE_INDEX = -100
+
 init_params = transformer.init_params
 forward = transformer.forward
 init_cache = transformer.init_cache
 decode_step = transformer.decode_step
+
+
+def loss_fn(params, batch, cfg, *, window="cfg"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ the MoE aux term, 0 for the ported
+    architectures) over the positions whose label is not
+    ``IGNORE_INDEX``; metrics ``loss``, ``ce``, ``aux`` and ``accuracy``.
+
+    The reference takes the label logit as a masked sum over the vocabulary
+    (``iota == label``), which keeps a model-sharded vocabulary local; here
+    it is a gather.  The values are equal: that sum adds one logit to
+    zeros, which is exact."""
+    logits, aux = transformer.forward(params, batch, cfg, window=window)
+    labels = batch["labels"]
+    mask = labels != IGNORE_INDEX
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)                    # [b, s]
+    label_logit = logits.gather(-1, safe[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp(mask.sum(), min=1)
+    ce = torch.where(mask, nll, 0.0).sum() / denom
+    loss = ce + aux
+    correct = torch.where(mask, logits.argmax(-1) == safe, False)
+    metrics = {"loss": loss, "ce": ce, "aux": aux,
+               "accuracy": correct.sum() / denom}
+    return loss, metrics
 
 
 def greedy_generate(params, cfg, prompt: torch.Tensor, steps: int,

@@ -11,10 +11,13 @@ the reference's parameter layout::
    "final_norm": ..., "lm_head": ...}
 
 so weights carried over from the reference are a copy.  The reference's
-``lax.scan`` over periods is a loop here that indexes the stacked leaves.
+``lax.scan`` over periods is a loop here that indexes the stacked leaves
+(with ``cfg.remat``, a non-reentrant ``torch.utils.checkpoint`` around
+each period under autograd, as the reference's ``jax.checkpoint``).
 Caches mirror the layout, and decode updates them in place.  Ported:
 attention and Mamba mixers with dense MLPs (Jamba without experts, the
-dense llamas).  Not yet ported (ROADMAP queue 1 item 16), and refused
+dense decoders).  Not yet ported (ROADMAP queue 1 item 5, "Model zoo,
+the rest"), and refused
 with ``NotImplementedError`` rather than skipped: the RWKV mixer, MoE
 MLPs, Whisper's encoder, cross-attention and learned positions, and the
 stub modality frontends.
@@ -24,12 +27,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..tree import flatten, stack, tree_map, unflatten
 from . import attention, layers, mamba
 
-_WAITS = "not ported yet (ROADMAP queue 1 item 16)"
+_WAITS = 'not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest")'
 
 
 def _dtype(name) -> torch.dtype:
@@ -182,24 +186,62 @@ def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
         x, a = apply_block(blk, x, cfg, spec, positions=positions,
                            window=window)
         aux = aux + a
+
+    def period_fn(x, period_params):
+        a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk, spec in zip(period_params, cfg.pattern):
+            x, a = apply_block(blk, x, cfg, spec, positions=positions,
+                               window=window)
+            a_sum = a_sum + a
+        return x, a_sum
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_periods):
-        for blk, spec in zip(p["body"], cfg.pattern):
-            x, a = apply_block(_index(blk, i), x, cfg, spec,
-                               positions=positions, window=window)
-            aux = aux + a
+        period = tuple(_index(blk, i) for blk in p["body"])
+        if remat:
+            # jax.checkpoint around the period, as the reference does:
+            # only the period's input is kept, its activations recomputed
+            # in the backward; the numbers do not change.
+            x, a = checkpoint(period_fn, x, period, use_reentrant=False)
+        else:
+            x, a = period_fn(x, period)
+        aux = aux + a
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
     return _lm_logits(p, x, cfg), aux
 
 
+class _F32Product(torch.autograd.Function):
+    """``x @ w`` of two bf16 matrices with an f32 result, as one cuBLAS
+    product (``out_dtype``), which has no derivative of its own.  The
+    backward is the reference's: each cotangent product takes the f32
+    cotangent against the other operand upcast (exact), sums in f32 and
+    rounds once to the operand's dtype — two plain products; the reference
+    computes this product outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = (g @ w.float().T).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        gw = (x.float().T @ g).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return gx, gw
+
+
 def _lm_logits(p, x, cfg):
     """Logits in f32 from the compute dtype's values, as the reference's
     bf16 product with f32 output; a bf16 ``matmul`` would round them to
     bf16.  On the card that is one cuBLAS product with an f32 output
-    (``out_dtype``) that reads the head as it lies.  The CPU has no such
-    product, so there both operands are upcast: products of bf16 values
-    are exact in f32, so the two differ only in summation order."""
+    (:class:`_F32Product`) that reads the head as it lies.  The CPU has no
+    such product, so there both operands are upcast: products of bf16
+    values are exact in f32, so the two differ only in summation order."""
     cdtype = _dtype(cfg.compute_dtype)
     if cfg.tie_embeddings:
         w = p["embed"]["table"].T.to(cdtype)
@@ -207,7 +249,7 @@ def _lm_logits(p, x, cfg):
         w = p["lm_head"]["w"].to(cdtype)
     x2 = x.to(cdtype).reshape(-1, x.shape[-1])
     if x2.is_cuda and cdtype != torch.float32:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _F32Product.apply(x2, w)
     else:
         out = x2.float() @ w.float()
     return out.reshape(*x.shape[:-1], out.shape[-1])

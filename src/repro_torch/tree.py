@@ -90,6 +90,33 @@ def params_from_jax(np_tree: Mapping, device="cpu"
         for path, value in flatten(np_tree).items())
 
 
+def train_state_from_jax(params: Mapping, opt_state: Mapping,
+                         morph: Mapping, device="cpu", seed: int = 0):
+    """A reference ``TrainState`` (``repro.dlrt.distributed``), its arrays
+    already on the host as numpy, as the port's
+    :class:`~repro_torch.dlrt.distributed.TrainState` on ``device``:
+    ``params`` a nested tree of node-stacked leaves; ``opt_state`` the
+    optimizer's dict (``count`` ``[n]``, and moment trees such as ``mu``,
+    ``m`` and ``v``, each made a flat dict in leaf order); ``morph`` the
+    controller's ``known``, ``sim``, ``sim_valid`` and ``edges``.  The
+    reference's PRNG key has no torch counterpart: the state's generator
+    is seeded with ``seed``, and a parity test hands the step the
+    reference's draws (``MorphNoise``) instead."""
+    from .core.morph import MorphGraphState
+    from .dlrt.distributed import TrainState
+    opt = {}
+    for key, value in opt_state.items():
+        opt[key] = (params_from_jax(value, device)
+                    if isinstance(value, (Mapping, tuple, list))
+                    else torch.as_tensor(np.array(value), device=device))
+    fields = [torch.as_tensor(np.array(morph[f]), device=device)
+              for f in ("known", "sim", "sim_valid", "edges")]
+    return TrainState(unflatten(params_from_jax(params, device)), opt,
+                      MorphGraphState(*fields,
+                                      generator=torch.Generator()
+                                      .manual_seed(seed)))
+
+
 def params_to_numpy(params: Mapping[str, torch.Tensor]):
     """Inverse of :func:`params_from_jax`: ``{"conv1": {"w": ndarray}}``,
     with tuples where the reference has them."""

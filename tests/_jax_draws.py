@@ -27,7 +27,12 @@ def morph_draws(seed, n, count):
     splits into (next, selection, two tie keys); the selection key splits
     per node, and each node's key into its Eq.-5 and random-injection
     Gumbel keys)."""
-    key = jax.random.PRNGKey(seed)
+    return morph_key_draws(jax.random.PRNGKey(seed), n, count)
+
+
+def morph_key_draws(key, n, count):
+    """:func:`morph_draws` from the controller state's key itself (the
+    train step's state holds ``split(PRNGKey(0))[1]``)."""
     gumbel = jax.vmap(lambda kk: jax.random.gumbel(kk, (n,), jnp.float32))
     draws = []
     for _ in range(count):

@@ -1175,3 +1175,147 @@ def test_cuda_fig10_refuses_more_ranks_than_cards(cuda_device, capsys):
     assert stop.value.code == 3
     assert f"fig10_error,need_{have + 1}_devices,have_{have}" in \
         capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# The scan's backward and the model zoo's train step.
+# ---------------------------------------------------------------------------
+
+# The backward kernel against autograd through the plain scan: each
+# gradient within 1e-4 of its largest magnitude plus 1e-4 relative.  The
+# two differ where their exp does (as the forward) and in the order of
+# their sums: over the d_state states (dx, ddt), over the channels (db,
+# dc: up to 16,384 terms), over batch and time (da); gradients in bf16 (the
+# inputs' type) may also round one bf16 ulp apart.
+SCAN_BWD_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
+SCAN_GRADS = ("dx", "ddt", "db", "dc", "da", "dh0")
+
+
+def assert_scan_grads_close(got, want):
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        rtol = SCAN_BWD_TOL + (BF16_ULP if g.dtype == torch.bfloat16
+                               else 0.0)
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=SCAN_BWD_TOL * scale, rtol=rtol,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,L,di,ds", SCAN_SHAPES)
+@pytest.mark.parametrize("types", sorted(SCAN_TYPES))
+def test_cuda_selective_scan_backward_matches_plain(cuda_device, bt, L, di,
+                                                    ds, types):
+    from repro_torch.kernels import selective_scan_bwd
+    from repro_torch.kernels.selective_scan import _forward
+    gen = torch.Generator(device=cuda_device).manual_seed(bt * L + di + 1)
+    args = scan_inputs(cuda_device, gen, bt, L, di, ds, SCAN_TYPES[types])
+    _, _, tiles = _forward(*args, keep_tiles=True)
+    dy = torch.randn((bt, L, di), generator=gen, device=cuda_device)
+    dh = torch.randn((bt, di, ds), generator=gen, device=cuda_device) * 0.1
+    for last in (dh, None):
+        before = selective_scan_bwd.launches
+        got = selective_scan_bwd(*args, dy, last, tiles)
+        want = ref.selective_scan_bwd(*args, dy, last)
+        torch.cuda.synchronize()
+        assert selective_scan_bwd.launches == before + 1
+        assert_scan_grads_close(got, want)
+        again = selective_scan_bwd(*args, dy, last, tiles)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_autograd_takes_the_backward_kernel(cuda_device):
+    """Autograd through ``selective_scan`` on the card: one forward launch
+    keeping the tile states and one backward launch, the kernel's
+    gradients."""
+    from repro_torch.kernels import selective_scan_bwd
+    from repro_torch.kernels.selective_scan import _forward
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    args = scan_inputs(cuda_device, gen, 2, 70, 300, 16,
+                       SCAN_TYPES["serving"])
+    leaves = [t.clone().requires_grad_() for t in args[:5]]
+    dy = torch.randn((2, 70, 300), generator=gen, device=cuda_device)
+    fwd, bwd = selective_scan.launches, selective_scan_bwd.launches
+    y, _ = selective_scan(*leaves, args[5])
+    y.backward(dy)
+    assert (selective_scan.launches - fwd,
+            selective_scan_bwd.launches - bwd) == (1, 1)
+    _, _, tiles = _forward(*args, keep_tiles=True)
+    want = selective_scan_bwd(*args, dy, None, tiles)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def _train_config(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(
+            cfg, moe=None, pattern=tuple(dataclasses.replace(s, moe=False)
+                                         for s in cfg.pattern))
+    return cfg.reduced()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "jamba-1.5-large-398b"])
+def test_cuda_train_round_is_the_cpu_round(cuda_device, arch):
+    """One reduced train round with a topology negotiation from the same
+    state on the card and on the CPU: identical edges, parameters within
+    1e-4; on the card one Gram launch per 32 leaves, one masked-mix launch
+    per 64 (the leaves are one group), and one scan and one scan backward
+    per Mamba layer and node."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = _train_config(arch)
+    n = 4
+    cpu = init_train_state(cfg, sgd(0.05), n, seed=3, device="cpu")
+    card = train_state_to(cpu, cuda_device)
+    step = make_train_step(cfg, sgd(0.05), MorphHParams(k=2, view_size=3))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (n, 2, 33)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    cpu, m_cpu = step(cpu, batch)
+    kernels.reset_launches()
+    card, m_card = step(card, batch)
+    torch.cuda.synchronize()
+    mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.num_periods
+    got = {k.__name__: k.launches for k in kernels.KERNELS}
+    want = dict.fromkeys(got, 0)
+    leaves = len(flatten(cpu.params))
+    want.update(gram_matrix=-(-leaves // 32),
+                graph_mix_masked=-(-leaves // 64),
+                selective_scan=n * mamba, selective_scan_bwd=n * mamba)
+    assert got == want
+    assert torch.equal(card.morph.edges.cpu(), cpu.morph.edges)
+    torch.testing.assert_close(m_card["per_node_loss"].cpu(),
+                               m_cpu["per_node_loss"], atol=1e-5, rtol=1e-5)
+    want_p = flatten(cpu.params)
+    for k, v in flatten(card.params).items():
+        torch.testing.assert_close(v.cpu(), want_p[k], atol=1e-4, rtol=0,
+                                   msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_eq3_over_leaves_of_two_dtypes(cuda_device):
+    """A bf16 model's f32 leaves (Mamba's ``A_log`` and ``D``): Eq. 3 takes
+    one grouped Gram launch per dtype and gives the CPU's leaf-by-leaf
+    mean within the cosine's tolerance."""
+    gen = torch.Generator().manual_seed(12)
+    stacked = {"a": torch.randn((8, 1000), generator=gen).bfloat16(),
+               "b": torch.randn((8, 64), generator=gen),
+               "c": torch.randn((8, 4099), generator=gen).bfloat16()}
+    want = ops.model_pairwise_cosine(stacked)
+    before = gram_matrix.launches
+    got = ops.model_pairwise_cosine({k: v.to(cuda_device)
+                                     for k, v in stacked.items()})
+    torch.cuda.synchronize()
+    assert gram_matrix.launches == before + 2
+    torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=0)

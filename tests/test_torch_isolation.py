@@ -21,10 +21,13 @@ from repro_torch.core import (InGraphEpidemicLocalStrategy,  # noqa: E402
                               MorphConfig, MorphProtocol)
 from repro_torch.data import (DeviceDataStream,              # noqa: E402
                               make_image_classification)
-from repro_torch.dlrt import DecentralizedRunner, RunnerConfig  # noqa: E402
+from repro_torch.dlrt import (DecentralizedRunner,          # noqa: E402
+                              RunnerConfig, init_train_state)
 from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
-                                 gram_matrix, ref, selective_scan)
+                                 gram_matrix, ref, selective_scan,
+                                 selective_scan_bwd)
+from repro_torch.launch import train as train_launcher       # noqa: E402
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
 from repro_torch.netsim import AsyncConfig, AsyncRunner      # noqa: E402
 from repro_torch.models import mamba as zoo_mamba            # noqa: E402
@@ -60,7 +63,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "static", "el-oracle", "el-local", "fully-connected",
                 "stream", "sparse-morph", "sparse-epidemic",
-                "zoo-init-params", "zoo-init-cache", "async-runner")
+                "zoo-init-params", "zoo-init-cache", "async-runner",
+                "train-state", "train-launcher")
 
 
 def _jamba_reduced():
@@ -98,6 +102,10 @@ def _make_entry_point(name):
         "sparse-epidemic": lambda: SparseEpidemicStrategy(n=4, k=2),
         "zoo-init-params": lambda: zoo_model.init_params(_jamba_reduced(), 0),
         "zoo-init-cache": lambda: zoo_model.init_cache(_jamba_reduced(), 1, 4),
+        "train-state": lambda: init_train_state(
+            get_config("llama3.2-3b").reduced(), sgd(0.1), 2),
+        "train-launcher": lambda: train_launcher.main(
+            ["--reduced", "--nodes", "2", "--rounds", "1"]),
         "async-runner": lambda: AsyncRunner(
             init_fn=lambda g: cnn_params(g, image_size=8, width=4),
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),
@@ -184,4 +192,45 @@ def test_mamba_prefill_takes_the_kernel_path(plain_calls):
     x = torch.empty((2, 32, cfg.d_model), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         zoo_mamba.apply_mamba(mixer, x, cfg)
+    assert plain_calls == []
+
+
+def test_scan_backward_takes_the_kernel_path(plain_calls, monkeypatch):
+    """The scan's backward on tensors off the CPU launches its kernel (one
+    count a call) or raises, and autograd through the scan there goes
+    through it: never autograd through the plain scan."""
+    seq = torch.empty((2, 9, 70), device="meta")
+    bc = torch.empty((2, 9, 16), device="meta")
+    a = torch.empty((70, 16), device="meta")
+    h0 = torch.empty((2, 70, 16), device="meta")
+    tiles = torch.empty((2, 1, 70, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_bwd(seq, seq, bc, bc, a, h0, seq, None, tiles)
+    assert plain_calls == []
+
+    launched = []
+
+    class FakeLibrary:
+        def __getattr__(self, fn):
+            if fn == "selective_scan_bwd_channels":
+                return lambda ds: 64
+            return lambda *args: launched.append(fn) or 0
+
+    monkeypatch.setattr(cuda, "require", lambda *a, **k: None)
+    monkeypatch.setattr(cuda, "library", lambda *a: FakeLibrary())
+    monkeypatch.setattr(cuda, "stream_handle", lambda device: 0)
+    fwd, bwd = selective_scan.launches, selective_scan_bwd.launches
+    grads = selective_scan_bwd(seq, seq, bc, bc, a, h0, seq, None, tiles)
+    assert launched == ["selective_scan_bwd"]
+    assert (selective_scan.launches - fwd,
+            selective_scan_bwd.launches - bwd) == (0, 1)
+    assert [g.shape for g in grads] == [seq.shape, seq.shape, bc.shape,
+                                        bc.shape, a.shape, h0.shape]
+
+    launched.clear()
+    x = seq.clone().requires_grad_()
+    y, _ = selective_scan(x, seq, bc, bc, a, h0)
+    y.sum().backward()
+    assert launched == ["selective_scan", "selective_scan_bwd"]
+    assert x.grad.shape == seq.shape
     assert plain_calls == []
