@@ -1026,25 +1026,26 @@ def sm_clock_hz():
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-# The scan kernel's instantiation for the served types (d_state 16; x, b
-# and c bf16, dt f32), as its mangled name shows it in the SASS.
+# The scan kernels' instantiations for the served types (d_state 16; x, b
+# and c bf16, dt f32), as their mangled names show them in the SASS.
 SCAN_SERVED_SASS = ("scan_kernelILi16E", "13__nv_bfloat16fS")
+SCAN_BWD_SERVED_SASS = ("scan_bwd_kernelILi16E", "13__nv_bfloat16fS")
+# The backward's window a lane: 8 steps of 4 states (kSeg x kSpl in
+# selective_scan_bwd.cu), the elements its unrolled steps cover.
+SCAN_BWD_WINDOW_ELEMENTS = 8 * 4
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)")
 
 
-def scan_sass():
-    """Instructions per (t, channel, state) element in the scan kernel's
-    inner step, read from the built library's SASS (``cuobjdump -sass``):
-    in the served instantiation, the largest straight-line block (the
-    unrolled full-tile steps with their loop's own count and branch) holds
-    one ``MUFU.EX2`` per element, so its counts over its ``MUFU.EX2`` count
-    are per element.  ``fp32`` counts FFMA, FADD and FMUL (the FP32 pipe);
-    the per-tile staging outside that block is left out."""
+def sass_blocks(library, patterns):
+    """The straight-line blocks (split at labels, branches and exits) of
+    the one function of ``library``'s built SASS (``cuobjdump -sass``)
+    whose mangled name holds every string in ``patterns``, as lists of
+    opcodes; and that name."""
     from repro_torch.kernels import cuda
     tool = Path(cuda._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass",
-                           str(cuda.library_path("selective_scan"))],
-                          capture_output=True, text=True, check=True).stdout
+    sass = subprocess.run(
+        [str(tool), "-sass", str(cuda.library_path(library))],
+        capture_output=True, text=True, check=True).stdout
     functions, name = {}, None
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
@@ -1053,10 +1054,10 @@ def scan_sass():
             functions[name] = []
         elif name is not None:
             functions[name].append(line)
-    served = [f for f in functions if all(p in f for p in SCAN_SERVED_SASS)]
+    served = [f for f in functions if all(p in f for p in patterns)]
     if len(served) != 1:
-        raise AssertionError(f"scan SASS: {len(served)} functions match "
-                             f"{SCAN_SERVED_SASS}")
+        raise AssertionError(f"{library} SASS: {len(served)} functions match "
+                             f"{patterns}")
     blocks, block = [], []
     for line in functions[served[0]]:
         if re.match(r"\s*\.L_x_\d+:", line):
@@ -1069,18 +1070,58 @@ def scan_sass():
             if op.group(1).startswith(("BRA", "EXIT")):
                 blocks.append(block)
                 block = []
-    step = max(blocks + [block], key=len)
-    elements = step.count("MUFU.EX2")
-    if elements == 0:
-        raise AssertionError("scan SASS: no MUFU.EX2 in the inner step")
+    return blocks + [block], served[0]
+
+
+def per_element(step, function, elements=None):
+    """Counts of the opcodes in ``step``, a straight run of code over
+    ``elements`` elements (default: its ``MUFU.EX2`` count, one exponential
+    an element), per element: ``all``, ``fp32`` (FFMA, FADD and FMUL, the
+    FP32 pipe), ``mufu``."""
+    if step.count("MUFU.EX2") == 0:
+        raise AssertionError(f"{function}: no MUFU.EX2 in the inner step")
+    elements = elements or step.count("MUFU.EX2")
     ops = {}
     for op in step:
         ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
     fp32 = sum(ops.get(k, 0) for k in ("FFMA", "FADD", "FMUL"))
-    return {"function": served[0], "block_instructions": len(step),
+    return {"function": function, "block_instructions": len(step),
             "elements": elements, "all": len(step) / elements,
             "fp32": fp32 / elements, "mufu": ops.get("MUFU", 0) / elements,
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+def scan_sass():
+    """Instructions per (t, channel, state) element in the scan kernel's
+    inner step, read from the built library's SASS: in the served
+    instantiation, the largest straight-line block (the unrolled full-tile
+    steps with their loop's own count and branch) holds one ``MUFU.EX2``
+    per element, so its counts over its ``MUFU.EX2`` count are per element
+    (:func:`per_element`); the per-tile staging outside that block is left
+    out."""
+    blocks, function = sass_blocks("selective_scan", SCAN_SERVED_SASS)
+    return per_element(max(blocks, key=len), function)
+
+
+def scan_bwd_sass():
+    """Instructions per (t, channel, state) element in the backward
+    kernel's window, read from the built library's SASS: in the served
+    instantiation, the blocks that hold a ``MUFU.EX2`` are the window's
+    unrolled recompute and backward walk, :data:`SCAN_BWD_WINDOW_ELEMENTS`
+    elements a lane, so their counts over that are per element
+    (:func:`per_element`; ``mufu`` above 1 where the compiler took an
+    exponential again rather than keep it in a register); the window's
+    staging, b and c orders and epilogue outside them are left out, and
+    reported apart as ``outside_block_instructions`` (the rest of the
+    function's code, each instruction once, whatever its trip count)."""
+    blocks, function = sass_blocks("selective_scan_bwd",
+                                   SCAN_BWD_SERVED_SASS)
+    step = [op for b in blocks if "MUFU.EX2" in b for op in b]
+    per = per_element(step, function, SCAN_BWD_WINDOW_ELEMENTS)
+    per["blocks"] = sum(1 for b in blocks if "MUFU.EX2" in b)
+    per["outside_block_instructions"] = sum(
+        len(b) for b in blocks if "MUFU.EX2" not in b)
+    return per
 
 
 def time_scan(dev):
@@ -4278,6 +4319,24 @@ def check_scan_backward(dev):
     return worst
 
 
+def served_backward_sets(dev, count=3, seed=18):
+    """``count`` sets of the backward's arguments at the served shape with
+    apply_mamba's types, as the training path gives them: x, dt, b, c, a,
+    h0, dy, dh and the window states of a forward launch keeping them
+    (together more bytes than L2 holds)."""
+    from repro_torch.kernels.selective_scan import _forward
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bt, L, di, ds = SERVED_SCAN
+    sets = []
+    for _ in range(count):
+        args = scan_inputs(dev, gen, *SERVED_SCAN, SCAN_TYPES["serving"])
+        _, _, tiles = _forward(*args, keep_tiles=True)
+        dy = torch.randn((bt, L, di), generator=gen, device=dev)
+        dh = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
+        sets.append((*args, dy, dh, tiles))
+    return sets
+
+
 def time_scan_backward(dev):
     """17(a): the backward kernel at the served shape with apply_mamba's
     types (dh given), inputs rotated through more than L2, against
@@ -4286,18 +4345,12 @@ def time_scan_backward(dev):
     (:data:`SCAN_BWD_FP32_PER_ELEMENT`): bytes (x, dt, b, c, a, h0, dy
     and dh read once; the gradients written once; the tile states are
     this design's own scratch, not the function's), exponentials, FP32
-    lanes, issue."""
+    lanes, issue.  ``kernel_issue_ms`` prices the instructions of the
+    kernel's own window (:func:`scan_bwd_sass`) the same way: this kernel's
+    cost, beside the bound and not in it."""
     from repro_torch.kernels import ref, selective_scan_bwd
-    from repro_torch.kernels.selective_scan import _forward
-    gen = torch.Generator(device=dev).manual_seed(18)
     bt, L, di, ds = SERVED_SCAN
-    sets = []
-    for _ in range(3):
-        args = scan_inputs(dev, gen, *SERVED_SCAN, SCAN_TYPES["serving"])
-        _, _, tiles = _forward(*args, keep_tiles=True)
-        dy = torch.randn((bt, L, di), generator=gen, device=dev)
-        dh = torch.randn((bt, di, ds), generator=gen, device=dev) * 0.1
-        sets.append((*args, dy, dh, tiles))
+    sets = served_backward_sets(dev)
 
     def kernel(x, dt, b, c, a, h0, dy, dh, tiles):
         return selective_scan_bwd(x, dt, b, c, a, h0, dy, dh, tiles)
@@ -4328,6 +4381,10 @@ def time_scan_backward(dev):
     t["bound_by"] = "bytes" if t["bound_part"] == "bytes" else "operations"
     t["bound_parts_ms"] = parts
     t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    per = scan_bwd_sass()
+    t["kernel_issue_ms"] = elements * per["all"] \
+        / (ISSUE_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    t["sass_per_element"] = per
     t["sm_clock_mhz"], t["sms"] = clock / 1e6, sms
     t["shape"] = [bt, L, di, ds, "x bf16, dt f32, b/c bf16; dy, dh f32"]
     log(f"phase 17(a): selective_scan_bwd at {SERVED_SCAN}: "
@@ -4612,8 +4669,112 @@ def train_card_vs_cpu(dev):
     return totals
 
 
+# 17(d): one Mamba layer of Jamba-1.5-Large at its published widths
+# (d_model 8192, d_inner 16,384, d_state 16), bf16, a batch of 2 x 2,048
+# tokens; each step timed JAMBA_LAYER_REPS times after a warm-up.
+JAMBA_LAYER_BATCH, JAMBA_LAYER_SEQ, JAMBA_LAYER_REPS = 2, 2048, 3
+
+
+def jamba_layer_step(dev):
+    """17(d): one Jamba-1.5-Large Mamba layer (``mamba.apply_mamba``) at
+    its published widths in bf16 under autograd: its forward (the scan
+    keeping its window states) and its backward, each between CUDA events,
+    and inside them the scan's forward and backward between CUDA events of
+    their own (``_Scan.forward`` and ``_Scan.backward`` wrapped for the
+    run), so the scan backward's share of the layer is device time over
+    device time.
+    One scan and one scan backward launch a step; every gradient finite
+    and of its leaf's shape."""
+    import importlib
+    from repro_torch import kernels
+    from repro_torch.models import mamba
+    from repro_torch.tree import flatten
+    # The module, not the function that the package exports by its name.
+    scan = importlib.import_module("repro_torch.kernels.selective_scan")._Scan
+    cfg = jamba_serving_config()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    params = mamba.mamba_params(gen, cfg, torch.bfloat16)
+    leaves = list(flatten(params).values())
+    shape = (JAMBA_LAYER_BATCH, JAMBA_LAYER_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    for t in leaves + [x]:
+        t.requires_grad_()
+    spans = {"scan": [], "scan_bwd": []}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return call
+
+    forward, backward = scan.forward, scan.backward
+    scan.forward = staticmethod(timed("scan", forward))
+    scan.backward = staticmethod(timed("scan_bwd", backward))
+    runs = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(1 + JAMBA_LAYER_REPS):
+            if rep == 1:
+                kernels.reset_launches()
+            for t in leaves + [x]:
+                t.grad = None
+            for v in spans.values():
+                v.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            y = mamba.apply_mamba(params, x, cfg)
+            ev[1].record()
+            y.backward(dout)
+            ev[2].record()
+            torch.cuda.synchronize()
+            del y
+            if rep == 0:
+                continue
+            ms = {k: sum(a.elapsed_time(b) for a, b in v)
+                  for k, v in spans.items()}
+            runs.append({"forward_ms": ev[0].elapsed_time(ev[1]),
+                         "backward_ms": ev[1].elapsed_time(ev[2]),
+                         "scan_ms": ms["scan"], "scan_bwd_ms": ms["scan_bwd"]})
+    finally:
+        scan.forward = staticmethod(forward)
+        scan.backward = staticmethod(backward)
+    got = launch_counts()
+    want = dict.fromkeys(got, 0)
+    want.update(selective_scan=JAMBA_LAYER_REPS,
+                selective_scan_bwd=JAMBA_LAYER_REPS)
+    if got != want:
+        raise AssertionError(f"17(d): launches {got} != {want}")
+    for t in leaves + [x]:
+        if t.grad is None or t.grad.shape != t.shape \
+                or not torch.isfinite(t.grad).all():
+            raise AssertionError(f"17(d): a gradient of shape {t.shape} is "
+                                 "missing, misshapen or not finite")
+    mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+    step = mean["forward_ms"] + mean["backward_ms"]
+    out = {"config": cfg.name, "d_model": cfg.d_model,
+           "d_inner": cfg.ssm.expand * cfg.d_model,
+           "d_state": cfg.ssm.d_state, "batch": JAMBA_LAYER_BATCH,
+           "seq": JAMBA_LAYER_SEQ, "dtype": "bfloat16", **mean,
+           "step_ms": step,
+           "scan_bwd_share_of_backward": mean["scan_bwd_ms"]
+           / mean["backward_ms"],
+           "scan_bwd_share_of_step": mean["scan_bwd_ms"] / step,
+           "scan_share_of_forward": mean["scan_ms"] / mean["forward_ms"],
+           "runs": runs,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "launches": got}
+    log(f"phase 17(d): one jamba-1.5-large mamba layer forward and "
+        f"backward: {json.dumps(out)}")
+    return out
+
+
 def serve_step_bits(dev):
-    """17(d): make_serve_step on reduced Llama-3.2-3B gives each node's
+    """17(e): make_serve_step on reduced Llama-3.2-3B gives each node's
     own decode_step bit for bit."""
     from repro_torch.dlrt import (init_node_caches, init_train_state,
                                   make_serve_step)
@@ -4635,14 +4796,14 @@ def serve_step_bits(dev):
             want, own[i] = model.decode_step(
                 tree_map(lambda v: v[i], params), own[i], toks[i], pos, cfg)
             if not torch.equal(logits[i], want):
-                raise AssertionError(f"17(d): node {i} at {pos}: serve_step "
+                raise AssertionError(f"17(e): node {i} at {pos}: serve_step "
                                      "differs from decode_step")
-    log(f"phase 17(d): make_serve_step on reduced llama3.2-3b, n = {n}, "
+    log(f"phase 17(e): make_serve_step on reduced llama3.2-3b, n = {n}, "
         "5 positions: each node's decode_step bit for bit")
 
 
 def launcher_runs(dev):
-    """17(e): ``python -m repro_torch.launch.train --arch llama3.2-3b
+    """17(f): ``python -m repro_torch.launch.train --arch llama3.2-3b
     --reduced --nodes 8 --rounds 20`` exits 0 on the card; Jamba keeps
     refusing its MoE layers."""
     import os
@@ -4656,7 +4817,7 @@ def launcher_runs(dev):
         env=env, cwd=root, capture_output=True, text=True, timeout=300)
     wall = time.perf_counter() - t0
     if proc.returncode != 0 or "done: 20 rounds" not in proc.stdout:
-        raise AssertionError(f"17(e): the launcher exited "
+        raise AssertionError(f"17(f): the launcher exited "
                              f"{proc.returncode}: {proc.stderr[-2000:]}")
     try:
         train.main(["--arch", "jamba-1.5-large-398b", "--reduced",
@@ -4664,15 +4825,16 @@ def launcher_runs(dev):
     except NotImplementedError as err:
         refusal = str(err)
     else:
-        raise AssertionError("17(e): Jamba with experts trained")
+        raise AssertionError("17(f): Jamba with experts trained")
     lines = proc.stdout.strip().splitlines()
-    log(f"phase 17(e): launcher exit 0 in {wall:.1f} s: {lines[0]!r} ... "
+    log(f"phase 17(f): launcher exit 0 in {wall:.1f} s: {lines[0]!r} ... "
         f"{lines[-2]!r} {lines[-1]!r}; jamba-1.5-large-398b: {refusal!r}")
 
 
 def train_path(dev):
-    """Phase 17: (a) to (e); returns the backward kernel's worst errors and
-    times and the launches of the training runs on the card."""
+    """Phase 17: (a) to (f); returns the backward kernel's worst errors and
+    times (with 17(d)'s layer as ``jamba_layer``) and the launches of the
+    training runs on the card."""
     t0 = time.perf_counter()
     worst = check_scan_backward(dev)
     times = time_scan_backward(dev)
@@ -4680,12 +4842,14 @@ def train_path(dev):
     totals = train_full_width(dev)
     t2 = time.perf_counter()
     _add(totals, train_card_vs_cpu(dev))
-    serve_step_bits(dev)
     t3 = time.perf_counter()
+    times["jamba_layer"] = jamba_layer_step(dev)
+    t4 = time.perf_counter()
+    serve_step_bits(dev)
     launcher_runs(dev)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
-        f"(b) {t2 - t1:.1f}, (c) and (d) {t3 - t2:.1f}, (e) "
-        f"{time.perf_counter() - t3:.1f})")
+        f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) and "
+        f"(f) {time.perf_counter() - t4:.1f})")
     return worst, times, totals
 
 
@@ -4820,7 +4984,7 @@ def main():
                                        "library",
                                        "bound_part", "bound_parts_ms",
                                        "kernel_issue_ms", "sass_per_element",
-                                       "sm_clock_mhz")
+                                       "sm_clock_mhz", "jamba_layer")
                if key in t},
             "shape": t["shape"]}
         # ``max_err`` and ``kernel_ms`` are other names for the same two

@@ -75,11 +75,12 @@
 //   lanes, and y differs from the plain version only where their `exp`
 //   does.
 //
-// - Tile states for the backward.  Given h_tiles, the kernel also stores h
-//   as each 32-step tile starts ([batch, tiles, di, ds] f32: 134 MB at the
-//   served shape), one predicated 16-byte store per lane a tile; the
-//   backward (selective_scan_bwd.cu) recomputes every tile from it.
-//   Serving passes null and stores nothing.
+// - States kept for the backward.  Given h_tiles, the kernel also stores h
+//   as each 8-step window starts ([batch, ceil(L / 8), di, ds] f32: 537 MB
+//   at the served shape), one 16-byte store per lane every 8 steps, which
+//   the full tiles' 8-step unrolled bodies start with; the backward
+//   (selective_scan_bwd.cu) recomputes each window from it once.  Serving
+//   passes null and stores nothing.
 //
 // Types.  x, dt, b and c are each f32 or bf16, as the Pallas kernel takes
 // them.  apply_mamba passes dt in f32 (after the softplus); the bf16 dt
@@ -100,7 +101,9 @@ constexpr int kThreads = 256;   // threads per block
 constexpr int kSteps = 32;      // time steps per tile
 constexpr int kStages = 3;      // tiles in the shared-memory ring
 static_assert(kStages >= 3, "tile t + 1 lands while tile t computes");
-constexpr int kUnroll = 8;      // steps unrolled in a full tile
+constexpr int kKeep = 8;        // steps unrolled in a full tile; h_tiles
+                                // keeps h every kKeep steps
+static_assert(kSteps % kKeep == 0, "whole windows in a full tile");
 
 // Lanes per channel at d_state DS: 8 states each where DS allows.
 template <int DS>
@@ -117,7 +120,7 @@ struct Args {
   const float* h0;    // [batch, di, ds]
   float* y;           // [batch, L, di]
   float* h_out;       // [batch, di, ds]
-  float* h_tiles;     // [batch, tiles, di, ds] or null: h at tile starts
+  float* h_tiles;     // [batch, ceil(L / kKeep), di, ds] or null
   int L, di, chan_tiles;
   int x_vec, dt_vec;  // rows of x / dt are 16-byte aligned
 };
@@ -263,6 +266,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 
   const int tiles = (L + kSteps - 1) / kSteps;
+  const int kept = (L + kKeep - 1) / kKeep;
   // Start tile t's copies into its ring slot (an empty group past the
   // end keeps the group count uniform).
   auto fetch = [&](int t) {
@@ -317,12 +321,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fetch(t + kStages - 1);
     convert(t + 1);
 
-    // The backward (selective_scan_bwd.cu) recomputes each tile from the
-    // state it starts with.
-    if (args.h_tiles != nullptr && active)
-      store_states<SPL>(args.h_tiles + (((long long)batch * tiles + t) * di
-                                        + ch) * DS + q * SPL, h);
-
     const unsigned char* s = stage(t);
     const TX* const xs = reinterpret_cast<const TX*>(s) + cl;
     const TDT* const dts = reinterpret_cast<const TDT*>(s + Lay::kX) + cl;
@@ -366,13 +364,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       store_if(yp, yv, q == 0 && active);
       yp += di;
     };
+    // The backward (selective_scan_bwd.cu) recomputes each kKeep-step
+    // window from the state it starts with.
+    auto keep = [&](int i) {
+      if (args.h_tiles != nullptr && active)
+        store_states<SPL>(args.h_tiles + (((long long)batch * kept
+                                           + (t * kSteps + i) / kKeep) * di
+                                          + ch) * DS + q * SPL, h);
+    };
     const int n = min(kSteps, L - t * kSteps);
     if (n == kSteps) {
-#pragma unroll kUnroll
-      for (int i = 0; i < kSteps; ++i) step(i);
+#pragma unroll 1
+      for (int j = 0; j < kSteps; j += kKeep) {
+        keep(j);
+#pragma unroll
+        for (int i = 0; i < kKeep; ++i) step(j + i);
+      }
     } else {
 #pragma unroll 1
-      for (int i = 0; i < n; ++i) step(i);
+      for (int i = 0; i < n; ++i) {
+        if (i % kKeep == 0) keep(i);
+        step(i);
+      }
     }
   }
   if (active) store_states<SPL>(args.h_out + state0, h);
@@ -444,8 +457,8 @@ int by_x(bool x_bf16, bool dt_bf16, bool bc_bf16, const void* x,
 // x, dt: [batch, L, di]; b, c: [batch, L, ds] (each f32, or bf16 where its
 // flag is set; b and c share a type); a: [di, ds] f32; h0: [batch, di, ds]
 // f32 -> y: [batch, L, di] f32, h_out: [batch, di, ds] f32, and, unless
-// h_tiles is null, h_tiles: [batch, ceil(L / 32), di, ds] f32, the state
-// each 32-step tile starts from (tile 0's is h0).  ds is 4, 8 or 16;
+// h_tiles is null, h_tiles: [batch, ceil(L / 8), di, ds] f32, the state
+// each 8-step window starts from (window 0's is h0).  ds is 4, 8 or 16;
 // L >= 1.  Returns a cudaError_t.
 extern "C" int selective_scan(const void* x, const void* dt, const void* b,
                               const void* c, const void* a, const void* h0,

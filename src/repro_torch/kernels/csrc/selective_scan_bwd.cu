@@ -29,28 +29,59 @@
 // dt, b, c, a, h0, dy and dh read once, the gradients written once).
 // chip_smoke.py prices it from SCAN_BWD_FP32_PER_ELEMENT.
 //
-// Design: simple and right first.
-// - Recompute, never store [batch, L, di, ds].  The forward writes h at
-//   the start of each of its 32-step tiles (h_tiles).  A block walks the
-//   tiles from the last; for each it first runs the tile's recurrence
-//   from the stored state and keeps the state at the start of each
-//   8-step sub-tile in shared memory, then, sub-tile by sub-tile from the
-//   last, recomputes the 8 states into shared memory and walks them
-//   backwards.  The recurrence is the forward's own operations
-//   (__fmul_rn, __fadd_rn, expf), so the recomputed h is the forward's h.
-// - Threads as in the forward: a channel's d_state states over G lanes of
-//   8 (G = 2 at d_state 16), 128 threads a block, so 64 channels a block
-//   at d_state 16 and 128 at 8 and 4.  A sub-tile's x, dt, dy, b and c
-//   are staged in shared memory as f32.  The sums over the states (dx,
-//   ddt) add a lane's states in order, then across lanes by
-//   __shfl_xor_sync.
-// - No float atomics.  db and dc sum over channels: a block sums its own
-//   channels in channel order (dc from the recomputed h and dy, db from
-//   g dt x, written over each state once the walk is past it) into a
-//   per-block partial; da sums over time in each thread's registers and
-//   over the batch through a per-batch partial.  A second kernel adds the
-//   partials over blocks, and over the batch, in index order.  Two calls
-//   give the same bits.
+// Design: one recompute and one exponential an element, the window in
+// registers.  Against the first version's six costs (6.18 ms at
+// 9.3% of the bound):
+// 1. One recompute.  The forward keeps h as every 8-step window starts
+//    (h_tiles [batch, ceil(L / 8), di, ds], 537 MB at the served shape,
+//    was every 32 steps and 134 MB).  A block walks the windows from the
+//    last: it runs the window's recurrence once from the kept state with
+//    the forward's own operations (__fmul_rn, __fadd_rn, expf), so the
+//    recomputed h is the forward's h, keeping each step's exp(dt a),
+//    h_{t-1} and dt x in registers (the step loops are unrolled), then
+//    walks the 8 steps back from those registers.
+// 2. One exponential an element: the walk back reuses the recompute's.
+// 3. No states in shared memory.  4 states a lane (d_state / 4 lanes a
+//    channel), 256 threads a block: 64 channels at d_state 16, 128 at 8,
+//    256 at 4.  The window takes 2 x 8 x 4 registers of a lane's 128, so
+//    two blocks fit an SM; the served shape's 512 blocks are 1.94 waves.
+//    8 states a lane would need 128 registers for the window alone.
+// 4. Channel sums (db, dc) by shuffles, no serial chains.  Per step a lane
+//    holds 4 products; two exchanges halve them (keep 2, then 1, adding the
+//    partner's) and the rest of the warp's channels add by
+//    __shfl_xor_sync, so each lane ends with one state's sum over the
+//    warp's channels.  So that a lane always keeps its first registers,
+//    register k of a lane holds state q 4 + (k ^ p), p from lane bits 4
+//    and 3, and b and c are staged as f32 in the 4 orders p.  The warps'
+//    sums are added in warp order through shared memory.
+// 5. Loads in flight, one barrier a window.  A ring of 4 windows in shared
+//    memory, filled by cp.async (x, dt, dy, b, c and the kept state):
+//    while window w computes, w - 1 has landed (and its b and c are put in
+//    the lane orders), w - 2 is in flight and w + 1 is read by its
+//    epilogue.  A whole window of a whole block of channels, all rows
+//    16-byte aligned, each batch's b and c too (every window but a ragged
+//    last one at the served shape), is staged by straight-line code: the
+//    per-window code outside the unrolled steps runs cold from the
+//    instruction cache every window, and loops there cost more than their
+//    work.
+// 6. Partial sums in a second pass, kept: a block's db and dc per (t,
+//    state) and da per batch go to device memory ([2, batch, di / 64, L,
+//    ds] f32 at d_state 16: 134 MB written and read once, about 0.08 ms
+//    at 3.35 TB/s) and a second kernel adds them in block order, where one
+//    pass would need float atomics or an order-keeping handshake across
+//    blocks.  dx and ddt: each lane leaves its 4 states' sums of g b and
+//    e a in shared memory; the window's epilogue adds a channel's lanes
+//    in lane order and writes dx and ddt in their inputs' types,
+//    consecutive threads consecutive channels.
+// No float atomics, every sum in one fixed order: two calls give the same
+// bits.  A ragged last window runs on zero-filled steps, which leave h and
+// the carry as they are and whose outputs are not stored.
+//
+// Measured (H100 80GB HBM3, 700 W; PERF.md §6): 1.7817 ms at the
+// served shape (chip_smoke.py 17(a)), 32.4% of the 0.57773 ms bound; the
+// window's unrolled steps issue 29.9 instructions an element, 19.5 of them
+// on the FP32 pipe and one MUFU.EX2 (chip_smoke.py scan_bwd_sass), against
+// the bound's 18.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,18 +92,27 @@ namespace {
 
 using async_copy::to_f32;
 
-constexpr int kThreads = 128;           // threads per block
-constexpr int kSteps = 32;              // the forward's tile (h_tiles)
-constexpr int kSub = 8;                 // steps kept in shared memory
-constexpr int kSubs = kSteps / kSub;    // sub-tiles a tile
-static_assert(kSteps % kSub == 0, "whole sub-tiles in a full tile");
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
-// Lanes per channel at d_state DS: 8 states each where DS allows.
+constexpr int kThreads = 256;           // threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kSeg = 8;                 // steps a window (the forward's keep)
+constexpr int kSpl = 4;                 // states a lane
+constexpr int kPerms = 4;               // lane orders of b and c
+constexpr int kStages = 4;              // windows in the staging ring
+constexpr unsigned kFull = 0xffffffffu;
+
+// Lanes per channel at d_state DS.
 template <int DS>
-constexpr int lanes() { return DS >= 16 ? DS / 8 : 1; }
+__host__ __device__ constexpr int lanes() { return DS / kSpl; }
 
 template <int DS>
-constexpr int channels() { return kThreads / lanes<DS>(); }
+__host__ __device__ constexpr int channels() {
+  return kThreads / lanes<DS>();
+}
 
 struct BwdArgs {
   const void* x;          // [batch, L, di]
@@ -80,206 +120,396 @@ struct BwdArgs {
   const void* b;          // [batch, L, ds]
   const void* c;          // [batch, L, ds]
   const float* a;         // [di, ds]
-  const float* h_tiles;   // [batch, tiles, di, ds]
+  const float* h_tiles;   // [batch, windows, di, ds]
   const float* dy;        // [batch, L, di]
   const float* dh;        // [batch, di, ds] or null
-  float* dx;              // [batch, L, di]
-  float* ddt;             // [batch, L, di]
+  void* dx;               // [batch, L, di], x's type
+  void* ddt;              // [batch, L, di], dt's type
   float* dbc_part;        // [2, batch, chan_tiles, L, ds]: db, dc partials
   float* da_part;         // [batch, di, ds]
   float* dh0;             // [batch, di, ds]
   int batch, L, di, chan_tiles;
+  int x_vec, dt_vec, dy_vec;   // rows of x / dt / dy are 16-byte aligned
+  int vec;                     // those, b and c (each batch's rows too)
+                               // and h_tiles all are
 };
 
-// Floats of shared memory a block uses.
-template <int DS>
-constexpr int smem_floats() {
-  return kThreads * (DS / lanes<DS>()) * (kSub + kSubs)
-         + 3 * kSub * channels<DS>() + 2 * kSub * DS;
+// Shared memory of one block: kStages ring slots (x, dt in their types, dy
+// f32 [kSeg][CH]; b, c in their type [kSeg][DS]; the kept state f32
+// [CH][DS]), then two windows each of b and c in f32 in the kPerms lane
+// orders, of the warps' db and dc sums, and of the lanes' (du, dz).
+template <int DS, typename TX, typename TDT, typename TBC>
+struct Layout {
+  static constexpr int kCh = channels<DS>();
+  static constexpr size_t kX = sizeof(TX) * kSeg * kCh;
+  static constexpr size_t kDt = sizeof(TDT) * kSeg * kCh;
+  static constexpr size_t kDy = sizeof(float) * kSeg * kCh;
+  static constexpr size_t kBc = sizeof(TBC) * kSeg * DS;
+  static constexpr size_t kH = sizeof(float) * kCh * DS;
+  static constexpr size_t kSlot = kX + kDt + kDy + 2 * kBc + kH;
+  static constexpr int kPermFloats = 2 * kSeg * kPerms * DS;
+  static constexpr int kOut = 2 * kSeg * DS;          // db and dc a window
+  static constexpr int kRedFloats = kWarps * kOut;
+  static constexpr int kDuFloats = 2 * kSeg * kThreads;
+  static constexpr size_t kBytes =
+      kStages * kSlot
+      + 2 * sizeof(float) * (kPermFloats + kRedFloats + kDuFloats);
+  static_assert(kX % 16 == 0 && kDt % 16 == 0 && kDy % 16 == 0
+                    && kBc % 16 == 0 && kH % 16 == 0,
+                "16-byte aligned arrays");
+};
+
+// cp.async of one element, zero-filled where !valid; cp.async moves no
+// fewer than 4 bytes, so a bf16 element is loaded and stored.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src,
+                                          bool valid) {
+  async_copy::copy4(dst, src, valid ? 4 : 0);
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          bool valid) {
+  *dst = valid ? *src : __float2bfloat16(0.f);
 }
 
-template <int DS, int G, typename TX, typename TDT, typename TBC>
-__global__ void __launch_bounds__(kThreads)
+// dst [kSeg][CH] <- a whole window: kSeg rows of CH elements at stride
+// ld from src (its row 0 at the block's first channel), 16 bytes a copy.
+// The common case's path: straight-line code, no bounds but the count.
+template <int CH, typename T>
+__device__ __forceinline__ void stage_full(T* dst, const T* src,
+                                           long long ld) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  constexpr int kChunks = CH / kPer, kN = kSeg * kChunks;
+#pragma unroll
+  for (int j0 = 0; j0 < kN; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    if (kN % kThreads == 0 || j < kN) {
+      const int r = j / kChunks, col = (j % kChunks) * kPer;
+      async_copy::copy16(dst + r * CH + col, src + r * ld + col, 16);
+    }
+  }
+}
+
+// dst [COUNT] <- COUNT consecutive elements at src, 16 bytes a copy.
+template <int COUNT, typename T>
+__device__ __forceinline__ void stage_full_flat(T* dst, const T* src) {
+  constexpr int kPer = 16 / (int)sizeof(T), kN = COUNT / kPer;
+#pragma unroll
+  for (int j0 = 0; j0 < kN; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    if (kN % kThreads == 0 || j < kN)
+      async_copy::copy16(dst + j * kPer, src + j * kPer, 16);
+  }
+}
+
+// dst [kSeg][CH] <- rows [0, n) and columns [0, width) of the [*, ld] slab
+// at src (its row 0 at the block's first channel); the rest zero.
+template <int CH, typename T>
+__device__ __forceinline__ void stage_window(T* dst, const T* src,
+                                             long long ld, int n, int width,
+                                             bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / (int)sizeof(T);
+    constexpr int kChunks = CH / kPer;
+    for (int j = threadIdx.x; j < kSeg * kChunks; j += kThreads) {
+      const int r = j / kChunks, col = (j % kChunks) * kPer;
+      const int valid =
+          r < n ? max(0, min(kPer, width - col)) * (int)sizeof(T) : 0;
+      async_copy::copy16(dst + r * CH + col, valid ? src + r * ld + col : src,
+                         valid);
+    }
+  } else {
+    for (int j = threadIdx.x; j < kSeg * CH; j += kThreads) {
+      const int r = j / CH, col = j % CH;
+      const bool valid = r < n && col < width;
+      copy_elem(dst + j, valid ? src + r * ld + col : src, valid);
+    }
+  }
+}
+
+// dst [count] <- the first n elements at src, the rest zero.
+template <typename T>
+__device__ __forceinline__ void stage_flat(T* dst, const T* src, int count,
+                                           int n) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    for (int j = threadIdx.x * kPer; j < count; j += kThreads * kPer) {
+      const int valid = max(0, min(kPer, n - j)) * (int)sizeof(T);
+      async_copy::copy16(dst + j, valid ? src + j : src, valid);
+    }
+  } else {
+    for (int j = threadIdx.x; j < count; j += kThreads)
+      copy_elem(dst + j, j < n ? src + j : src, j < n);
+  }
+}
+
+// The sum over the warp's channels of v[k] f, for the lane's state
+// q 4 + p: register k holds state q 4 + (k ^ p), p = (lane bit 4) 2 +
+// (lane bit 3), so the partner across bit 4 holds in its registers 2, 3
+// the states of this lane's 0, 1, and across bit 3 in its register 1 the
+// state of this lane's 0.  The lower channel bits (from log2 G up to 2)
+// add by butterfly; partners add in either order to the same bits.
+template <int G>
+__device__ __forceinline__ float channel_sum(const float (&v)[kSpl],
+                                             float f) {
+  const float k0 = fmaf(v[0], f, __shfl_xor_sync(kFull, v[2] * f, 16));
+  const float k1 = fmaf(v[1], f, __shfl_xor_sync(kFull, v[3] * f, 16));
+  float r = k0 + __shfl_xor_sync(kFull, k1, 8);
+#pragma unroll
+  for (int m = 4; m >= G; m >>= 1) r += __shfl_xor_sync(kFull, r, m);
+  return r;
+}
+
+template <int DS, typename TX, typename TDT, typename TBC>
+__global__ void __launch_bounds__(kThreads, 2)
     scan_bwd_kernel(const BwdArgs args) {
-  constexpr int CH = kThreads / G;     // channels per block
-  constexpr int SPL = DS / G;          // states per lane
-  constexpr int kStep = kThreads * SPL;   // floats of one step's states
+  using Lay = Layout<DS, TX, TDT, TBC>;
+  constexpr int G = lanes<DS>();
+  constexpr int CH = Lay::kCh;
+  static_assert(G >= 1 && G <= 4 && DS == G * kSpl, "lanes per channel");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const h_s =                   // [kSub][kThreads][SPL]
-      reinterpret_cast<float*>(async_copy::aligned_smem(smem_raw));
-  float* const start_s = h_s + kSub * kStep;   // [kSubs][kThreads][SPL]
-  float* const x_s = start_s + kSubs * kStep;  // [kSub][CH]
-  float* const dt_s = x_s + kSub * CH;
-  float* const dy_s = dt_s + kSub * CH;
-  float* const b_s = dy_s + kSub * CH;         // [kSub][DS]
-  float* const c_s = b_s + kSub * DS;
+  unsigned char* const smem = async_copy::aligned_smem(smem_raw);
+  float* const perm_s =                 // [2][2][kSeg][kPerms][DS]
+      reinterpret_cast<float*>(smem + kStages * Lay::kSlot);
+  float* const red_s = perm_s + 2 * Lay::kPermFloats;  // [2][kWarps][kOut]
+  float2* const du_s =                  // [2][kSeg][kThreads]
+      reinterpret_cast<float2*>(red_s + 2 * Lay::kRedFloats);
+  auto slot = [&](int w) { return smem + (w % kStages) * Lay::kSlot; };
+  auto x_of = [&](int w) { return reinterpret_cast<TX*>(slot(w)); };
+  auto dt_of = [&](int w) {
+    return reinterpret_cast<TDT*>(slot(w) + Lay::kX);
+  };
+  auto dy_of = [&](int w) {
+    return reinterpret_cast<float*>(slot(w) + Lay::kX + Lay::kDt);
+  };
+  auto b_of = [&](int w) {
+    return reinterpret_cast<TBC*>(slot(w) + Lay::kX + Lay::kDt + Lay::kDy);
+  };
+  auto h_of = [&](int w) {
+    return reinterpret_cast<float*>(slot(w) + Lay::kX + Lay::kDt + Lay::kDy
+                                    + 2 * Lay::kBc);
+  };
 
   const int L = args.L, di = args.di, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
   const int q = tid % G;               // the lane's place in its channel
   const int cl = tid / G;              // the channel within the block
+  const int p = ((lane >> 4) & 1) << 1 | ((lane >> 3) & 1);
+  // One lane of each group that channel_sum's butterfly leaves equal.
+  const bool writer = (lane & (7 & ~(G - 1))) == 0;
   const int batch = blockIdx.x / args.chan_tiles;
   const int ct = blockIdx.x % args.chan_tiles;
   const int ch0 = ct * CH;
   const int ch = ch0 + cl;
   const bool active = ch < di;
   const int width = min(CH, di - ch0);
+  const int windows = (L + kSeg - 1) / kSeg;
   const long long row0 = (long long)batch * L;
-  const TX* const x = static_cast<const TX*>(args.x) + row0 * di;
-  const TDT* const dt = static_cast<const TDT*>(args.dt) + row0 * di;
+  const TX* const x = static_cast<const TX*>(args.x) + row0 * di + ch0;
+  const TDT* const dt = static_cast<const TDT*>(args.dt) + row0 * di + ch0;
+  const float* const dy = args.dy + row0 * di + ch0;
   const TBC* const b = static_cast<const TBC*>(args.b) + row0 * DS;
   const TBC* const c = static_cast<const TBC*>(args.c) + row0 * DS;
-  const float* const dy = args.dy + row0 * di;
-  float* const dx = args.dx + row0 * di;
-  float* const ddt = args.ddt + row0 * di;
+  const float* const kept =
+      args.h_tiles + ((long long)batch * windows * di + ch0) * DS;
+  TX* const dx = static_cast<TX*>(args.dx) + row0 * di + ch0;
+  TDT* const ddt = static_cast<TDT*>(args.ddt) + row0 * di + ch0;
   const long long part = (long long)args.batch * args.chan_tiles * L * DS;
   float* const db_part = args.dbc_part
       + ((long long)batch * args.chan_tiles + ct) * L * DS;
   float* const dc_part = db_part + part;
-  const long long state0 = ((long long)batch * di + ch) * DS + q * SPL;
-  const int tiles = (L + kSteps - 1) / kSteps;
-  float* const my_h = h_s + tid * SPL;
-  float* const my_start = start_s + tid * SPL;
+  const long long state0 = ((long long)batch * di + ch) * DS + q * kSpl;
 
-  float av[SPL], carry[SPL], ga[SPL], h[SPL];
+  float av[kSpl], carry[kSpl], ga[kSpl];
 #pragma unroll
-  for (int k = 0; k < SPL; ++k) {
-    av[k] = active ? args.a[(long long)ch * DS + q * SPL + k] : 0.f;
-    carry[k] = active && args.dh != nullptr ? args.dh[state0 + k] : 0.f;
+  for (int k = 0; k < kSpl; ++k) {
+    const int s = k ^ p;
+    av[k] = active ? args.a[(long long)ch * DS + q * kSpl + s] : 0.f;
+    carry[k] = active && args.dh != nullptr ? args.dh[state0 + s] : 0.f;
     ga[k] = 0.f;
   }
 
-  for (int T = tiles - 1; T >= 0; --T) {
-    const int t0 = T * kSteps;
-    const int subs = (min(kSteps, L - t0) + kSub - 1) / kSub;
-    // The state each sub-tile starts from, by the forward's recurrence
-    // from the tile's stored state.
-    const long long tile_state =
-        (((long long)batch * tiles + T) * di + ch) * DS + q * SPL;
-#pragma unroll
-    for (int k = 0; k < SPL; ++k)
-      h[k] = active ? args.h_tiles[tile_state + k] : 0.f;
-    for (int j = 0; j < subs; ++j) {
-#pragma unroll
-      for (int k = 0; k < SPL; ++k) my_start[j * kStep + k] = h[k];
-      if (j + 1 == subs) break;
-      for (int i = 0; i < kSub; ++i) {
-        const long long t = t0 + j * kSub + i;
-        const float dv = active ? to_f32(dt[t * di + ch]) : 0.f;
-        const float dbx = __fmul_rn(dv, active ? to_f32(x[t * di + ch])
-                                               : 0.f);
-#pragma unroll
-        for (int k = 0; k < SPL; ++k) {
-          const float da = expf(__fmul_rn(dv, av[k]));
-          const float bv = to_f32(b[t * DS + q * SPL + k]);
-          h[k] = __fadd_rn(__fmul_rn(da, h[k]), __fmul_rn(dbx, bv));
-        }
+  // Start window w's copies into its ring slot (an empty group past the
+  // first window keeps the group count uniform).  A whole window of a
+  // whole block of channels, everything aligned, takes the short path.
+  auto fetch = [&](int w) {
+    if (w >= 0) {
+      const int t0 = w * kSeg, n = min(kSeg, L - t0);
+      const long long at = (long long)t0 * di;
+      if (args.vec && n == kSeg && width == CH) {
+        stage_full<CH>(x_of(w), x + at, di);
+        stage_full<CH>(dt_of(w), dt + at, di);
+        stage_full<CH>(dy_of(w), dy + at, di);
+        stage_full_flat<kSeg * DS>(b_of(w), b + (long long)t0 * DS);
+        stage_full_flat<kSeg * DS>(b_of(w) + kSeg * DS,
+                                   c + (long long)t0 * DS);
+        stage_full_flat<CH * DS>(h_of(w), kept + (long long)w * di * DS);
+      } else {
+        stage_window<CH>(x_of(w), x + at, di, n, width, args.x_vec);
+        stage_window<CH>(dt_of(w), dt + at, di, n, width, args.dt_vec);
+        stage_window<CH>(dy_of(w), dy + at, di, n, width, args.dy_vec);
+        stage_flat(b_of(w), b + (long long)t0 * DS, kSeg * DS, n * DS);
+        stage_flat(b_of(w) + kSeg * DS, c + (long long)t0 * DS, kSeg * DS,
+                   n * DS);
+        stage_flat(h_of(w), kept + (long long)w * di * DS, CH * DS,
+                   width * DS);
       }
     }
-
-    for (int j = subs - 1; j >= 0; --j) {
-      const int s0 = t0 + j * kSub;
-      const int m = min(kSub, L - s0);
-      __syncthreads();                 // the last sub-tile's readers done
-      for (int idx = tid; idx < kSub * CH; idx += kThreads) {
-        const int i = idx / CH, col = idx % CH;
-        const bool ok = i < m && col < width;
-        const long long at = (long long)(s0 + i) * di + ch0 + col;
-        x_s[idx] = ok ? to_f32(x[at]) : 0.f;
-        dt_s[idx] = ok ? to_f32(dt[at]) : 0.f;
-        dy_s[idx] = ok ? dy[at] : 0.f;
-      }
-      for (int idx = tid; idx < kSub * DS; idx += kThreads) {
-        const bool ok = idx / DS < m;
-        const long long at = (long long)s0 * DS + idx;
-        b_s[idx] = ok ? to_f32(b[at]) : 0.f;
-        c_s[idx] = ok ? to_f32(c[at]) : 0.f;
-      }
-      __syncthreads();
-
-      // The sub-tile's states, into shared memory.
+    async_copy::commit();
+  };
+  // b and c of window w (landed) as f32 in each lane order pp:
+  // [b or c][i][pp][q 4 + k] = raw[i][q 4 + (k ^ pp)], a group of 4 a
+  // thread.
+  auto convert = [&](int w) {
+    if (w < 0) return;
+    const TBC* const raw = b_of(w);
+    float4* const out =
+        reinterpret_cast<float4*>(perm_s + (w & 1) * Lay::kPermFloats);
+    constexpr int kN = Lay::kPermFloats / 4;
 #pragma unroll
-      for (int k = 0; k < SPL; ++k) h[k] = my_start[j * kStep + k];
-      for (int i = 0; i < m; ++i) {
-        const float dv = dt_s[i * CH + cl];
-        const float dbx = __fmul_rn(dv, x_s[i * CH + cl]);
+    for (int f0 = 0; f0 < kN; f0 += kThreads) {
+      const int f = f0 + tid;
+      if (kN % kThreads != 0 && f >= kN) break;
+      const int g = f % (DS / 4), pp = (f / (DS / 4)) % kPerms;
+      const int row = f / (DS / 4 * kPerms);
+      float4 v = async_copy::load4(raw + row * DS + 4 * g);
+      if (pp & 1) v = make_float4(v.y, v.x, v.w, v.z);
+      if (pp & 2) v = make_float4(v.z, v.w, v.x, v.y);
+      out[f] = v;
+    }
+  };
+  // Window w's outputs, once every thread is past its compute: dx and ddt
+  // from the lanes' (du, dz), and the block's db and dc partials.
+  auto finish = [&](int w) {
+    const int t0 = w * kSeg;
+    const TX* const xs = x_of(w);
+    const TDT* const dts = dt_of(w);
+    const float2* const dus = du_s + (w & 1) * kSeg * kThreads;
 #pragma unroll
-        for (int k = 0; k < SPL; ++k) {
-          const float da = expf(__fmul_rn(dv, av[k]));
-          h[k] = __fadd_rn(__fmul_rn(da, h[k]),
-                           __fmul_rn(dbx, b_s[i * DS + q * SPL + k]));
-          my_h[i * kStep + k] = h[k];
+    for (int o0 = 0; o0 < kSeg * CH; o0 += kThreads) {
+      const int o = o0 + tid;
+      const int i = o / CH, col = o % CH;
+      if (t0 + i < L && col < width) {
+        // The channel's G lanes' (du, dz), 16-byte loads, added in order.
+        const float2* const lane0 = dus + i * kThreads + col * G;
+        float du, dz;
+        if constexpr (G == 1) {
+          du = lane0->x;
+          dz = lane0->y;
+        } else {
+          const float4 v = *reinterpret_cast<const float4*>(lane0);
+          du = v.x + v.z;
+          dz = v.y + v.w;
+          if constexpr (G == 4) {
+            const float4 u = *reinterpret_cast<const float4*>(lane0 + 2);
+            du = (du + u.x) + u.z;
+            dz = (dz + u.y) + u.w;
+          }
         }
-      }
-      __syncthreads();
-
-      // dc over the block's channels, in channel order: state s of
-      // channel cc at step i lies at h_s[i][cc G + s / SPL][s % SPL].
-      for (int o = tid; o < m * DS; o += kThreads) {
-        const int i = o / DS, s = o % DS;
-        const float* hp = h_s + i * kStep + s;
-        const float* dyp = dy_s + i * CH;
-        float acc = 0.f;
-        for (int cc = 0; cc < width; ++cc)
-          acc = __fadd_rn(acc, __fmul_rn(dyp[cc], hp[cc * DS]));
-        dc_part[(long long)(s0 + i) * DS + s] = acc;
-      }
-      __syncthreads();
-
-      // Backwards through the sub-tile.  Step i reads h_{i-1} and then
-      // leaves g_i dt_i x_i (db's term) in h_i's place, which no later
-      // step reads.
-      for (int i = m - 1; i >= 0; --i) {
-        const float dv = dt_s[i * CH + cl];
-        const float xv = x_s[i * CH + cl];
-        const float dyv = dy_s[i * CH + cl];
-        const float u = __fmul_rn(dv, xv);
-        const float* hp = i > 0 ? my_h + (i - 1) * kStep
-                                : my_start + j * kStep;
-        float du = 0.f, dz = 0.f;
-#pragma unroll
-        for (int k = 0; k < SPL; ++k) {
-          const float bv = b_s[i * DS + q * SPL + k];
-          const float cv = c_s[i * DS + q * SPL + k];
-          const float da = expf(__fmul_rn(dv, av[k]));
-          const float g = __fadd_rn(__fmul_rn(dyv, cv), carry[k]);
-          const float e = __fmul_rn(__fmul_rn(g, hp[k]), da);
-          const float gb = __fmul_rn(g, bv);
-          const float ea = __fmul_rn(e, av[k]);
-          du = k == 0 ? gb : __fadd_rn(du, gb);
-          dz = k == 0 ? ea : __fadd_rn(dz, ea);
-          ga[k] = __fadd_rn(ga[k], __fmul_rn(e, dv));
-          carry[k] = __fmul_rn(g, da);
-          my_h[i * kStep + k] = __fmul_rn(g, u);
-        }
-#pragma unroll
-        for (int w = 1; w < G; w *= 2) {
-          du = __fadd_rn(du, __shfl_xor_sync(0xffffffffu, du, w));
-          dz = __fadd_rn(dz, __shfl_xor_sync(0xffffffffu, dz, w));
-        }
-        if (q == 0 && active) {
-          const long long at = (long long)(s0 + i) * di + ch;
-          dx[at] = __fmul_rn(du, dv);
-          ddt[at] = __fadd_rn(__fmul_rn(du, xv), dz);
-        }
-      }
-      __syncthreads();
-
-      // db over the block's channels, in channel order.
-      for (int o = tid; o < m * DS; o += kThreads) {
-        const int i = o / DS, s = o % DS;
-        const float* gp = h_s + i * kStep + s;
-        float acc = 0.f;
-        for (int cc = 0; cc < width; ++cc) acc = __fadd_rn(acc, gp[cc * DS]);
-        db_part[(long long)(s0 + i) * DS + s] = acc;
+        const long long at = (long long)(t0 + i) * di + col;
+        store_as(dx + at, du * to_f32(dts[o]));
+        store_as(ddt + at, fmaf(du, to_f32(xs[o]), dz));
       }
     }
+    const float* const red = red_s + (w & 1) * Lay::kRedFloats;
+#pragma unroll
+    for (int o0 = 0; o0 < Lay::kOut; o0 += kThreads) {
+      const int o = o0 + tid;
+      if (Lay::kOut % kThreads != 0 && o >= Lay::kOut) break;
+      const int r = o % (kSeg * DS);
+      if (t0 + r / DS < L) {
+        float acc = red[o];
+#pragma unroll
+        for (int v = 1; v < kWarps; ++v) acc += red[v * Lay::kOut + o];
+        (o < kSeg * DS ? db_part : dc_part)[(long long)t0 * DS + r] = acc;
+      }
+    }
+  };
+  // Window w: its recurrence from the kept state, then back through it.
+  auto compute = [&](int w) {
+    const TX* const xs = x_of(w) + cl;
+    const TDT* const dts = dt_of(w) + cl;
+    const float* const dys = dy_of(w) + cl;
+    const float* const hs = h_of(w) + cl * DS + q * kSpl;
+    const float* const bp =
+        perm_s + (w & 1) * Lay::kPermFloats + p * DS + q * kSpl;
+    const float* const cp = bp + kSeg * kPerms * DS;
+    float* const red = red_s + (w & 1) * Lay::kRedFloats
+                       + warp * Lay::kOut + q * kSpl + p;
+    float2* const dus = du_s + (w & 1) * kSeg * kThreads + tid;
+
+    // The window in registers: each step's exp(dt a), h_{t-1} and dt x
+    // (dt too took registers that the compiler found by taking some of the
+    // exponentials again).
+    float h[kSpl], da[kSeg][kSpl], hp[kSeg][kSpl], us[kSeg];
+#pragma unroll
+    for (int k = 0; k < kSpl; ++k) h[k] = hs[k ^ p];
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      const float dv = to_f32(dts[i * CH]);
+      const float u = __fmul_rn(dv, to_f32(xs[i * CH]));
+      us[i] = u;
+      const float4 bq =
+          *reinterpret_cast<const float4*>(bp + i * kPerms * DS);
+      const float bv[kSpl] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int k = 0; k < kSpl; ++k) {
+        da[i][k] = expf(__fmul_rn(dv, av[k]));
+        hp[i][k] = h[k];
+        h[k] = __fadd_rn(__fmul_rn(da[i][k], h[k]), __fmul_rn(u, bv[k]));
+      }
+      const float dc = channel_sum<G>(h, dys[i * CH]);
+      if (writer) red[kSeg * DS + i * DS] = dc;
+    }
+#pragma unroll
+    for (int i = kSeg - 1; i >= 0; --i) {
+      const float dv = to_f32(dts[i * CH]), u = us[i];
+      const float dyv = dys[i * CH];
+      const float4 bq =
+          *reinterpret_cast<const float4*>(bp + i * kPerms * DS);
+      const float4 cq =
+          *reinterpret_cast<const float4*>(cp + i * kPerms * DS);
+      const float bv[kSpl] = {bq.x, bq.y, bq.z, bq.w};
+      const float cv[kSpl] = {cq.x, cq.y, cq.z, cq.w};
+      float g[kSpl], du = 0.f, dz = 0.f;
+#pragma unroll
+      for (int k = 0; k < kSpl; ++k) {
+        g[k] = fmaf(dyv, cv[k], carry[k]);
+        const float cr = g[k] * da[i][k];
+        const float e = cr * hp[i][k];
+        carry[k] = cr;
+        du = fmaf(g[k], bv[k], du);
+        dz = fmaf(e, av[k], dz);
+        ga[k] = fmaf(e, dv, ga[k]);
+      }
+      const float db = channel_sum<G>(g, u);
+      if (writer) red[i * DS] = db;
+      dus[i * kThreads] = make_float2(du, dz);
+    }
+  };
+
+  fetch(windows - 1);
+  fetch(windows - 2);
+  async_copy::wait<0>();
+  __syncthreads();
+  convert(windows - 1);
+  for (int w = windows - 1; w >= 0; --w) {
+    // Window w - 1 has landed; every thread is past window w + 1's
+    // compute and window w + 2's epilogue, whose buffers are reused.
+    async_copy::wait<0>();
+    __syncthreads();
+    fetch(w - 2);
+    convert(w - 1);
+    if (w + 1 < windows) finish(w + 1);
+    compute(w);
   }
+  __syncthreads();
+  finish(0);
   if (active) {
 #pragma unroll
-    for (int k = 0; k < SPL; ++k) {
-      args.dh0[state0 + k] = carry[k];
-      args.da_part[state0 + k] = ga[k];
+    for (int k = 0; k < kSpl; ++k) {
+      args.dh0[state0 + (k ^ p)] = carry[k];
+      args.da_part[state0 + (k ^ p)] = ga[k];
     }
   }
 }
@@ -314,16 +544,29 @@ struct Call {
   cudaStream_t stream;
 };
 
+bool rows_aligned(const void* p, size_t row_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row_bytes % 16 == 0;
+}
+
 template <int DS, typename TX, typename TDT, typename TBC>
 int launch(Call call) {
-  constexpr int G = lanes<DS>();
+  using Lay = Layout<DS, TX, TDT, TBC>;
   BwdArgs& args = call.args;
-  args.chan_tiles = (args.di + channels<DS>() - 1) / channels<DS>();
+  args.chan_tiles = (args.di + Lay::kCh - 1) / Lay::kCh;
+  args.x_vec = rows_aligned(args.x, (size_t)args.di * sizeof(TX));
+  args.dt_vec = rows_aligned(args.dt, (size_t)args.di * sizeof(TDT));
+  args.dy_vec = rows_aligned(args.dy, (size_t)args.di * sizeof(float));
+  // A batch's b and c rows start 16-byte aligned only where its L rows
+  // fill whole 16 bytes: at d_state 4 in bf16 a row is 8 bytes, so an odd
+  // L leaves every other batch's rows 8 bytes off.
+  const size_t bc_rows = (size_t)args.L * DS * sizeof(TBC);
+  args.vec = args.x_vec && args.dt_vec && args.dy_vec
+             && rows_aligned(args.b, bc_rows) && rows_aligned(args.c, bc_rows)
+             && rows_aligned(args.h_tiles, 0);
   const long long blocks = (long long)args.batch * args.chan_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = smem_floats<DS>() * sizeof(float)
-                      + async_copy::kSmemAlign;
-  auto kernel = scan_bwd_kernel<DS, G, TX, TDT, TBC>;
+  const size_t smem = Lay::kBytes + async_copy::kSmemAlign;
+  auto kernel = scan_bwd_kernel<DS, TX, TDT, TBC>;
   static async_copy::KernelSetup setup;
   cudaError_t err = async_copy::prepare(kernel, setup, smem);
   if (err != cudaSuccess) return (int)err;
@@ -367,13 +610,13 @@ extern "C" int selective_scan_bwd_channels(int ds) {
 
 // The forward's inputs x, dt (each [batch, L, di]), b, c ([batch, L, ds];
 // each f32, or bf16 where its flag is set, b and c alike), a [di, ds] f32
-// and h_tiles [batch, ceil(L / 32), di, ds] f32 (what selective_scan wrote
+// and h_tiles [batch, ceil(L / 8), di, ds] f32 (what selective_scan wrote
 // there), the cotangents dy [batch, L, di] f32 and dh [batch, di, ds] f32
-// (null: zero) -> dx, ddt [batch, L, di], dbc [2, batch, L, ds] (db, dc),
-// da [di, ds] and dh0 [batch, di, ds], all f32; dbc_part and da_part are
-// scratch of [2, batch, ceil(di / channels), L, ds] and [batch, di, ds]
-// floats.  ds is 4, 8 or 16; L >= 1.  Three launches on `stream`; returns
-// a cudaError_t.
+// (null: zero) -> dx, ddt [batch, L, di] in x's and dt's types, dbc [2,
+// batch, L, ds] (db, dc), da [di, ds] and dh0 [batch, di, ds] in f32;
+// dbc_part and da_part are scratch of [2, batch, ceil(di / channels), L,
+// ds] and [batch, di, ds] floats.  ds is 4, 8 or 16; L >= 1.  Three
+// launches on `stream`; returns a cudaError_t.
 extern "C" int selective_scan_bwd(const void* x, const void* dt,
                                   const void* b, const void* c,
                                   const void* a, const void* h_tiles,
@@ -386,9 +629,9 @@ extern "C" int selective_scan_bwd(const void* x, const void* dt,
   Call call{{x, dt, b, c, static_cast<const float*>(a),
              static_cast<const float*>(h_tiles),
              static_cast<const float*>(dy), static_cast<const float*>(dh),
-             static_cast<float*>(dx), static_cast<float*>(ddt),
+             dx, ddt,
              static_cast<float*>(dbc_part), static_cast<float*>(da_part),
-             static_cast<float*>(dh0), batch, L, di, 0},
+             static_cast<float*>(dh0), batch, L, di, 0, 0, 0, 0, 0},
             static_cast<float*>(dbc), static_cast<float*>(da),
             static_cast<cudaStream_t>(stream)};
   switch (ds) {

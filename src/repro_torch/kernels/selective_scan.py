@@ -8,8 +8,8 @@ scan.
 :func:`selective_scan` launches the CUDA kernel for CUDA tensors and runs
 :func:`repro_torch.kernels.ref.selective_scan` for CPU tensors, never
 falling back from one to the other.  Under autograd on the card it goes
-through :class:`_Scan`, whose forward also keeps the state at each 32-step
-tile's start and whose backward is :func:`selective_scan_bwd`: the
+through :class:`_Scan`, whose forward also keeps the state at each 8-step
+window's start and whose backward is :func:`selective_scan_bwd`: the
 backward kernel, never autograd through the plain loop.  On the CPU
 autograd runs through the plain scan.  ``selective_scan.launches`` and
 ``selective_scan_bwd.launches`` count kernel launches.
@@ -30,7 +30,7 @@ _SIGNATURES = {"selective_scan": [_P] * 9 + [_I] * 7 + [_P]}
 _BWD_SIGNATURES = {"selective_scan_bwd": [_P] * 15 + [_I] * 7 + [_P],
                    "selective_scan_bwd_channels": [_I]}
 D_STATES = (4, 8, 16)
-TILE = 32            # the forward's tile: h is kept at each tile's start
+TILE = 8             # the backward's window: h is kept as each one starts
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -64,8 +64,8 @@ def _bf16_flags(x, dt, b):
 
 def _forward(x, dt, b, c, a, h0, keep_tiles: bool):
     """One forward launch -> ``(y, h, h_tiles)``; ``h_tiles [batch,
-    ceil(L / 32), di, ds]`` (the state each tile starts from) only when
-    ``keep_tiles``, else None."""
+    ceil(L / 8), di, ds]`` (the state each 8-step window starts from) only
+    when ``keep_tiles``, else None."""
     _check("selective_scan", x, dt, b, c, a, h0)
     batch, L, di = x.shape
     ds = b.shape[2]
@@ -90,7 +90,7 @@ def _forward(x, dt, b, c, a, h0, keep_tiles: bool):
 
 class _Scan(torch.autograd.Function):
     """The scan under autograd on the card: the forward kernel, keeping
-    the tile states, and the backward kernel."""
+    the window states, and the backward kernel."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a, h0):
@@ -131,10 +131,10 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                        dy: torch.Tensor, dh: Optional[torch.Tensor],
                        h_tiles: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The scan's vector-Jacobian product: given the forward's inputs, the
-    state at each tile's start that its launch kept (``h_tiles [batch,
-    ceil(L / 32), di, ds]``) and the cotangents ``dy [batch, L, di]`` of
-    ``y`` and ``dh [batch, di, ds]`` of the last state (None: zero),
-    ``(dx, ddt, db, dc, da, dh0)``, each in its input's dtype.
+    state at each 8-step window's start that its launch kept (``h_tiles
+    [batch, ceil(L / 8), di, ds]``) and the cotangents ``dy [batch, L,
+    di]`` of ``y`` and ``dh [batch, di, ds]`` of the last state (None:
+    zero), ``(dx, ddt, db, dc, da, dh0)``, each in its input's dtype.
 
     CPU tensors: autograd through the plain scan
     (:func:`repro_torch.kernels.ref.selective_scan_bwd`), which does not
@@ -161,8 +161,8 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     lib = cuda.library(_BWD, _BWD_SIGNATURES)
     chan_tiles = -(-di // lib.selective_scan_bwd_channels(ds))
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((batch, L, di), **f32)
-    ddt = torch.empty((batch, L, di), **f32)
+    dx = torch.empty((batch, L, di), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((batch, L, di), dtype=dt.dtype, device=x.device)
     dbc = torch.empty((2, batch, L, ds), **f32)
     da = torch.empty((di, ds), **f32)
     dh0 = torch.empty((batch, di, ds), **f32)
@@ -177,8 +177,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         *_bf16_flags(x, dt, b), cuda.stream_handle(x.device))
     cuda.check(lib, _BWD, status, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
-    return (dx.to(x.dtype), ddt.to(dt.dtype), dbc[0].to(b.dtype),
-            dbc[1].to(c.dtype), da, dh0)
+    return dx, ddt, dbc[0].to(b.dtype), dbc[1].to(c.dtype), da, dh0
 
 
 selective_scan.launches = 0

@@ -1203,8 +1203,21 @@ def assert_scan_grads_close(got, want):
                                    msg=name)
 
 
+# The backward's own edges: L of one step, one 8-step window, one past
+# it, one short of, at and one past the forward's 32-step tile, two
+# windows; d_inner 1, and one past a block's channels (64 at d_state 16,
+# 128 at 8, 256 at 4); then whole blocks at d_state 4 with an odd L over
+# two batches, whose second batch's b and c rows (8 bytes each in bf16)
+# start 8 bytes off a 16-byte boundary while x's rows are aligned.
+SCAN_BWD_SHAPES = [(1, 1, 64, 16), (2, 8, 64, 16), (1, 9, 64, 16),
+                   (2, 31, 64, 16), (1, 32, 64, 16), (2, 33, 64, 16),
+                   (1, 16, 64, 16), (2, 33, 1, 16), (1, 9, 1, 4),
+                   (2, 17, 65, 16), (1, 9, 129, 8), (1, 9, 257, 4),
+                   (2, 9, 256, 4), (2, 33, 512, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bt,L,di,ds", SCAN_SHAPES)
+@pytest.mark.parametrize("bt,L,di,ds", SCAN_SHAPES + SCAN_BWD_SHAPES)
 @pytest.mark.parametrize("types", sorted(SCAN_TYPES))
 def test_cuda_selective_scan_backward_matches_plain(cuda_device, bt, L, di,
                                                     ds, types):

@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp                                      # noqa: E402
 
 from repro.core import mixing as jmix                        # noqa: E402
@@ -152,7 +154,7 @@ def _run_scripts(bench_dir):
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, BENCH_DIR=str(bench_dir),
+    env = dict(os.environ, OMP_NUM_THREADS="1", BENCH_DIR=str(bench_dir),
                PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.core as jcore                                   # noqa: E402
 import repro_torch.core as tcore                             # noqa: E402
 from benchmarks import fig2_connectivity, fig67_isolation    # noqa: E402
@@ -103,7 +105,7 @@ def test_figure_scripts_without_jax(tmp_path):
             + "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
               "             in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
               "assert not bad, bad\n")
-    env = dict(os.environ, BENCH_DIR=str(tmp_path),
+    env = dict(os.environ, OMP_NUM_THREADS="1", BENCH_DIR=str(tmp_path),
                PYTHONPATH=str(ROOT / "src"))
     env.pop("REPRO_TORCH_TUNE_CACHE", None)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -173,7 +175,7 @@ def test_fig10_without_jax(tmp_path):
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             "             in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, BENCH_DIR=str(tmp_path),
+    env = dict(os.environ, OMP_NUM_THREADS="1", BENCH_DIR=str(tmp_path),
                PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=600)

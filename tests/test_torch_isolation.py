@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import numpy as np                                           # noqa: E402
 
 from repro_torch.bench import common                         # noqa: E402
@@ -203,7 +205,7 @@ def test_scan_backward_takes_the_kernel_path(plain_calls, monkeypatch):
     bc = torch.empty((2, 9, 16), device="meta")
     a = torch.empty((70, 16), device="meta")
     h0 = torch.empty((2, 70, 16), device="meta")
-    tiles = torch.empty((2, 1, 70, 16), device="meta")
+    tiles = torch.empty((2, 2, 70, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         selective_scan_bwd(seq, seq, bc, bc, a, h0, seq, None, tiles)
     assert plain_calls == []

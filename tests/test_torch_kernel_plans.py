@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.kernels import (  # noqa: E402
     cuda, graph_mix, graph_mix_leaves, graph_mix_masked,
     graph_mix_masked_leaves, graph_mix_sparse, graph_mix_sparse_leaves,

@@ -6,6 +6,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.data as jdata                                   # noqa: E402
 import repro_torch.data as tdata                             # noqa: E402
 

@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.core as jcore                                   # noqa: E402
 from repro.core import protocol as jprotocol                 # noqa: E402
 from repro.core import selection as jselection               # noqa: E402

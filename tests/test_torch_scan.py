@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp                                      # noqa: E402
 
 from repro.kernels import ref as jref                        # noqa: E402

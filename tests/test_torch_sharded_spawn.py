@@ -41,6 +41,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax                                                   # noqa: E402
 import torch.distributed as dist                             # noqa: E402
 

@@ -5,6 +5,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from test_torch_sparse_engine import (K, SPARSE,             # noqa: E402
                                       _reference_and_port,
                                       assert_matches_reference)

@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax                                                   # noqa: E402
 
 import repro.core as jcore                                   # noqa: E402
@@ -727,7 +729,7 @@ def test_fig14_writes_schema(tmp_path):
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             "             in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, BENCH_DIR=str(tmp_path),
+    env = dict(os.environ, OMP_NUM_THREADS="1", BENCH_DIR=str(tmp_path),
                PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

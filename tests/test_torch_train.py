@@ -30,6 +30,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
 
@@ -61,18 +63,6 @@ LR = 0.05
 HP = dict(k=2, view_size=3)
 FAST_XLA = {"xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread: its ops are small, and
-    under a test run's parallel workers each worker's pool of one thread a
-    core oversubscribes the host (spinning threads slowed a run a
-    hundredfold).  The caller's count comes back after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def without_experts(cfg):
