@@ -65,7 +65,9 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    mix a round, on the tiled route), and where its round's time goes;
 9. the model zoo's serving path at full width: Jamba-1.5-Large at its
    published widths, one period (7 Mamba layers, 1 attention), dense
-   SwiGLU in place of the experts, bf16, drawn on the card: (a) prefill of
+   SwiGLU in place of the experts (a period with its four MoE layers is
+   some 44 B parameters, 88 GB in bf16: it does not fit the card; phase
+   18(c) runs one MoE layer), bf16, drawn on the card: (a) prefill of
    two 2,048-token prompts through ``forward(last_only=True)``, exactly
    7 scan launches each; (b) four requests served as
    ``examples/serve_decode.py`` does (64-token prompts token by token
@@ -228,10 +230,38 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    break the limits;
    (c) reduced Llama-3.2-3B and Jamba without experts, three rounds each
    (a topology round first) on the card and on the CPU from one state:
-   identical edges, parameters within 1e-4; (d) ``make_serve_step`` each
-   node's ``decode_step`` bit for bit; (e) the launcher at ``--reduced
-   --nodes 8 --rounds 20`` exits 0, and Jamba with experts is refused;
+   identical edges, parameters within 1e-4; (d) one Jamba-1.5-Large Mamba
+   layer at its published widths, bf16, 2 x 2,048 tokens, forward and
+   backward between CUDA events with the scan backward's share;
+   (e) ``make_serve_step`` each node's ``decode_step`` bit for bit; (f) the
+   launcher at ``--reduced --nodes 8 --rounds 20`` exits 0;
    ``launches_train`` in every kernel row counts (b) and (c)'s card runs;
+
+18. the zoo's MoE MLP and RWKV-6 mixer (``repro_torch.models.moe``,
+   ``.rwkv``): (a) DeepSeek-MoE-16B whole (28 layers, 64 experts top-6 and
+   2 shared, bf16, drawn on the card): prefill of two 2,048-token prompts,
+   four requests decoded as 9(b) and ``greedy_generate`` the same tokens,
+   the prefill's stages (attention, router, dispatch, expert products,
+   combine, shared experts), the share of (token, slot) pairs dropped at
+   prefill and at decode, and peak memory beside the parameters' bytes;
+   (b) DeepSeek-MoE and RWKV-6 at published widths, 2 layers, f32 (MoE at
+   a capacity factor of 100): prefill against decode within 9(c)'s f32
+   limits; (c) one Jamba-1.5-Large MoE layer (16 experts top-2, d_model
+   8,192, d_ff 24,576) at published widths, bf16, 2 x 2,048 tokens under
+   autograd: forward and backward between CUDA events with the expert
+   products' share, and peak memory; (d) RWKV-6 7B whole (32 layers, bf16)
+   as (a), its prefill's stages with the WKV chunks' share; (e) reduced
+   DeepSeek-MoE, Jamba with its experts and RWKV-6 (f32) on the card and
+   on the CPU: logits within 1e-4 and greedy tokens identical, then three
+   train rounds (a topology round first): identical edges, parameters
+   within 1e-4, a router pick that differs named; (f) DeepSeek-MoE-16B at
+   published widths with 2 of its 28 layers trained as 17(b) (n = 8, ten
+   rounds; its routed banks are leaves of 2.95 B elements): loss finite and
+   falling, the Gram and masked-mix launches, stage breakdown, peak memory
+   beside the reckoning; (g) the launcher at ``--reduced --nodes 8
+   --rounds 20`` exits 0 for deepseek-moe-16b, rwkv6-7b and
+   jamba-1.5-large-398b with its experts; ``launches_zoo`` in every kernel
+   row counts (e) and (f)'s card runs;
 
 then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
@@ -312,8 +342,12 @@ HOST_N = 100                     # Table I's own population (phase 12)
 DENSE_LARGE = [(200, 2400), (200, 51200), (1000, 2400), (1000, 51200)]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """``msg`` on its own line after the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line():
@@ -1617,9 +1651,9 @@ LM_HEAD_TOL = dict(atol=1e-4, rtol=1e-5)
 def jamba_serving_config():
     """Jamba-1.5-Large at its published widths, one whole period of 8
     layers (7 Mamba, attention at index 4), and every MoE layer Jamba's
-    dense SwiGLU at d_ff 24,576: four MoE layers of 16 experts do not fit
-    one card (ROADMAP queue 1 item 5, "Model zoo, the rest", ports MoE
-    on deepseek-moe-16b)."""
+    dense SwiGLU at d_ff 24,576: a period with its four MoE layers of 16
+    experts (some 44 B parameters, 88 GB in bf16) does not fit one card
+    (phase 18(c) runs one such layer)."""
     from repro_torch.configs import get_config
     cfg = get_config("jamba-1.5-large-398b")
     return dataclasses.replace(
@@ -1670,18 +1704,13 @@ def synced(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def prefill_breakdown(params, tokens, cfg):
-    """Phase 9(d): one prefill with each stage synchronised on the host
-    clock (the wrappers are put back afterwards)."""
-    from repro_torch.models import (attention, layers, mamba, model,
-                                    transformer)
-    stages = dict.fromkeys(("mamba", "scan", "attention", "mlp", "norms",
-                            "lm_head"), 0.0)
-    patched = [(mamba, "apply_mamba", "mamba"),
-               (mamba, "selective_scan", "scan"),
-               (attention, "self_attention", "attention"),
-               (layers, "apply_mlp", "mlp"), (layers, "apply_norm", "norms"),
-               (transformer, "_lm_logits", "lm_head")]
+def staged_forward(params, tokens, cfg, patched):
+    """One ``forward(last_only=True)`` with each function of ``patched``
+    (``(module, attribute, stage)`` triples) synchronised on the host
+    clock and its ms added to its stage; the wrappers are put back
+    afterwards.  Returns (ms by stage, the forward's total ms)."""
+    from repro_torch.models import model
+    stages = {stage: 0.0 for _, _, stage in patched}
     originals = [getattr(mod, name) for mod, name, _ in patched]
 
     def timed(fn, stage):
@@ -1699,6 +1728,18 @@ def prefill_breakdown(params, tokens, cfg):
     finally:
         for (mod, name, _), fn in zip(patched, originals):
             setattr(mod, name, fn)
+    return stages, total
+
+
+def prefill_breakdown(params, tokens, cfg):
+    """Phase 9(d): one prefill with each stage synchronised on the host
+    clock."""
+    from repro_torch.models import attention, layers, mamba, transformer
+    stages, total = staged_forward(params, tokens, cfg, [
+        (mamba, "apply_mamba", "mamba"), (mamba, "selective_scan", "scan"),
+        (attention, "self_attention", "attention"),
+        (layers, "apply_mlp", "mlp"), (layers, "apply_norm", "norms"),
+        (transformer, "_lm_logits", "lm_head")])
     out = {"total": total,
            "mamba_projections_conv_gates": stages["mamba"] - stages["scan"],
            "scan_kernel": stages["scan"], "attention": stages["attention"],
@@ -4416,19 +4457,25 @@ def next_batch(batchers):
     return {k: np.stack([nb[k] for nb in nbs]) for k in ("tokens", "labels")}
 
 
-def train_full_width(dev):
-    """17(b): ten rounds of the full-width train step with its stage
-    breakdown, peak memory against the reckoning, and launch counts; then
-    :func:`embedding_past_2_31` on a leaf of the embedding's shape with the
-    run's last edges.  Returns the launches."""
+def train_rounds(dev, cfg, phase):
+    """TRAIN_ROUNDS rounds of the train step at ``cfg``'s widths as
+    launch/train.py runs them (TRAIN_N nodes, sgd 0.05, Morph k = 3, view 5,
+    beta 500, delta_r 5; TRAIN_BATCH sequences of TRAIN_SEQ tokens a node
+    from :func:`train_batchers`) with the stage breakdown, peak memory
+    against the reckoning, and launch counts: the loss finite and lower at
+    the last round than at the first, the Gram launches of Eq. 3 (one a
+    dtype and 32 leaves) on each topology round and one masked-mix launch
+    a group of leaves (and 64 leaves) every round, and nothing else.
+    Returns (launches, record, state)."""
     from repro_torch import kernels
     from repro_torch.dlrt import (MorphHParams, init_train_state,
                                   make_train_step)
     from repro_torch.dlrt.distributed import MIX_GROUP_BYTES
     from repro_torch.kernels import ops
+    from repro_torch.kernels.graph_mix import MAX_LEAVES as MIX_LEAVES
+    from repro_torch.kernels.pairwise_cosine import MAX_LEAVES as GRAM_LEAVES
     from repro_torch.optim import sgd
     from repro_torch.tree import flatten
-    cfg = full_width_train_config()
     n = TRAIN_N
     opt = sgd(0.05)
     hp = MorphHParams(k=min(3, n - 1), view_size=min(5, n - 1), beta=500.0)
@@ -4443,6 +4490,9 @@ def train_full_width(dev):
     groups = ops.mix_groups(params, MIX_GROUP_BYTES)
     largest = max(sum(params[k].numel() * params[k].element_size()
                       for k in g) for g in groups)
+    dtypes = [v.dtype for v in params.values()]
+    grams = sum(-(-dtypes.count(t) // GRAM_LEAVES) for t in set(dtypes))
+    mixes = sum(-(-len(g) // MIX_LEAVES) for g in groups)
     batchers = train_batchers(n)
     steps = {topo: make_train_step(cfg, opt, hp, do_topology=topo)
              for topo in (True, False)}
@@ -4464,12 +4514,12 @@ def train_full_width(dev):
     peak = torch.cuda.max_memory_allocated()
     topo_rounds = sum(1 for r in range(TRAIN_ROUNDS) if r % DELTA_R == 0)
     want = dict.fromkeys(got, 0)
-    want.update(gram_matrix=topo_rounds,
-                graph_mix_masked=TRAIN_ROUNDS * len(groups))
+    want.update(gram_matrix=topo_rounds * grams,
+                graph_mix_masked=TRAIN_ROUNDS * mixes)
     if got != want:
-        raise AssertionError(f"17(b): launches {got} != {want}")
+        raise AssertionError(f"{phase}: launches {got} != {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"17(b): losses {losses}: not finite or not "
+        raise AssertionError(f"{phase}: losses {losses}: not finite or not "
                              "lower at the last round than at the first")
     stages = {}
     for name in timers[0] | timers[-1]:
@@ -4483,7 +4533,8 @@ def train_full_width(dev):
     # (and their softmax), and the mix's largest group of new leaves.
     logits = TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4
     reckoned = population + population // n + 2 * logits + largest
-    rec = {"config": {"d_model": cfg.d_model, "layers": cfg.num_layers,
+    rec = {"config": {"name": cfg.name, "d_model": cfg.d_model,
+                      "layers": cfg.num_layers,
                       "heads": [cfg.num_heads, cfg.num_kv_heads],
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                       "tied": cfg.tie_embeddings, "dtype": cfg.param_dtype,
@@ -4494,14 +4545,24 @@ def train_full_width(dev):
            "steady_round_ms": float(np.mean(rounds_ms[1:])),
            "stages": stages, "mix_groups": len(groups),
            "mix_largest_group_gb": largest / 1e9,
+           "largest_leaf_elements": max(v.numel() for v in params.values()),
            "peak_gb": peak / 1e9, "peak_over_base_gb": (peak - base) / 1e9,
            "reckoned_gb": reckoned / 1e9, "launches": got}
-    log(f"phase 17(b): llama3.2-3b full width, {TRAIN_LAYERS} layers, "
-        f"n = {n}, {TRAIN_ROUNDS} rounds: {json.dumps(rec)}")
+    return got, rec, state
 
+
+def train_full_width(dev):
+    """17(b): ten rounds of the full-width train step (:func:`train_rounds`
+    on Llama-3.2-3B); then :func:`embedding_past_2_31` on a leaf of the
+    embedding's shape with the run's last edges.  Returns the launches."""
+    from repro_torch.tree import flatten
+    cfg = full_width_train_config()
+    got, rec, state = train_rounds(dev, cfg, "17(b)")
+    log(f"phase 17(b): llama3.2-3b full width, {TRAIN_LAYERS} layers, "
+        f"n = {TRAIN_N}, {TRAIN_ROUNDS} rounds: {json.dumps(rec)}")
     edges = state.morph.edges.clone(memory_format=torch.contiguous_format)
-    shape = tuple(params["embed.table"].shape)
-    del state, params
+    shape = tuple(flatten(state.params)["embed.table"].shape)
+    del state
     torch.cuda.empty_cache()
     embedding_past_2_31(dev, edges, shape)
     return got
@@ -4802,33 +4863,31 @@ def serve_step_bits(dev):
         "5 positions: each node's decode_step bit for bit")
 
 
-def launcher_runs(dev):
-    """17(f): ``python -m repro_torch.launch.train --arch llama3.2-3b
-    --reduced --nodes 8 --rounds 20`` exits 0 on the card; Jamba keeps
-    refusing its MoE layers."""
+def launcher_run(arch, phase):
+    """``python -m repro_torch.launch.train --arch <arch> --reduced --nodes
+    8 --rounds 20`` on the card in a child process: exit 0 and its twenty
+    rounds.  Returns (wall seconds, its first and last lines)."""
     import os
-    from repro_torch.launch import train
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "llama3.2-3b", "--reduced", "--nodes", "8", "--rounds", "20"],
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--reduced", "--nodes", "8", "--rounds", "20"],
         env=env, cwd=root, capture_output=True, text=True, timeout=300)
     wall = time.perf_counter() - t0
     if proc.returncode != 0 or "done: 20 rounds" not in proc.stdout:
-        raise AssertionError(f"17(f): the launcher exited "
+        raise AssertionError(f"{phase}: the launcher on {arch} exited "
                              f"{proc.returncode}: {proc.stderr[-2000:]}")
-    try:
-        train.main(["--arch", "jamba-1.5-large-398b", "--reduced",
-                    "--rounds", "1"])
-    except NotImplementedError as err:
-        refusal = str(err)
-    else:
-        raise AssertionError("17(f): Jamba with experts trained")
     lines = proc.stdout.strip().splitlines()
-    log(f"phase 17(f): launcher exit 0 in {wall:.1f} s: {lines[0]!r} ... "
-        f"{lines[-2]!r} {lines[-1]!r}; jamba-1.5-large-398b: {refusal!r}")
+    return wall, [lines[0], lines[-2], lines[-1]]
+
+
+def launcher_runs(dev):
+    """17(f): ``python -m repro_torch.launch.train --arch llama3.2-3b
+    --reduced --nodes 8 --rounds 20`` exits 0 on the card."""
+    wall, lines = launcher_run("llama3.2-3b", "17(f)")
+    log(f"phase 17(f): launcher exit 0 in {wall:.1f} s: {lines}")
 
 
 def train_path(dev):
@@ -4851,6 +4910,502 @@ def train_path(dev):
         f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) and "
         f"(f) {time.perf_counter() - t4:.1f})")
     return worst, times, totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the zoo's MoE MLP and RWKV-6 mixer.
+# ---------------------------------------------------------------------------
+
+ZOO_PREFILLS = 2                 # 18(a), (d): timed prefills of 2 x 2,048
+ZOO_F32_LEN = 128                # 18(b): tokens a request (two RWKV chunks)
+ZOO_F32_LAYERS = 2               # 18(b): layers of each model in f32
+# 18(c): one MoE layer of Jamba-1.5-Large at its published widths, bf16,
+# 2 x 2,048 tokens under autograd, each step timed ZOO_LAYER_REPS times
+# after a warm-up (17(d)'s shape).
+ZOO_LAYER_REPS = 3
+ZOO_REDUCED = ("deepseek-moe-16b", "jamba-1.5-large-398b", "rwkv6-7b")
+ZOO_CARD_TOL = 1e-4              # 18(e): phases 6 and 17(c)'s limit
+ZOO_TRAIN_LAYERS = 2             # 18(f): 2 of deepseek-moe-16b's 28 layers
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Counts, on the card, the (token, slot) pairs every MoE call routes
+    and the pairs it drops, while the block runs (``moe._dispatch``
+    wrapped, then put back); read ``pairs`` and ``dropped`` after it."""
+    from repro_torch.models import moe
+    dispatch = moe._dispatch
+    tally = {"pairs": 0, "dropped": 0}
+
+    def counted(xf, experts, C, E):
+        out = dispatch(xf, experts, C, E)
+        tally["pairs"] += out[2].numel()
+        tally["dropped"] = tally["dropped"] + (~out[2]).sum()   # no sync
+        return out
+
+    moe._dispatch = counted
+    try:
+        yield tally
+    finally:
+        moe._dispatch = dispatch
+        tally["dropped"] = int(tally["dropped"])
+
+
+def drop_share(tally):
+    return tally["dropped"] / tally["pairs"] if tally["pairs"] else None
+
+
+def moe_stages(params, tokens, cfg):
+    """18(a): where a MoE prefill's time goes (host clock, synchronised)."""
+    from repro_torch.models import attention, layers, moe, transformer
+    stages, total = staged_forward(params, tokens, cfg, [
+        (attention, "self_attention", "attention"),
+        (moe, "_route", "router"), (moe, "_dispatch", "dispatch"),
+        (moe, "_expert_ffn", "expert_products"),
+        (moe, "_combine", "combine"),
+        # every MLP of this model is a MoE layer's shared experts
+        (layers, "apply_mlp", "shared_experts"),
+        (layers, "apply_norm", "norms"),
+        (transformer, "_lm_logits", "lm_head")])
+    out = {"total": total, "attention": stages["attention"],
+           "router_and_dispatch": stages["router"] + stages["dispatch"],
+           **{k: stages[k] for k in ("expert_products", "combine",
+                                     "shared_experts", "norms", "lm_head")}}
+    out["other"] = total - sum(stages.values())
+    return out
+
+
+def rwkv_stages(params, tokens, cfg):
+    """18(d): where an RWKV-6 prefill's time goes (host clock,
+    synchronised), the WKV chunks inside the time mix."""
+    from repro_torch.models import layers, rwkv, transformer
+    stages, total = staged_forward(params, tokens, cfg, [
+        (rwkv, "apply_rwkv_time_mix", "time_mix"),
+        (rwkv, "_chunk_wkv", "wkv_chunks"),
+        (rwkv, "apply_channel_mix", "channel_mix"),
+        (layers, "apply_norm", "norms"),
+        (transformer, "_lm_logits", "lm_head")])
+    out = {"total": total, "wkv_chunks": stages["wkv_chunks"],
+           "time_mix_outside_chunks": stages["time_mix"]
+           - stages["wkv_chunks"],
+           "channel_mix": stages["channel_mix"], "norms": stages["norms"],
+           "lm_head": stages["lm_head"]}
+    out["other"] = total - sum(stages.values()) + stages["wkv_chunks"]
+    out["wkv_chunks_share"] = stages["wkv_chunks"] / total
+    return out
+
+
+def serve_whole(dev, arch, phase, breakdown):
+    """18(a) and (d): ``arch`` whole at its published widths in bf16,
+    drawn on the card: prefill of two 2,048-token prompts through
+    ``forward(last_only=True)`` (ZOO_PREFILLS timed after a warm-up), four
+    requests served as 9(b) serves them (64-token prompts token by token
+    through ``decode_step``, then 32 greedy tokens) and ``greedy_generate``
+    the same tokens, no kernel launched; the share of MoE pairs dropped at
+    prefill and at decode; the prefill's stages (``breakdown``); peak
+    memory beside the parameters' bytes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, moe
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced(model.init_params, cfg, 0, device=dev)
+    count, nbytes = model.param_count(params), model.param_bytes(params)
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+           "params": count, "param_bytes": nbytes,
+           "param_count_analytic": cfg.param_count(), "init_ms": init_ms,
+           "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    none = dict.fromkeys(launch_counts(), 0)
+
+    # Prefill.
+    prompts = torch.randint(0, cfg.vocab_size, (2, PROMPT_LEN),
+                            generator=gen, device=dev)
+    model.forward(params, {"tokens": prompts}, cfg, last_only=True)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    prefill_ms = []
+    for _ in range(ZOO_PREFILLS):
+        (logits, _), ms = synced(model.forward, params, {"tokens": prompts},
+                                 cfg, last_only=True)
+        prefill_ms.append(ms)
+    if launch_counts() != none:
+        raise AssertionError(f"{phase} prefill launches {launch_counts()}")
+    if logits.shape != (2, 1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase} prefill logits {logits.shape}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    rec["prefill"] = {"ms_each": prefill_ms,
+                      "ms_per_prefill": sum(prefill_ms) / ZOO_PREFILLS,
+                      "tokens_per_s": 2 * PROMPT_LEN * ZOO_PREFILLS
+                      / sum(prefill_ms) * 1e3,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    with moe_drops() as prefill_drops:
+        model.forward(params, {"tokens": prompts}, cfg, last_only=True)
+
+    # Decode.
+    requests = torch.randint(0, cfg.vocab_size, (REQUESTS, REQUEST_LEN),
+                             generator=gen, device=dev)
+    cache = model.init_cache(cfg, REQUESTS, REQUEST_LEN + NEW_TOKENS,
+                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, out = [], []
+    with moe_drops() as decode_drops:
+        for t in range(REQUEST_LEN + NEW_TOKENS):
+            tok = requests[:, t:t + 1] if t < REQUEST_LEN \
+                else logits.argmax(-1)
+            if t >= REQUEST_LEN:
+                out.append(tok[:, 0])
+            (logits, cache), ms = synced(model.decode_step, params, cache,
+                                         tok, t, cfg)
+            step_ms.append(ms)
+    if launch_counts() != none:
+        raise AssertionError(f"{phase} decode launches {launch_counts()}")
+    tokens = torch.stack(out, dim=1)
+    if not torch.isfinite(logits).all() or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{phase} decode: logits finite "
+                             f"{bool(torch.isfinite(logits).all())}, "
+                             f"tokens {tokens.tolist()}")
+    del cache
+    generated = model.greedy_generate(params, cfg, requests, NEW_TOKENS)
+    if not torch.equal(generated, tokens):
+        raise AssertionError(f"{phase}: greedy_generate's tokens differ "
+                             "from the decode loop's")
+    rec["decode"] = {"ms_per_step": sum(step_ms[1:]) / (len(step_ms) - 1),
+                     "first_step_ms": step_ms[0], "steps": len(step_ms),
+                     "requests": REQUESTS,
+                     "cache_len": REQUEST_LEN + NEW_TOKENS,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "first_tokens": tokens[:, :6].tolist()}
+    if cfg.moe is not None:
+        rec["dropped_share"] = {
+            "prefill": drop_share(prefill_drops),
+            "prefill_capacity": moe.capacity(cfg, 2 * PROMPT_LEN),
+            "decode": drop_share(decode_drops),
+            "decode_capacity": moe.capacity(cfg, REQUESTS)}
+    rec["stages"] = breakdown(params, prompts, cfg)
+    rec["peak_over_params_bytes"] = max(
+        rec["prefill"]["peak_device_bytes"],
+        rec["decode"]["peak_device_bytes"]) - nbytes
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_prefill_vs_decode(dev):
+    """18(b): DeepSeek-MoE and RWKV-6 at published widths, ZOO_F32_LAYERS
+    layers, f32 (MoE at a capacity factor of 100, so that no pair is
+    dropped, as tests/test_arch_smoke.py runs it): the last logits of a
+    prefill over four requests of ZOO_F32_LEN tokens against decode's after
+    the same tokens, within 9(c)'s f32 limits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    out = {}
+    for arch in ("deepseek-moe-16b", "rwkv6-7b"):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=ZOO_F32_LAYERS,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=100.0))
+        params = model.init_params(cfg, 1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        requests = torch.randint(0, cfg.vocab_size, (REQUESTS, ZOO_F32_LEN),
+                                 generator=gen, device=dev)
+        fwd, _ = model.forward(params, {"tokens": requests}, cfg,
+                               last_only=True)
+        cache = model.init_cache(cfg, REQUESTS, ZOO_F32_LEN, device=dev)
+        with moe_drops() as drops:
+            for t in range(ZOO_F32_LEN):
+                dec, cache = model.decode_step(params, cache,
+                                               requests[:, t:t + 1], t, cfg)
+        out[arch] = dict(prefill_vs_decode(fwd, dec),
+                         dropped=drops["dropped"])
+        log(f"phase 18(b): {arch} {ZOO_F32_LAYERS} layers f32, last logits "
+            f"over {REQUESTS} x {ZOO_F32_LEN} tokens, prefill vs decode: "
+            f"{json.dumps(out[arch])}")
+        del params, cache
+        torch.cuda.empty_cache()
+        if drops["dropped"]:
+            raise AssertionError(f"18(b) {arch}: pairs dropped")
+        torch.testing.assert_close(dec, fwd, **PREFILL_DECODE_F32)
+    return out
+
+
+def jamba_moe_layer(dev):
+    """18(c): one Jamba-1.5-Large MoE layer (``moe.apply_moe``: 16 experts,
+    top-2, d_model 8,192, d_ff 24,576) at its published widths in bf16
+    under autograd: its forward and its backward, each between CUDA events,
+    and inside them the expert products' forward between events of their
+    own; then the expert products' backward alone (``_expert_ffn`` on the
+    same buffer, its backward between events).  Every gradient finite and
+    of its leaf's shape; no kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import flatten
+    cfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.moe_params(gen, cfg, torch.bfloat16)
+    leaves = list(flatten(params).values())
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    shape = (JAMBA_LAYER_BATCH, JAMBA_LAYER_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    for t in leaves + [x]:
+        t.requires_grad_()
+    spans, kept = [], {}
+    ffn = moe._expert_ffn
+
+    def timed(p, xs, mlp_type):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = ffn(p, xs, mlp_type)
+        ev[1].record()
+        spans.append(ev)
+        kept["xs"] = xs.detach()
+        return out
+
+    moe._expert_ffn = timed
+    runs = []
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(1 + ZOO_LAYER_REPS):
+            if rep == 1:
+                kernels.reset_launches()
+            for t in leaves + [x]:
+                t.grad = None
+            spans.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            y, aux = moe.apply_moe(params, x, cfg)
+            ev[1].record()
+            torch.autograd.backward([y, aux], [dout, torch.ones_like(aux)])
+            ev[2].record()
+            torch.cuda.synchronize()
+            del y, aux
+            if rep:
+                runs.append({"forward_ms": ev[0].elapsed_time(ev[1]),
+                             "backward_ms": ev[1].elapsed_time(ev[2]),
+                             "expert_products_ms": sum(
+                                 a.elapsed_time(b) for a, b in spans)})
+    finally:
+        moe._expert_ffn = ffn
+    peak = torch.cuda.max_memory_allocated()
+    if launch_counts() != dict.fromkeys(launch_counts(), 0):
+        raise AssertionError(f"18(c): launches {launch_counts()}")
+    for t in leaves + [x]:
+        if t.grad is None or t.grad.shape != t.shape \
+                or not torch.isfinite(t.grad).all():
+            raise AssertionError(f"18(c): a gradient of shape {t.shape} is "
+                                 "missing, misshapen or not finite")
+        t.grad = None
+    # The expert products' backward alone, on the buffer of the last run.
+    xs = kept["xs"].requires_grad_()
+    weights = [params[k] for k in ("gate", "up", "down")]
+    bwd = []
+    for rep in range(1 + ZOO_LAYER_REPS):
+        h = ffn(params, xs, cfg.mlp_type)
+        g = torch.randn(h.shape, generator=gen, device=dev).to(h.dtype)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        torch.autograd.grad(h, [xs] + weights, g)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if rep:
+            bwd.append(ev[0].elapsed_time(ev[1]))
+        del h, g
+    mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+    mean["expert_products_backward_ms"] = sum(bwd) / len(bwd)
+    step = mean["forward_ms"] + mean["backward_ms"]
+    C = moe.capacity(cfg, JAMBA_LAYER_BATCH * JAMBA_LAYER_SEQ)
+    # Three [E, C, d] x [d, d_ff] products forward; the backward twice.
+    flops = 3 * 3 * 2 * cfg.moe.num_experts * C * cfg.d_model * cfg.d_ff
+    expert_ms = mean["expert_products_ms"] \
+        + mean["expert_products_backward_ms"]
+    out = {"config": cfg.name, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "capacity": C, "batch": JAMBA_LAYER_BATCH,
+           "seq": JAMBA_LAYER_SEQ, "dtype": "bfloat16", "params": sum(
+               t.numel() for t in leaves), "param_bytes": nbytes, **mean,
+           "step_ms": step,
+           "expert_products_share_of_forward":
+               mean["expert_products_ms"] / mean["forward_ms"],
+           "expert_products_backward_share_of_backward":
+               mean["expert_products_backward_ms"] / mean["backward_ms"],
+           "expert_products_tflops": flops / expert_ms / 1e9,
+           "runs": runs, "peak_device_bytes": peak,
+           "peak_over_params_and_grads_bytes": peak - base - nbytes}
+    log(f"phase 18(c): one jamba-1.5-large MoE layer forward and backward: "
+        f"{json.dumps(out)}")
+    del params, leaves, weights, x, xs, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def topk_flips(cpu_params, card_params, tokens, cfg):
+    """Where the card's router picks other experts than the CPU's: each MoE
+    call's picks recorded in both forwards; the first call, token and slot
+    that differ, with the two probabilities at stake."""
+    from repro_torch.models import model, moe
+    route = moe._route
+
+    def picks(params, dev):
+        calls = []
+
+        def recorded(p, xf, c):
+            out = route(p, xf, c)
+            calls.append((out[0].float().cpu(), out[2].cpu()))
+            return out
+
+        moe._route = recorded
+        try:
+            model.forward(params, {"tokens": tokens.to(dev)}, cfg)
+        finally:
+            moe._route = route
+        return calls
+
+    card = picks(card_params, card_params["embed"]["table"].device)
+    for layer, ((pc, ec), (pg, eg)) in enumerate(
+            zip(picks(cpu_params, "cpu"), card)):
+        diff = (ec != eg).nonzero()
+        if len(diff):
+            tok, slot = (int(v) for v in diff[0])
+            a, b = int(ec[tok, slot]), int(eg[tok, slot])
+            return {"moe_call": layer, "token": tok, "slot": slot,
+                    "cpu_expert": a, "card_expert": b,
+                    "cpu_probs": [float(pc[tok, a]), float(pc[tok, b])],
+                    "card_probs": [float(pg[tok, a]), float(pg[tok, b])]}
+    return None
+
+
+def zoo_card_vs_cpu(dev):
+    """18(e): reduced DeepSeek-MoE, Jamba with its experts and RWKV-6 (f32)
+    on the card and on the CPU: from one set of parameters the logits
+    within 1e-4 and 8 greedy tokens identical (as phase 6); then three
+    train rounds (a topology round first) from one state: identical edges,
+    parameters within 1e-4 (as 17(c)).  A router's pick that differs
+    between the two is named.  Returns the card runs' launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten, tree_map
+    totals = dict.fromkeys(launch_counts(), 0)
+    out = {}
+    for arch in ZOO_REDUCED:
+        cfg = get_config(arch).reduced()
+        cpu_p = model.init_params(cfg, 0, device="cpu")
+        card_p = tree_map(lambda t: t.to(dev), cpu_p)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                               generator=torch.Generator().manual_seed(8))
+        kernels.reset_launches()
+        got, aux = model.forward(card_p, {"tokens": tokens.to(dev)}, cfg)
+        toks_card = model.greedy_generate(card_p, cfg,
+                                          tokens[:, :8].to(dev), 8)
+        torch.cuda.synchronize()
+        _add(totals, launch_counts())
+        want, want_aux = model.forward(cpu_p, {"tokens": tokens}, cfg)
+        toks_cpu = model.greedy_generate(cpu_p, cfg, tokens[:, :8], 8)
+        err = max(float((got.cpu() - want).abs().max()),
+                  float((aux.cpu() - want_aux).abs().max()))
+        if not err <= ZOO_CARD_TOL or not torch.equal(toks_card.cpu(),
+                                                      toks_cpu):
+            flip = topk_flips(cpu_p, card_p, tokens, cfg) \
+                if cfg.moe is not None else None
+            raise AssertionError(f"18(e) {arch}: card vs CPU logits {err}, "
+                                 f"greedy tokens card {toks_card.tolist()} "
+                                 f"CPU {toks_cpu.tolist()}; router pick "
+                                 f"that differs: {flip}")
+        n = 4
+        cpu = init_train_state(cfg, sgd(0.05), n, seed=5, device="cpu")
+        card = train_state_to(cpu, dev)
+        steps = {topo: make_train_step(cfg, sgd(0.05),
+                                       MorphHParams(k=2, view_size=3),
+                                       do_topology=topo)
+                 for topo in (True, False)}
+        rng = np.random.default_rng(5)
+        gaps = []
+        for rnd in range(3):
+            toks = rng.integers(0, cfg.vocab_size, (n, 2, 33)).astype(
+                np.int32)
+            batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+            cpu, _ = steps[rnd == 0](cpu, batch)
+            kernels.reset_launches()
+            card, _ = steps[rnd == 0](card, batch)
+            torch.cuda.synchronize()
+            _add(totals, launch_counts())
+            if not torch.equal(card.morph.edges.cpu(), cpu.morph.edges):
+                raise AssertionError(f"18(e) {arch} round {rnd}: edges "
+                                     "differ")
+            want_p = flatten(cpu.params)
+            gap = max(float((v.cpu() - want_p[k]).abs().max())
+                      for k, v in flatten(card.params).items())
+            if not gap <= ZOO_CARD_TOL:
+                raise AssertionError(f"18(e) {arch} round {rnd}: params "
+                                     f"{gap} > {ZOO_CARD_TOL}")
+            gaps.append(gap)
+        out[arch] = {"logits_err": err, "param_gaps": gaps}
+    if not (totals["gram_matrix"] and totals["graph_mix_masked"]
+            and totals["selective_scan"] and totals["selective_scan_bwd"]):
+        raise AssertionError(f"18(e): card launches {totals}")
+    log(f"phase 18(e): reduced deepseek-moe-16b, jamba with experts, "
+        f"rwkv6-7b (f32) card == CPU: logits within {ZOO_CARD_TOL}, 8 "
+        f"greedy tokens identical, 3 train rounds with identical edges: "
+        f"{json.dumps(out)}; card launches {json.dumps(totals)}")
+    return totals
+
+
+def zoo_train(dev):
+    """18(f): decentralized LM training of DeepSeek-MoE-16B at its
+    published widths with ZOO_TRAIN_LAYERS of its 28 layers, bf16, as
+    17(b) trains Llama (:func:`train_rounds`).  Returns the launches."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=ZOO_TRAIN_LAYERS)
+    got, rec, state = train_rounds(dev, cfg, "18(f)")
+    log(f"phase 18(f): deepseek-moe-16b full width, {ZOO_TRAIN_LAYERS} "
+        f"layers, n = {TRAIN_N}, {TRAIN_ROUNDS} rounds: {json.dumps(rec)}")
+    del state
+    torch.cuda.empty_cache()
+    return got
+
+
+def zoo_path(dev):
+    """Phase 18: (a) to (g); returns the launches of (e) and (f)."""
+    t0 = time.perf_counter()
+    rec = serve_whole(dev, "deepseek-moe-16b", "18(a)", moe_stages)
+    log(f"phase 18(a): deepseek-moe-16b served whole: {json.dumps(rec)}")
+    t1 = time.perf_counter()
+    zoo_prefill_vs_decode(dev)
+    t2 = time.perf_counter()
+    jamba_moe_layer(dev)
+    t3 = time.perf_counter()
+    rec = serve_whole(dev, "rwkv6-7b", "18(d)", rwkv_stages)
+    log(f"phase 18(d): rwkv6-7b served whole: {json.dumps(rec)}")
+    t4 = time.perf_counter()
+    totals = zoo_card_vs_cpu(dev)
+    t5 = time.perf_counter()
+    _add(totals, zoo_train(dev))
+    t6 = time.perf_counter()
+    runs = {arch: launcher_run(arch, "18(g)") for arch in
+            ("deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large-398b")}
+    log(f"phase 18(g): launcher exit 0 for deepseek-moe-16b, rwkv6-7b and "
+        f"jamba-1.5-large-398b with its experts: {json.dumps(runs)}")
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
+        f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, "
+        f"(e) {t5 - t4:.1f}, (f) {t6 - t5:.1f}, "
+        f"(g) {time.perf_counter() - t6:.1f})")
+    return totals
 
 
 def main():
@@ -4920,6 +5475,7 @@ def main():
     sharded_counts = sharded_path(dev)
     worst["selective_scan_bwd"], times["selective_scan_bwd"], \
         train_counts = train_path(dev)
+    zoo_counts = zoo_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
             k: v[name] for k, v in sweep_mixes.items()}
@@ -4964,6 +5520,7 @@ def main():
             "launches_fig9": fig9_counts[name],
             "launches_sharded": sharded_counts[name],
             "launches_train": train_counts[name],
+            "launches_zoo": zoo_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

@@ -1,7 +1,7 @@
 """Model configurations the port runs: the paper's GN-LeNet CNNs, and the
 model zoo's architecture configs (copies of ``repro.configs``; only the
-architectures the port runs are registered: Jamba and the four dense
-decoders).
+architectures the port runs are registered: Jamba, the four dense
+decoders, DeepSeek-MoE and RWKV-6).
 
 ``get_config("<id>")`` returns the exact published configuration;
 ``get_config("<id>").reduced()`` is the CPU smoke-test variant.
@@ -18,8 +18,9 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import (jamba_1_5_large, llama3_2_3b,   # noqa: F401
-                   nemotron_4_340b, phi4_mini, qwen1_5_110b)
+    from . import (deepseek_moe_16b, jamba_1_5_large,   # noqa: F401
+                   llama3_2_3b, nemotron_4_340b, phi4_mini, qwen1_5_110b,
+                   rwkv6_7b)
     _LOADED = True
 
 

@@ -8,7 +8,10 @@ period-stacked body leaves stay one leaf each), and bootstraps Morph on a
 bidirectional ring; :func:`make_train_step` builds one round: every
 node's local step, a Morph negotiation on topology rounds (Eq. 3 through
 the Gram kernel, one grouped launch per 32 leaves of a dtype) and the
-uniform mix over the edges through the masked-mix kernel.  Serving:
+uniform mix over the edges through the masked-mix kernel.  Every
+architecture of the port's zoo trains so: MoE expert banks, RWKV-6's
+mixers (whose ``w0`` and ``u`` stay f32 in a bf16 model, so Eq. 3 takes
+one Gram launch per dtype) and the MoE aux term in the loss.  Serving:
 :func:`make_serve_step` decodes one token on every node.
 
 Memory.  A round never holds a second population or every node's

@@ -10,6 +10,10 @@ edges (the masked-mix kernel).  Runs on the card unless ``--device cpu``:
   python -m repro_torch.launch.train --arch llama3.2-3b --reduced \\
       --nodes 8 --rounds 200 --batch 8 --seq 128
 
+``--arch`` takes every architecture the port registers: the dense
+decoders, ``deepseek-moe-16b``, ``rwkv6-7b`` and ``jamba-1.5-large-398b``
+with its experts.
+
 The token streams build a ``[vocab, vocab]`` transition matrix, as the
 reference's do, so an unreduced vocabulary needs more host memory than a
 machine has (ROADMAP queue 3).  ``--mesh single|multi`` (the production

@@ -34,8 +34,9 @@ decode_step = transformer.decode_step
 
 def loss_fn(params, batch, cfg, *, window="cfg"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (+ the MoE aux term, 0 for the ported
-    architectures) over the positions whose label is not
+    """Next-token cross entropy (+ the MoE aux term ``forward`` sums over
+    the MoE layers, 0 for a model without experts) over the positions
+    whose label is not
     ``IGNORE_INDEX``; metrics ``loss``, ``ce``, ``aux`` and ``accuracy``.
 
     The reference takes the label logit as a masked sum over the vocabulary

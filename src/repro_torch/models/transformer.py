@@ -15,12 +15,13 @@ so weights carried over from the reference are a copy.  The reference's
 (with ``cfg.remat``, a non-reentrant ``torch.utils.checkpoint`` around
 each period under autograd, as the reference's ``jax.checkpoint``).
 Caches mirror the layout, and decode updates them in place.  Ported:
-attention and Mamba mixers with dense MLPs (Jamba without experts, the
-dense decoders).  Not yet ported (ROADMAP queue 1 item 5, "Model zoo,
-the rest"), and refused
-with ``NotImplementedError`` rather than skipped: the RWKV mixer, MoE
-MLPs, Whisper's encoder, cross-attention and learned positions, and the
-stub modality frontends.
+attention, Mamba and RWKV-6 mixers, dense and MoE MLPs (the RWKV mixer
+with its channel-mix MLP): the dense decoders, DeepSeek-MoE, Jamba with
+its experts and RWKV-6.  ``forward``'s second output sums the MoE
+layers' aux terms.  Not yet ported (ROADMAP queue 1 item 5, "Model zoo,
+the rest"), and refused with ``NotImplementedError`` rather than skipped:
+Whisper's encoder, cross-attention and learned positions, and the stub
+modality frontends.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..tree import flatten, stack, tree_map, unflatten
-from . import attention, layers, mamba
+from ..tree import flatten, tree_map
+from . import attention, layers, mamba, moe, rwkv
 
 _WAITS = 'not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest")'
 
@@ -48,12 +49,6 @@ def _check_supported(cfg):
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} stub "
                                   f"frontend is {_WAITS}")
-    for spec in cfg.prefix + cfg.pattern:
-        if spec.mixer == "rwkv":
-            raise NotImplementedError(f"{cfg.name}: the RWKV mixer is "
-                                      f"{_WAITS}")
-        if spec.moe:
-            raise NotImplementedError(f"{cfg.name}: MoE MLPs are {_WAITS}")
 
 
 def _index(tree, i: int):
@@ -61,12 +56,23 @@ def _index(tree, i: int):
     return tree_map(lambda leaf: leaf[i], tree)
 
 
-def _stack(trees):
-    """Stack equal-structured trees on a new leading period axis (a view
-    when there is one period, so nothing is copied)."""
-    if len(trees) == 1:
-        return tree_map(lambda leaf: leaf.unsqueeze(0), trees[0])
-    return unflatten(stack([flatten(t) for t in trees]))
+def _stacked(make, periods: int):
+    """``make()``'s tree for each of ``periods`` periods, stacked on a new
+    leading period axis as each is made, so no more than the stack and one
+    period's tree are alive at once (a view of the one tree when there is
+    one period)."""
+    first = make()
+    if periods == 1:
+        return tree_map(lambda leaf: leaf.unsqueeze(0), first)
+    out = tree_map(lambda leaf: leaf.new_empty((periods,) + leaf.shape),
+                   first)
+    dst = flatten(out)
+    for i in range(periods):
+        tree, first = (first if i == 0 else make()), None
+        for path, leaf in flatten(tree).items():
+            dst[path][i].copy_(leaf)
+        del tree
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +89,17 @@ def block_params(gen, cfg, spec, dtype):
         p["mixer"] = attention.attn_params(gen, cfg, dtype)
     elif spec.mixer == "mamba":
         p["mixer"] = mamba.mamba_params(gen, cfg, dtype)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv.rwkv_params(gen, cfg, dtype)
     else:
         raise ValueError(spec.mixer)
-    p["mlp"] = layers.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                 dtype)
+    if spec.mixer == "rwkv":
+        p["mlp"] = rwkv.channel_mix_params(gen, cfg, dtype)
+    elif spec.moe:
+        p["mlp"] = moe.moe_params(gen, cfg, dtype)
+    else:
+        p["mlp"] = layers.mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                     cfg.mlp_type, dtype)
     return p
 
 
@@ -98,11 +111,19 @@ def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None):
         mixed = attention.self_attention(p["mixer"], h, cfg,
                                          positions=positions,
                                          causal=causal, window=window)
-    else:
+    elif spec.mixer == "mamba":
         mixed = mamba.apply_mamba(p["mixer"], h, cfg)
+    else:
+        mixed, _ = rwkv.apply_rwkv_time_mix(p["mixer"], h, cfg)
     x = x + mixed
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_type), aux
+    if spec.mixer == "rwkv":
+        out, _ = rwkv.apply_channel_mix(p["mlp"], h2)
+    elif spec.moe:
+        out, aux = moe.apply_moe(p["mlp"], h2, cfg)
+    else:
+        out = layers.apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +134,9 @@ def init_block_cache(cfg, spec, batch: int, max_len: int, dtype, device):
     if spec.mixer == "attn":
         return {"attn": attention.init_cache(cfg, batch, max_len, dtype,
                                              device)}
-    return {"ssm": mamba.init_mamba_state(cfg, batch, dtype, device)}
+    if spec.mixer == "mamba":
+        return {"ssm": mamba.init_mamba_state(cfg, batch, dtype, device)}
+    return {"wkv": rwkv.init_rwkv_state(cfg, batch, dtype, device)}
 
 
 def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
@@ -123,11 +146,22 @@ def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
     if spec.mixer == "attn":
         mixed, _ = attention.decode_self_attention(
             p["mixer"], h, cfg, cache["attn"], pos, window=window)
-    else:
+    elif spec.mixer == "mamba":
         mixed, _ = mamba.decode_mamba(p["mixer"], h, cfg, cache["ssm"])
+    else:
+        mixed, _ = rwkv.decode_rwkv_time_mix(p["mixer"], h, cfg,
+                                             cache["wkv"])
     x = x + mixed
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg.mlp_type), cache
+    if spec.mixer == "rwkv":
+        out, last = rwkv.decode_channel_mix(p["mlp"], h2,
+                                            cache["wkv"]["last_cm"])
+        cache["wkv"]["last_cm"].copy_(last)
+    elif spec.moe:
+        out, _ = moe.apply_moe(p["mlp"], h2, cfg)
+    else:
+        out = layers.apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return x + out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +190,8 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         p["prefix"] = tuple(block_params(gen, cfg, s, dtype)
                             for s in cfg.prefix)
     p["body"] = tuple(
-        _stack([block_params(gen, cfg, spec, dtype)
-                for _ in range(cfg.num_periods)])
+        _stacked(lambda spec=spec: block_params(gen, cfg, spec, dtype),
+                 cfg.num_periods)
         for spec in cfg.pattern)
     return p
 
@@ -269,8 +303,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
     prefix = tuple(init_block_cache(cfg, s, batch, max_len, dtype, dev)
                    for s in cfg.prefix)
     body = tuple(
-        _stack([init_block_cache(cfg, spec, batch, max_len, dtype, dev)
-                for _ in range(cfg.num_periods)])
+        _stacked(lambda spec=spec: init_block_cache(cfg, spec, batch,
+                                                    max_len, dtype, dev),
+                 cfg.num_periods)
         for spec in cfg.pattern)
     return {"prefix": prefix, "body": body}
 

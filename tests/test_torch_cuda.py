@@ -1317,6 +1317,62 @@ def test_cuda_train_round_is_the_cpu_round(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b",
+                                  "jamba-1.5-large-398b"])
+def test_cuda_moe_and_rwkv_are_the_cpu(cuda_device, arch):
+    """Reduced DeepSeek-MoE, RWKV-6 and Jamba with its experts (f32) from
+    one set of parameters on the card and on the CPU: logits and the MoE
+    aux term within 1e-4, 8 greedy tokens identical; then one train round
+    with a topology negotiation from one state: identical edges,
+    parameters within 1e-4, one Gram launch per 32 leaves and one
+    masked-mix launch per 64, and Jamba's scans."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten, tree_map
+    cfg = get_config(arch).reduced()
+    cpu_p = model.init_params(cfg, 4, device="cpu")
+    card_p = tree_map(lambda t: t.to(cuda_device), cpu_p)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(4))
+    want, want_aux = model.forward(cpu_p, {"tokens": tokens}, cfg)
+    got, aux = model.forward(card_p, {"tokens": tokens.to(cuda_device)}, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-4, rtol=0)
+    assert torch.equal(
+        model.greedy_generate(card_p, cfg, tokens[:, :8].to(cuda_device),
+                              8).cpu(),
+        model.greedy_generate(cpu_p, cfg, tokens[:, :8], 8))
+    n = 4
+    cpu = init_train_state(cfg, sgd(0.05), n, seed=3, device="cpu")
+    card = train_state_to(cpu, cuda_device)
+    step = make_train_step(cfg, sgd(0.05), MorphHParams(k=2, view_size=3))
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (n, 2, 33)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    cpu, _ = step(cpu, batch)
+    kernels.reset_launches()
+    card, _ = step(card, batch)
+    torch.cuda.synchronize()
+    mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.num_periods
+    got = {k.__name__: k.launches for k in kernels.KERNELS}
+    leaves = len(flatten(cpu.params))
+    want = dict(dict.fromkeys(got, 0), gram_matrix=-(-leaves // 32),
+                graph_mix_masked=-(-leaves // 64),
+                selective_scan=n * mamba, selective_scan_bwd=n * mamba)
+    assert got == want
+    assert torch.equal(card.morph.edges.cpu(), cpu.morph.edges)
+    want_p = flatten(cpu.params)
+    for k, v in flatten(card.params).items():
+        torch.testing.assert_close(v.cpu(), want_p[k], atol=1e-4, rtol=0,
+                                   msg=k)
+
+
+@pytest.mark.cuda
 def test_cuda_eq3_over_leaves_of_two_dtypes(cuda_device):
     """A bf16 model's f32 leaves (Mamba's ``A_log`` and ``D``): Eq. 3 takes
     one grouped Gram launch per dtype and gives the CPU's leaf-by-leaf

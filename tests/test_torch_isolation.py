@@ -66,7 +66,9 @@ ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "static", "el-oracle", "el-local", "fully-connected",
                 "stream", "sparse-morph", "sparse-epidemic",
                 "zoo-init-params", "zoo-init-cache", "async-runner",
-                "train-state", "train-launcher")
+                "train-state", "train-launcher", "moe-init-params",
+                "moe-init-cache", "rwkv-init-params", "rwkv-init-cache",
+                "moe-train-launcher")
 
 
 def _jamba_reduced():
@@ -108,6 +110,17 @@ def _make_entry_point(name):
             get_config("llama3.2-3b").reduced(), sgd(0.1), 2),
         "train-launcher": lambda: train_launcher.main(
             ["--reduced", "--nodes", "2", "--rounds", "1"]),
+        "moe-init-params": lambda: zoo_model.init_params(
+            get_config("deepseek-moe-16b").reduced(), 0),
+        "moe-init-cache": lambda: zoo_model.init_cache(
+            get_config("deepseek-moe-16b").reduced(), 1, 4),
+        "rwkv-init-params": lambda: zoo_model.init_params(
+            get_config("rwkv6-7b").reduced(), 0),
+        "rwkv-init-cache": lambda: zoo_model.init_cache(
+            get_config("rwkv6-7b").reduced(), 1, 4),
+        "moe-train-launcher": lambda: train_launcher.main(
+            ["--arch", "jamba-1.5-large-398b", "--reduced", "--nodes", "2",
+             "--rounds", "1"]),
         "async-runner": lambda: AsyncRunner(
             init_fn=lambda g: cnn_params(g, image_size=8, width=4),
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),

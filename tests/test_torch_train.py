@@ -38,7 +38,6 @@ import jax.numpy as jnp                                      # noqa: E402
 import repro.configs as jconfigs                             # noqa: E402
 from repro.data import make_token_stream as jstream          # noqa: E402
 from repro.data.pipeline import TokenBatcher as JBatcher     # noqa: E402
-from repro.core import init_state                           # noqa: E402
 from repro.dlrt import distributed as jdist                  # noqa: E402
 from repro.models import model as jmodel                     # noqa: E402
 from repro.optim import sgd as jsgd                          # noqa: E402
@@ -49,20 +48,21 @@ from repro_torch.launch import train as tlaunch              # noqa: E402
 from repro_torch.models import model as tmodel               # noqa: E402
 from repro_torch.optim import sgd                            # noqa: E402
 from repro_torch.tree import (flatten, params_from_jax,      # noqa: E402
-                              params_to_numpy, train_state_from_jax,
-                              unflatten)
+                              train_state_from_jax, unflatten)
 from _jax_draws import morph_key_draws                       # noqa: E402
+from _zoo_parity import (HP, LOSS_TOL, LR, MODEL_TOL,        # noqa: E402
+                         PARAM_ATOL, lm_batch)
+from _zoo_parity import as_np as _np                         # noqa: E402
+from _zoo_parity import compiled as _compiled                # noqa: E402
+from _zoo_parity import port_params as _params               # noqa: E402
+from _zoo_parity import reference_state as _reference_state  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
-PARAM_ATOL = 1e-4
-MODEL_TOL = dict(atol=1e-4, rtol=1e-3)
 JAMBA = "jamba-1.5-large-398b"
 DENSE = ("llama3.2-3b", "phi4-mini-3.8b", "qwen1.5-110b", "nemotron-4-340b")
-LR = 0.05
-HP = dict(k=2, view_size=3)
-FAST_XLA = {"xla_backend_optimization_level": 0,
-            "xla_llvm_disable_expensive_passes": True}
+# With their experts and RWKV mixers (tests/test_torch_moe.py and
+# tests/test_torch_rwkv.py take them further).
+ZOO = ("deepseek-moe-16b", "rwkv6-7b")
 
 
 def without_experts(cfg):
@@ -81,20 +81,6 @@ def config_pair(arch):
             for c in (jconfigs, tconfigs))
     return jconfigs.get_config(arch).reduced(), \
         tconfigs.get_config(arch).reduced()
-
-
-def lm_batch(rng, n, b, s, vocab):
-    """Node-stacked ``[n, b, s]`` tokens and next-token labels, some
-    masked with -100."""
-    toks = rng.integers(0, vocab, (n, b, s + 1)).astype(np.int32)
-    labels = toks[..., 1:].copy()
-    labels[..., :2] = -100
-    return {"tokens": toks[..., :-1], "labels": labels}
-
-
-def _np(x):
-    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
 
 
 # ---------------------------------------------------------------------------
@@ -136,27 +122,6 @@ def jamba_grads():
                 batch=batch, metrics=metrics, grads=grads)
 
 
-def _compiled(fn, *args):
-    """``jax.jit(fn)`` compiled for ``args`` without XLA's backend
-    optimizations, which take most of a small model's compile time here
-    and do not change what is computed."""
-    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_XLA)
-
-
-def _params(tcfg, seed, n=None):
-    """Parameters for both packages as the reference's tree of arrays:
-    drawn by the port (``n`` of them node-stacked), which is quicker on
-    the CPU than the reference's initialisers op by op or compiled."""
-    draw = lambda i: flatten(tmodel.init_params(tcfg, seed + i,
-                                                device="cpu"))
-    if n is None:
-        flat = draw(0)
-    else:
-        nodes = [draw(i) for i in range(n)]
-        flat = {k: torch.stack([t[k] for t in nodes]) for k in nodes[0]}
-    return jax.tree_util.tree_map(jnp.asarray, params_to_numpy(flat))
-
-
 def _metrics_close(got, want):
     assert sorted(got) == ["accuracy", "aux", "ce", "loss"]
     for k in got:
@@ -165,7 +130,7 @@ def _metrics_close(got, want):
                                    err_msg=k, **LOSS_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ZOO)
 def test_loss_fn_metrics_match_reference(arch):
     jcfg, tcfg = config_pair(arch)
     jparams = _params(tcfg, 2)
@@ -227,19 +192,6 @@ def llama_steps():
                 microbatch=microbatch, do_topology=topology))
         return cache[key]
     return jcfg, tcfg, jstate, step
-
-
-def _reference_state(params, n):
-    """The reference's ``init_train_state`` for ``n`` nodes with these
-    node-stacked parameters: ``sgd``'s per-node counts, and Morph
-    bootstrapped on the bidirectional ring with the key
-    ``init_train_state(PRNGKey(0), ...)`` gives it."""
-    ring = jnp.zeros((1, 1), bool) if n == 1 else \
-        jnp.roll(jnp.eye(n, dtype=bool), 1, 1) \
-        | jnp.roll(jnp.eye(n, dtype=bool), -1, 1)
-    _, key = jax.random.split(jax.random.PRNGKey(0))
-    return jdist.TrainState(params, {"count": jnp.zeros((n,), jnp.int32)},
-                            init_state(key, ring))
 
 
 def _first_nodes(jstate, n):
@@ -377,6 +329,21 @@ def test_launcher_at_smoke_size_without_jax():
 def test_launcher_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         tlaunch.main(["--reduced", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("arch", ZOO + (JAMBA,))
+def test_launcher_trains_moe_and_rwkv(arch, capsys):
+    """The launcher trains reduced DeepSeek-MoE, RWKV-6 and Jamba with its
+    experts (none of them refused)."""
+    assert tlaunch.main(["--arch", arch, "--reduced", "--nodes", "3",
+                         "--rounds", "2", "--batch", "2", "--seq", "16",
+                         "--stream-len", "2000", "--log-every", "1",
+                         "--device", "cpu"]) == 0
+    rounds = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("round")]
+    assert len(rounds) == 2
+    assert all(np.isfinite(float(ln.split("loss")[1].split()[0]))
+               for ln in rounds)
 
 
 # ---------------------------------------------------------------------------

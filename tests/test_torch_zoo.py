@@ -3,7 +3,9 @@
 experts (one period of 7 Mamba layers and one attention layer, d_model 256,
 f32) with 2 KV heads for its 4 query heads, so that grouped-query attention
 repeats heads as the published 64 / 8 do; also on two periods of it, and
-on reduced Llama-3.2-3B for RoPE and tied embeddings.
+on reduced Llama-3.2-3B for RoPE and tied embeddings.  DeepSeek-MoE-16B's
+and RWKV-6's configurations and parameter counts are pinned here too
+(their modules: ``tests/test_torch_moe.py``, ``tests/test_torch_rwkv.py``).
 
 The port takes the reference's parameters by copy
 (``params_from_jax``), and both packages see the same numpy-made inputs.
@@ -120,17 +122,61 @@ def _acts(shape, seed, scale=1.0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("variant", ["published", "without-experts",
-                                     "reduced"])
+                                     "reduced", "deepseek-moe-16b",
+                                     "deepseek-moe-16b-reduced", "rwkv6-7b",
+                                     "rwkv6-7b-reduced"])
 def test_config_matches_reference(variant):
-    j, t = jconfigs.get_config(ARCH), tconfigs.get_config(ARCH)
-    if variant != "published":
+    arch = variant.removesuffix("-reduced") if variant.startswith(
+        ("deepseek", "rwkv")) else ARCH
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    if variant in ("without-experts", "reduced"):
         j, t = without_experts(j), without_experts(t)
-    if variant == "reduced":
+    if variant.endswith("reduced"):
         j, t = j.reduced(), t.reduced()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.num_periods == j.num_periods
     assert t.param_count() == j.param_count()
-    assert ARCH in tconfigs.list_configs()
+    assert arch in tconfigs.list_configs()
+
+
+# The parameters a model has beyond ArchConfig.param_count(), which is
+# analytic: DeepSeek-MoE's final norm; RWKV-6's final LayerNorm (2 d), and
+# in each block the 325 d it leaves out (the ddlerp mus and LoRA, the decay
+# LoRA, u, the group norm and the two LayerNorms' biases) with its channel
+# mix taken at 3.5 d wide where the model has d_ff.
+BEYOND_ANALYTIC = {
+    "deepseek-moe-16b": lambda c: c.d_model,
+    "rwkv6-7b": lambda c: 2 * c.d_model + c.num_layers * (
+        325 * c.d_model + 2 * c.d_model * (c.d_ff - int(3.5 * c.d_model)))}
+# ArchConfig.param_count() of the published configurations.
+PUBLISHED_COUNT = {"deepseek-moe-16b": 16_879_566_848,
+                   "rwkv6-7b": 7_534_411_776}
+
+
+@pytest.mark.parametrize("arch", sorted(PUBLISHED_COUNT))
+@pytest.mark.parametrize("variant", ["published", "reduced"])
+def test_moe_and_rwkv_param_count_pinned(arch, variant):
+    """The reference's parameter tree holds ``param_count()`` plus what it
+    leaves out (the published one counted from its abstract shapes); at
+    the reduced config the port draws a tree of the same leaves, shapes,
+    dtypes and count."""
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    if variant == "published":
+        assert t.param_count() == PUBLISHED_COUNT[arch]
+    else:
+        j, t = j.reduced(), t.reduced()
+    shapes = flatten(jax.eval_shape(
+        lambda: jmodel.init_params(jax.random.PRNGKey(0), j)))
+    count = sum(int(np.prod(v.shape)) for v in shapes.values())
+    assert count == t.param_count() + BEYOND_ANALYTIC[arch](t)
+    if variant == "reduced":
+        mine = flatten(tmodel.init_params(t, 0, device="cpu"))
+        assert list(mine) == list(shapes)
+        for k, v in shapes.items():
+            assert tuple(mine[k].shape) == v.shape, k
+            assert str(mine[k].dtype).removeprefix("torch.") == \
+                str(v.dtype), k
+        assert tmodel.param_count(mine) == count
 
 
 def test_params_tree_order_and_roundtrip(zoo):
@@ -416,13 +462,10 @@ def test_rope_and_tied_embeddings_match_reference():
     _forward_and_decode(jcfg, port_config(jcfg), seed=3, steps=4)
 
 
-@pytest.mark.parametrize("what", ["moe", "rwkv", "encoder", "frontend"])
+@pytest.mark.parametrize("what", ["encoder", "frontend"])
 def test_unported_features_raise(what):
     cfg = jamba_pair()[1]
-    cfg = {"moe": lambda: tconfigs.get_config(ARCH).reduced(),
-           "rwkv": lambda: dataclasses.replace(
-               cfg, pattern=(tconfigs.BlockSpec("rwkv"),) * 8),
-           "encoder": lambda: dataclasses.replace(
+    cfg = {"encoder": lambda: dataclasses.replace(
                cfg, encoder=tconfigs.EncoderConfig(2, 16), learned_pos=True),
            "frontend": lambda: dataclasses.replace(cfg, frontend="vision"),
            }[what]()
