@@ -262,8 +262,34 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    --rounds 20`` exits 0 for deepseek-moe-16b, rwkv6-7b and
    jamba-1.5-large-398b with its experts; ``launches_zoo`` in every kernel
    row counts (e) and (f)'s card runs;
+19. the zoo's encoder and stub frontends (Whisper's encoder,
+   cross-attention and learned positions; the audio and vision
+   projectors), bf16, drawn on the card, the frontend inputs shaped by
+   ``repro_torch.launch.shapes.input_specs``: (a) Whisper-tiny whole (4 +
+   4 layers, d_model 384): prefill of two requests of 448 tokens over
+   1,500 frames, four requests decoded as 9(b) and ``greedy_generate`` the
+   same tokens, the prefill's stages (encoder, decoder self-attention,
+   cross-attention, MLPs, head) and peak memory beside the parameters'
+   bytes; (b) Pixtral-12B whole (40 layers) as (a), prompts of 256 patch
+   embeddings and 1,792 tokens, the stages with the projector; (c)
+   Llama-4-Scout at published widths with 8 of its 48 layers (16 experts
+   top-1 and a shared expert; whole it does not fit the card) as (b), with
+   the share of (token, slot) pairs dropped at prefill and at decode;
+   (d) Pixtral and Llama-4-Scout at published widths, 2 layers, f32, text
+   only (MoE at a capacity factor of 100): prefill against decode within
+   9(c)'s f32 limits (Whisper's decode never reads the encoder: its cross
+   caches are zeros, as in the reference); (e) the three reduced configs
+   (f32) with their frontend inputs on the card and on the CPU as 18(e);
+   (f) Whisper-tiny whole at n = 16 (batches of 8 x 448 tokens and their
+   frames) and Pixtral-12B with 2 of its 40 layers at n = 8 (with its
+   patches) trained as 17(b); (g) the launcher at ``--reduced --nodes 8
+   --rounds 20`` exits 0 for pixtral-12b and llama4-scout-17b-a16e (text
+   only) and refuses whisper-tiny with a ``ValueError`` naming its
+   ``frames``; ``launches_frontends`` in every kernel row counts (e) and
+   (f)'s card runs;
 
-then one JSON line with every kernel's numbers, the card line, and the
+17(f), 18(g) and 19(g) run last, their seven launcher processes started
+together; then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
 cuDNN convolutions and matmuls in every phase, so the card computes in
 full f32 like the plain versions it is compared with, and bf16 products
@@ -1705,10 +1731,11 @@ def synced(fn, *args, **kw):
 
 
 def staged_forward(params, tokens, cfg, patched):
-    """One ``forward(last_only=True)`` with each function of ``patched``
-    (``(module, attribute, stage)`` triples) synchronised on the host
-    clock and its ms added to its stage; the wrappers are put back
-    afterwards.  Returns (ms by stage, the forward's total ms)."""
+    """One ``forward(last_only=True)`` over ``tokens`` (or a whole batch
+    dict) with each function of ``patched`` (``(module, attribute,
+    stage)`` triples) synchronised on the host clock and its ms added to
+    its stage; the wrappers are put back afterwards.  Returns (ms by
+    stage, the forward's total ms)."""
     from repro_torch.models import model
     stages = {stage: 0.0 for _, _, stage in patched}
     originals = [getattr(mod, name) for mod, name, _ in patched]
@@ -1723,8 +1750,8 @@ def staged_forward(params, tokens, cfg, patched):
     try:
         for (mod, name, stage), fn in zip(patched, originals):
             setattr(mod, name, timed(fn, stage))
-        _, total = synced(model.forward, params, {"tokens": tokens}, cfg,
-                          last_only=True)
+        batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+        _, total = synced(model.forward, params, batch, cfg, last_only=True)
     finally:
         for (mod, name, _), fn in zip(patched, originals):
             setattr(mod, name, fn)
@@ -4441,14 +4468,14 @@ def full_width_train_config():
                                num_layers=TRAIN_LAYERS)
 
 
-def train_batchers(n, seed0=1000):
+def train_batchers(n, seed0=1000, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     """Each node's batches as launch/train.py builds them, over a stream
     of TRAIN_IDS token ids (valid ids of the full vocabulary; a stream
     over all 128,256 would need a 131 GB transition matrix)."""
     from repro_torch.data import TokenBatcher, make_token_stream
     return [TokenBatcher(make_token_stream(
         TRAIN_STREAM, TRAIN_IDS, seed=seed0 + i,
-        concentration=0.05 + 0.1 * (i % 4)), TRAIN_BATCH, TRAIN_SEQ, seed=i)
+        concentration=0.05 + 0.1 * (i % 4)), batch, seq, seed=i)
         for i in range(n)]
 
 
@@ -4457,16 +4484,18 @@ def next_batch(batchers):
     return {k: np.stack([nb[k] for nb in nbs]) for k in ("tokens", "labels")}
 
 
-def train_rounds(dev, cfg, phase):
+def train_rounds(dev, cfg, phase, n=TRAIN_N, batch_size=TRAIN_BATCH,
+                 seq=TRAIN_SEQ, frontend=None):
     """TRAIN_ROUNDS rounds of the train step at ``cfg``'s widths as
-    launch/train.py runs them (TRAIN_N nodes, sgd 0.05, Morph k = 3, view 5,
-    beta 500, delta_r 5; TRAIN_BATCH sequences of TRAIN_SEQ tokens a node
-    from :func:`train_batchers`) with the stage breakdown, peak memory
-    against the reckoning, and launch counts: the loss finite and lower at
-    the last round than at the first, the Gram launches of Eq. 3 (one a
-    dtype and 32 leaves) on each topology round and one masked-mix launch
-    a group of leaves (and 64 leaves) every round, and nothing else.
-    Returns (launches, record, state)."""
+    launch/train.py runs them (``n`` nodes, sgd 0.05, Morph k = 3, view 5,
+    beta 500, delta_r 5; ``batch_size`` sequences of ``seq`` tokens a node
+    from :func:`train_batchers`, and ``frontend(gen)``'s stub-frontend
+    inputs, drawn on the card, if given) with the stage breakdown, peak
+    memory against the reckoning, and launch counts: the loss finite and
+    lower at the last round than at the first, the Gram launches of Eq. 3
+    (one a dtype and 32 leaves) on each topology round and one masked-mix
+    launch a group of leaves (and 64 leaves) every round, and nothing
+    else.  Returns (launches, record, state)."""
     from repro_torch import kernels
     from repro_torch.dlrt import (MorphHParams, init_train_state,
                                   make_train_step)
@@ -4476,7 +4505,6 @@ def train_rounds(dev, cfg, phase):
     from repro_torch.kernels.pairwise_cosine import MAX_LEAVES as GRAM_LEAVES
     from repro_torch.optim import sgd
     from repro_torch.tree import flatten
-    n = TRAIN_N
     opt = sgd(0.05)
     hp = MorphHParams(k=min(3, n - 1), view_size=min(5, n - 1), beta=500.0)
     torch.cuda.reset_peak_memory_stats()
@@ -4493,7 +4521,8 @@ def train_rounds(dev, cfg, phase):
     dtypes = [v.dtype for v in params.values()]
     grams = sum(-(-dtypes.count(t) // GRAM_LEAVES) for t in set(dtypes))
     mixes = sum(-(-len(g) // MIX_LEAVES) for g in groups)
-    batchers = train_batchers(n)
+    batchers = train_batchers(n, batch=batch_size, seq=seq)
+    gen = torch.Generator(device=dev).manual_seed(17)
     steps = {topo: make_train_step(cfg, opt, hp, do_topology=topo)
              for topo in (True, False)}
     torch.cuda.synchronize()
@@ -4503,6 +4532,8 @@ def train_rounds(dev, cfg, phase):
     losses, rounds_ms, timers = [], [], []
     for rnd in range(TRAIN_ROUNDS):
         batch = next_batch(batchers)
+        if frontend is not None:
+            batch.update(frontend(gen))
         timer = SweepStages()
         t1 = time.perf_counter()
         state, m = steps[rnd % DELTA_R == 0](state, batch, stage=timer)
@@ -4531,7 +4562,9 @@ def train_rounds(dev, cfg, phase):
         v["share"] = v["steady_mean_ms"] / total
     # Reckoning: the population, one node's gradients, its f32 logits
     # (and their softmax), and the mix's largest group of new leaves.
-    logits = TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4
+    positions = seq + (cfg.frontend_tokens if frontend is not None
+                       and cfg.encoder is None else 0)
+    logits = batch_size * positions * cfg.vocab_size * 4
     reckoned = population + population // n + 2 * logits + largest
     rec = {"config": {"name": cfg.name, "d_model": cfg.d_model,
                       "layers": cfg.num_layers,
@@ -4539,7 +4572,8 @@ def train_rounds(dev, cfg, phase):
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                       "tied": cfg.tie_embeddings, "dtype": cfg.param_dtype,
                       "remat": cfg.remat},
-           "nodes": n, "params_per_node": per_node,
+           "nodes": n, "batch": [batch_size, positions],
+           "params_per_node": per_node,
            "population_gb": population / 1e9, "init_s": init_s,
            "losses": losses, "round_ms": rounds_ms,
            "steady_round_ms": float(np.mean(rounds_ms[1:])),
@@ -4863,37 +4897,53 @@ def serve_step_bits(dev):
         "5 positions: each node's decode_step bit for bit")
 
 
-def launcher_run(arch, phase):
+def launchers(archs):
     """``python -m repro_torch.launch.train --arch <arch> --reduced --nodes
-    8 --rounds 20`` on the card in a child process: exit 0 and its twenty
-    rounds.  Returns (wall seconds, its first and last lines)."""
+    8 --rounds 20`` on the card for each of ``archs``, the child processes
+    (one torch thread each) started together and each awaited (at most
+    300 s; any still running is killed).  Returns {arch: (returncode,
+    stdout, stderr, wall s)}."""
     import os
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    procs = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
          "--reduced", "--nodes", "8", "--rounds", "20"],
-        env=env, cwd=root, capture_output=True, text=True, timeout=300)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or "done: 20 rounds" not in proc.stdout:
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch in archs}
+    out = {}
+    try:
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            out[arch] = (proc.returncode, stdout, stderr,
+                         time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def launcher_lines(phase, arch, result):
+    """One :func:`launchers` result must exit 0 after its twenty rounds.
+    Returns (wall seconds, its first and last lines)."""
+    code, stdout, stderr, wall = result
+    if code != 0 or "done: 20 rounds" not in stdout:
         raise AssertionError(f"{phase}: the launcher on {arch} exited "
-                             f"{proc.returncode}: {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
+                             f"{code}: {stderr[-2000:]}")
+    lines = stdout.strip().splitlines()
     return wall, [lines[0], lines[-2], lines[-1]]
 
 
-def launcher_runs(dev):
-    """17(f): ``python -m repro_torch.launch.train --arch llama3.2-3b
-    --reduced --nodes 8 --rounds 20`` exits 0 on the card."""
-    wall, lines = launcher_run("llama3.2-3b", "17(f)")
-    log(f"phase 17(f): launcher exit 0 in {wall:.1f} s: {lines}")
 
 
 def train_path(dev):
-    """Phase 17: (a) to (f); returns the backward kernel's worst errors and
-    times (with 17(d)'s layer as ``jamba_layer``) and the launches of the
-    training runs on the card."""
+    """Phase 17: (a) to (e) ((f) runs in :func:`launcher_path`); returns
+    the backward kernel's worst errors and times (with 17(d)'s layer as
+    ``jamba_layer``) and the launches of the training runs on the card."""
     t0 = time.perf_counter()
     worst = check_scan_backward(dev)
     times = time_scan_backward(dev)
@@ -4905,10 +4955,9 @@ def train_path(dev):
     times["jamba_layer"] = jamba_layer_step(dev)
     t4 = time.perf_counter()
     serve_step_bits(dev)
-    launcher_runs(dev)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
-        f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) and "
-        f"(f) {time.perf_counter() - t4:.1f})")
+        f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, "
+        f"(e) {time.perf_counter() - t4:.1f})")
     return worst, times, totals
 
 
@@ -4956,8 +5005,12 @@ def drop_share(tally):
 
 
 def moe_stages(params, tokens, cfg):
-    """18(a): where a MoE prefill's time goes (host clock, synchronised)."""
+    """18(a), 19(c): where a MoE prefill's time goes (host clock,
+    synchronised); with a stub frontend, the embedding with the patch
+    projector."""
     from repro_torch.models import attention, layers, moe, transformer
+    frontend = [(transformer, "_embed_inputs", "embed_and_projector")] \
+        if cfg.frontend is not None else []
     stages, total = staged_forward(params, tokens, cfg, [
         (attention, "self_attention", "attention"),
         (moe, "_route", "router"), (moe, "_dispatch", "dispatch"),
@@ -4966,11 +5019,12 @@ def moe_stages(params, tokens, cfg):
         # every MLP of this model is a MoE layer's shared experts
         (layers, "apply_mlp", "shared_experts"),
         (layers, "apply_norm", "norms"),
-        (transformer, "_lm_logits", "lm_head")])
+        (transformer, "_lm_logits", "lm_head")] + frontend)
     out = {"total": total, "attention": stages["attention"],
            "router_and_dispatch": stages["router"] + stages["dispatch"],
            **{k: stages[k] for k in ("expert_products", "combine",
-                                     "shared_experts", "norms", "lm_head")}}
+                                     "shared_experts", "norms", "lm_head")
+              + tuple(s for _, _, s in frontend)}}
     out["other"] = total - sum(stages.values())
     return out
 
@@ -4995,9 +5049,12 @@ def rwkv_stages(params, tokens, cfg):
     return out
 
 
-def serve_whole(dev, arch, phase, breakdown):
-    """18(a) and (d): ``arch`` whole at its published widths in bf16,
-    drawn on the card: prefill of two 2,048-token prompts through
+def serve_whole(dev, arch, phase, breakdown, cfg=None, frontend=None,
+                prompt_len=PROMPT_LEN):
+    """18(a) and (d), 19(a) to (c): ``arch`` whole at its published widths
+    in bf16 (or ``cfg``, cut in depth), drawn on the card: prefill of two
+    ``prompt_len``-token prompts (with ``frontend(gen)``'s stub-frontend
+    inputs for both, drawn on the card, if given) through
     ``forward(last_only=True)`` (ZOO_PREFILLS timed after a warm-up), four
     requests served as 9(b) serves them (64-token prompts token by token
     through ``decode_step``, then 32 greedy tokens) and ``greedy_generate``
@@ -5007,7 +5064,7 @@ def serve_whole(dev, arch, phase, breakdown):
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import model, moe
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = synced(model.init_params, cfg, 0, device=dev)
     count, nbytes = model.param_count(params), model.param_bytes(params)
@@ -5020,15 +5077,16 @@ def serve_whole(dev, arch, phase, breakdown):
     none = dict.fromkeys(launch_counts(), 0)
 
     # Prefill.
-    prompts = torch.randint(0, cfg.vocab_size, (2, PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
                             generator=gen, device=dev)
-    model.forward(params, {"tokens": prompts}, cfg, last_only=True)  # warm
+    batch = {"tokens": prompts, **(frontend(gen) if frontend else {})}
+    model.forward(params, batch, cfg, last_only=True)  # warm
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     prefill_ms = []
     for _ in range(ZOO_PREFILLS):
-        (logits, _), ms = synced(model.forward, params, {"tokens": prompts},
-                                 cfg, last_only=True)
+        (logits, _), ms = synced(model.forward, params, batch, cfg,
+                                 last_only=True)
         prefill_ms.append(ms)
     if launch_counts() != none:
         raise AssertionError(f"{phase} prefill launches {launch_counts()}")
@@ -5038,11 +5096,12 @@ def serve_whole(dev, arch, phase, breakdown):
                              f"finite {bool(torch.isfinite(logits).all())}")
     rec["prefill"] = {"ms_each": prefill_ms,
                       "ms_per_prefill": sum(prefill_ms) / ZOO_PREFILLS,
-                      "tokens_per_s": 2 * PROMPT_LEN * ZOO_PREFILLS
+                      "tokens_per_s": 2 * prompt_len * ZOO_PREFILLS
                       / sum(prefill_ms) * 1e3,
+                      "inputs": {k: list(v.shape) for k, v in batch.items()},
                       "peak_device_bytes": torch.cuda.max_memory_allocated()}
     with moe_drops() as prefill_drops:
-        model.forward(params, {"tokens": prompts}, cfg, last_only=True)
+        model.forward(params, batch, cfg, last_only=True)
 
     # Decode.
     requests = torch.randint(0, cfg.vocab_size, (REQUESTS, REQUEST_LEN),
@@ -5083,10 +5142,12 @@ def serve_whole(dev, arch, phase, breakdown):
     if cfg.moe is not None:
         rec["dropped_share"] = {
             "prefill": drop_share(prefill_drops),
-            "prefill_capacity": moe.capacity(cfg, 2 * PROMPT_LEN),
+            "prefill_capacity": moe.capacity(cfg, prompts.shape[0] * (
+                prompt_len + (batch["patch_embeds"].shape[1]
+                              if "patch_embeds" in batch else 0))),
             "decode": drop_share(decode_drops),
             "decode_capacity": moe.capacity(cfg, REQUESTS)}
-    rec["stages"] = breakdown(params, prompts, cfg)
+    rec["stages"] = breakdown(params, batch, cfg)
     rec["peak_over_params_bytes"] = max(
         rec["prefill"]["peak_device_bytes"],
         rec["decode"]["peak_device_bytes"]) - nbytes
@@ -5095,16 +5156,18 @@ def serve_whole(dev, arch, phase, breakdown):
     return rec
 
 
-def zoo_prefill_vs_decode(dev):
-    """18(b): DeepSeek-MoE and RWKV-6 at published widths, ZOO_F32_LAYERS
-    layers, f32 (MoE at a capacity factor of 100, so that no pair is
-    dropped, as tests/test_arch_smoke.py runs it): the last logits of a
-    prefill over four requests of ZOO_F32_LEN tokens against decode's after
-    the same tokens, within 9(c)'s f32 limits."""
+def zoo_prefill_vs_decode(dev, archs=("deepseek-moe-16b", "rwkv6-7b"),
+                          phase="18(b)"):
+    """18(b) (DeepSeek-MoE and RWKV-6) and 19(d) (Pixtral and
+    Llama-4-Scout, text only): ``archs`` at published widths,
+    ZOO_F32_LAYERS layers, f32 (MoE at a capacity factor of 100, so that
+    no pair is dropped, as tests/test_arch_smoke.py runs it): the last
+    logits of a prefill over four requests of ZOO_F32_LEN tokens against
+    decode's after the same tokens, within 9(c)'s f32 limits."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
     out = {}
-    for arch in ("deepseek-moe-16b", "rwkv6-7b"):
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch),
                                   num_layers=ZOO_F32_LAYERS,
                                   param_dtype="float32",
@@ -5125,13 +5188,13 @@ def zoo_prefill_vs_decode(dev):
                                                requests[:, t:t + 1], t, cfg)
         out[arch] = dict(prefill_vs_decode(fwd, dec),
                          dropped=drops["dropped"])
-        log(f"phase 18(b): {arch} {ZOO_F32_LAYERS} layers f32, last logits "
-            f"over {REQUESTS} x {ZOO_F32_LEN} tokens, prefill vs decode: "
-            f"{json.dumps(out[arch])}")
+        log(f"phase {phase}: {arch} {ZOO_F32_LAYERS} layers f32, last "
+            f"logits over {REQUESTS} x {ZOO_F32_LEN} tokens, prefill vs "
+            f"decode: {json.dumps(out[arch])}")
         del params, cache
         torch.cuda.empty_cache()
         if drops["dropped"]:
-            raise AssertionError(f"18(b) {arch}: pairs dropped")
+            raise AssertionError(f"{phase} {arch}: pairs dropped")
         torch.testing.assert_close(dec, fwd, **PREFILL_DECODE_F32)
     return out
 
@@ -5250,10 +5313,11 @@ def jamba_moe_layer(dev):
     return out
 
 
-def topk_flips(cpu_params, card_params, tokens, cfg):
+def topk_flips(cpu_params, card_params, tokens, cfg, extra=None):
     """Where the card's router picks other experts than the CPU's: each MoE
-    call's picks recorded in both forwards; the first call, token and slot
-    that differ, with the two probabilities at stake."""
+    call's picks recorded in both forwards (over ``tokens`` and the CPU
+    tensors of ``extra``); the first call, token and slot that differ,
+    with the two probabilities at stake."""
     from repro_torch.models import model, moe
     route = moe._route
 
@@ -5267,7 +5331,8 @@ def topk_flips(cpu_params, card_params, tokens, cfg):
 
         moe._route = recorded
         try:
-            model.forward(params, {"tokens": tokens.to(dev)}, cfg)
+            model.forward(params, {k: v.to(dev) for k, v in dict(
+                extra or {}, tokens=tokens).items()}, cfg)
         finally:
             moe._route = route
         return calls
@@ -5286,43 +5351,54 @@ def topk_flips(cpu_params, card_params, tokens, cfg):
     return None
 
 
-def zoo_card_vs_cpu(dev):
+ZOO_CARD_KERNELS = ("gram_matrix", "graph_mix_masked", "selective_scan",
+                    "selective_scan_bwd")
+
+
+def zoo_card_vs_cpu(dev, archs=ZOO_REDUCED, phase="18(e)", frontend=False,
+                    need=ZOO_CARD_KERNELS):
     """18(e): reduced DeepSeek-MoE, Jamba with its experts and RWKV-6 (f32)
-    on the card and on the CPU: from one set of parameters the logits
-    within 1e-4 and 8 greedy tokens identical (as phase 6); then three
-    train rounds (a topology round first) from one state: identical edges,
-    parameters within 1e-4 (as 17(c)).  A router's pick that differs
-    between the two is named.  Returns the card runs' launches."""
+    (19(e): reduced Whisper, Pixtral and Llama-4-Scout with ``frontend``
+    inputs in every forward and train batch) on the card and on the CPU:
+    from one set of parameters the logits within 1e-4 and 8 greedy tokens
+    identical (as phase 6); then three train rounds (a topology round
+    first) from one state: identical edges, parameters within 1e-4 (as
+    17(c)).  A router's pick that differs between the two is named.  The
+    card runs launch each kernel of ``need``.  Returns their launches."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.dlrt import (MorphHParams, init_train_state,
                                   make_train_step, train_state_to)
+    from repro_torch.launch.shapes import frontend_inputs
     from repro_torch.models import model
     from repro_torch.optim import sgd
     from repro_torch.tree import flatten, tree_map
     totals = dict.fromkeys(launch_counts(), 0)
     out = {}
-    for arch in ZOO_REDUCED:
+    for arch in archs:
         cfg = get_config(arch).reduced()
         cpu_p = model.init_params(cfg, 0, device="cpu")
         card_p = tree_map(lambda t: t.to(dev), cpu_p)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 32),
-                               generator=torch.Generator().manual_seed(8))
+        host = torch.Generator().manual_seed(8)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=host)
+        extra = frontend_inputs(cfg, (2,), host) if frontend else {}
         kernels.reset_launches()
-        got, aux = model.forward(card_p, {"tokens": tokens.to(dev)}, cfg)
+        got, aux = model.forward(card_p, {k: v.to(dev) for k, v in dict(
+            extra, tokens=tokens).items()}, cfg)
         toks_card = model.greedy_generate(card_p, cfg,
                                           tokens[:, :8].to(dev), 8)
         torch.cuda.synchronize()
         _add(totals, launch_counts())
-        want, want_aux = model.forward(cpu_p, {"tokens": tokens}, cfg)
+        want, want_aux = model.forward(cpu_p, dict(extra, tokens=tokens),
+                                       cfg)
         toks_cpu = model.greedy_generate(cpu_p, cfg, tokens[:, :8], 8)
         err = max(float((got.cpu() - want).abs().max()),
                   float((aux.cpu() - want_aux).abs().max()))
         if not err <= ZOO_CARD_TOL or not torch.equal(toks_card.cpu(),
                                                       toks_cpu):
-            flip = topk_flips(cpu_p, card_p, tokens, cfg) \
+            flip = topk_flips(cpu_p, card_p, tokens, cfg, extra) \
                 if cfg.moe is not None else None
-            raise AssertionError(f"18(e) {arch}: card vs CPU logits {err}, "
+            raise AssertionError(f"{phase} {arch}: card vs CPU logits {err}, "
                                  f"greedy tokens card {toks_card.tolist()} "
                                  f"CPU {toks_cpu.tolist()}; router pick "
                                  f"that differs: {flip}")
@@ -5339,29 +5415,30 @@ def zoo_card_vs_cpu(dev):
             toks = rng.integers(0, cfg.vocab_size, (n, 2, 33)).astype(
                 np.int32)
             batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+            if frontend:
+                batch.update(frontend_inputs(cfg, (n, 2), host))
             cpu, _ = steps[rnd == 0](cpu, batch)
             kernels.reset_launches()
             card, _ = steps[rnd == 0](card, batch)
             torch.cuda.synchronize()
             _add(totals, launch_counts())
             if not torch.equal(card.morph.edges.cpu(), cpu.morph.edges):
-                raise AssertionError(f"18(e) {arch} round {rnd}: edges "
+                raise AssertionError(f"{phase} {arch} round {rnd}: edges "
                                      "differ")
             want_p = flatten(cpu.params)
             gap = max(float((v.cpu() - want_p[k]).abs().max())
                       for k, v in flatten(card.params).items())
             if not gap <= ZOO_CARD_TOL:
-                raise AssertionError(f"18(e) {arch} round {rnd}: params "
+                raise AssertionError(f"{phase} {arch} round {rnd}: params "
                                      f"{gap} > {ZOO_CARD_TOL}")
             gaps.append(gap)
         out[arch] = {"logits_err": err, "param_gaps": gaps}
-    if not (totals["gram_matrix"] and totals["graph_mix_masked"]
-            and totals["selective_scan"] and totals["selective_scan_bwd"]):
-        raise AssertionError(f"18(e): card launches {totals}")
-    log(f"phase 18(e): reduced deepseek-moe-16b, jamba with experts, "
-        f"rwkv6-7b (f32) card == CPU: logits within {ZOO_CARD_TOL}, 8 "
-        f"greedy tokens identical, 3 train rounds with identical edges: "
-        f"{json.dumps(out)}; card launches {json.dumps(totals)}")
+    if not all(totals[name] for name in need):
+        raise AssertionError(f"{phase}: card launches {totals}")
+    log(f"phase {phase}: reduced {', '.join(archs)} (f32) card == CPU: "
+        f"logits within {ZOO_CARD_TOL}, 8 greedy tokens identical, 3 train "
+        f"rounds with identical edges: {json.dumps(out)}; card launches "
+        f"{json.dumps(totals)}")
     return totals
 
 
@@ -5381,7 +5458,8 @@ def zoo_train(dev):
 
 
 def zoo_path(dev):
-    """Phase 18: (a) to (g); returns the launches of (e) and (f)."""
+    """Phase 18: (a) to (f) ((g) runs in :func:`launcher_path`); returns
+    the launches of (e) and (f)."""
     t0 = time.perf_counter()
     rec = serve_whole(dev, "deepseek-moe-16b", "18(a)", moe_stages)
     log(f"phase 18(a): deepseek-moe-16b served whole: {json.dumps(rec)}")
@@ -5396,15 +5474,165 @@ def zoo_path(dev):
     totals = zoo_card_vs_cpu(dev)
     t5 = time.perf_counter()
     _add(totals, zoo_train(dev))
-    t6 = time.perf_counter()
-    runs = {arch: launcher_run(arch, "18(g)") for arch in
-            ("deepseek-moe-16b", "rwkv6-7b", "jamba-1.5-large-398b")}
-    log(f"phase 18(g): launcher exit 0 for deepseek-moe-16b, rwkv6-7b and "
-        f"jamba-1.5-large-398b with its experts: {json.dumps(runs)}")
     log(f"phase 18: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
         f"(b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, "
-        f"(e) {t5 - t4:.1f}, (f) {t6 - t5:.1f}, "
-        f"(g) {time.perf_counter() - t6:.1f})")
+        f"(e) {t5 - t4:.1f}, (f) {time.perf_counter() - t5:.1f})")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the zoo's encoder and stub frontends.
+# ---------------------------------------------------------------------------
+
+WHISPER, PIXTRAL, SCOUT = ("whisper-tiny", "pixtral-12b",
+                           "llama4-scout-17b-a16e")
+FRONT_TEXT_LEN = 1792            # 19(b), (c): text after 256 patches
+SCOUT_SERVED_LAYERS = 8          # 19(c): 8 of llama4-scout's 48 layers
+FRONT_TRAIN_LAYERS = 2           # 19(f): 2 of pixtral-12b's 40 layers
+FRONT_TRAIN_N = 8                # 19(f): pixtral's population
+
+
+def whisper_stages(params, batch, cfg):
+    """19(a): where a Whisper prefill's time goes (host clock,
+    synchronised): the encoder alone, then the decoder's forward given the
+    encoder's memory, by stage."""
+    from repro_torch.models import attention, layers, transformer
+    frames = batch["frames"].to(getattr(torch, cfg.compute_dtype))
+    memory, enc_ms = synced(transformer._encode, params, frames, cfg)
+    encode = transformer._encode
+    transformer._encode = lambda p, f, c: memory
+    try:
+        stages, total = staged_forward(params, batch, cfg, [
+            (attention, "self_attention", "decoder_self_attention"),
+            (attention, "cross_attention", "cross_attention"),
+            (layers, "apply_mlp", "decoder_mlps"),
+            (layers, "apply_norm", "decoder_norms"),
+            (transformer, "_lm_logits", "lm_head")])
+    finally:
+        transformer._encode = encode
+    out = {"total": enc_ms + total, "encoder": enc_ms, **stages}
+    out["other"] = total - sum(stages.values())
+    return out
+
+
+def pixtral_stages(params, batch, cfg):
+    """19(b): where a Pixtral prefill's time goes (host clock,
+    synchronised), the patch projector inside the embedding."""
+    from repro_torch.models import attention, layers, transformer
+    stages, total = staged_forward(params, batch, cfg, [
+        (transformer, "_embed_inputs", "embed_and_projector"),
+        (attention, "self_attention", "attention"),
+        (layers, "apply_mlp", "mlps"), (layers, "apply_norm", "norms"),
+        (transformer, "_lm_logits", "lm_head")])
+    out = {"total": total, **stages}
+    out["other"] = total - sum(stages.values())
+    return out
+
+
+def frontend_serving(dev):
+    """19(a) to (c): Whisper-tiny whole (two requests of 448 tokens over
+    1,500 frames), Pixtral-12B whole and Llama-4-Scout at published widths
+    with SCOUT_SERVED_LAYERS layers (two prompts of 256 patch embeddings
+    and FRONT_TEXT_LEN tokens), each served as :func:`serve_whole` serves
+    (its frontend inputs shaped by ``input_specs``, drawn on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import frontend_inputs
+    whisper = get_config(WHISPER)
+    scout = dataclasses.replace(get_config(SCOUT),
+                                num_layers=SCOUT_SERVED_LAYERS)
+    runs = [("19(a)", WHISPER, whisper, whisper_stages,
+             whisper.max_position),
+            ("19(b)", PIXTRAL, get_config(PIXTRAL), pixtral_stages,
+             FRONT_TEXT_LEN),
+            ("19(c)", SCOUT, scout, moe_stages, FRONT_TEXT_LEN)]
+    times = {}
+    for phase, arch, cfg, stages, text in runs:
+        t0 = time.perf_counter()
+        rec = serve_whole(dev, arch, phase, stages, cfg=cfg,
+                          frontend=lambda gen, c=cfg: frontend_inputs(
+                              c, (2,), gen), prompt_len=text)
+        whole = get_config(arch).num_layers
+        rec["cut"] = "whole" if cfg.num_layers == whole \
+            else f"{cfg.num_layers} of {whole} layers"
+        log(f"phase {phase}: {arch} served: {json.dumps(rec)}")
+        times[phase] = time.perf_counter() - t0
+    return times
+
+
+def frontend_train(dev):
+    """19(f): decentralized LM training as 17(b) (:func:`train_rounds`):
+    Whisper-tiny whole at its n_nodes = 16, batches of 8 x 448 tokens
+    with ``frames`` of ``input_specs``' shape; Pixtral-12B at published
+    widths with FRONT_TRAIN_LAYERS of its 40 layers at n = FRONT_TRAIN_N
+    with its 256 patch embeddings.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import frontend_inputs
+    whisper = get_config(WHISPER)
+    pixtral = dataclasses.replace(get_config(PIXTRAL),
+                                  num_layers=FRONT_TRAIN_LAYERS)
+    totals = dict.fromkeys(launch_counts(), 0)
+    for cfg, n, seq in ((whisper, whisper.n_nodes, whisper.max_position),
+                        (pixtral, FRONT_TRAIN_N, TRAIN_SEQ)):
+        got, rec, state = train_rounds(
+            dev, cfg, "19(f)", n=n, batch_size=TRAIN_BATCH, seq=seq,
+            frontend=lambda gen, c=cfg, n=n: frontend_inputs(
+                c, (n, TRAIN_BATCH), gen))
+        _add(totals, got)
+        log(f"phase 19(f): {cfg.name}, {cfg.num_layers} layers, n = {n}, "
+            f"{TRAIN_ROUNDS} rounds with its stub-frontend inputs: "
+            f"{json.dumps(rec)}")
+        del state
+        torch.cuda.empty_cache()
+    return totals
+
+
+LAUNCHED = {"17(f)": ("llama3.2-3b",),
+            "18(g)": ("deepseek-moe-16b", "rwkv6-7b",
+                      "jamba-1.5-large-398b"),
+            "19(g)": (PIXTRAL, SCOUT)}
+
+
+def launcher_path(dev):
+    """17(f), 18(g) and 19(g): the launcher on the card for the
+    architectures of LAUNCHED and for Whisper, the child processes started
+    together: each of LAUNCHED exits 0 after twenty rounds (Jamba with its
+    experts; Pixtral and Llama-4-Scout text only); Whisper is refused with
+    a ``ValueError`` that names the missing ``frames``."""
+    t0 = time.perf_counter()
+    got = launchers(sum(LAUNCHED.values(), ()) + (WHISPER,))
+    code, _, stderr, _ = got.pop(WHISPER)
+    last = stderr.strip().splitlines()[-1] if stderr.strip() else ""
+    if code == 0 or not last.startswith("ValueError") \
+            or "'frames'" not in last:
+        raise AssertionError(f"19(g): the launcher on {WHISPER} exited "
+                             f"{code}, last error line {last!r}")
+    for phase, archs in LAUNCHED.items():
+        runs = {arch: launcher_lines(phase, arch, got[arch])
+                for arch in archs}
+        log(f"phase {phase}: launcher exit 0 for {', '.join(archs)}: "
+            f"{json.dumps(runs)}")
+    log(f"phase 19(g): {WHISPER} refused: {last}")
+    log(f"phase 17(f), 18(g), 19(g): {time.perf_counter() - t0:.1f} s, "
+        f"{len(got) + 1} launchers at once")
+
+
+def frontends_path(dev):
+    """Phase 19: (a) to (f) ((g) runs in :func:`launcher_path`); returns
+    the launches of (e) and (f)."""
+    t0 = time.perf_counter()
+    times = frontend_serving(dev)
+    t1 = time.perf_counter()
+    zoo_prefill_vs_decode(dev, (PIXTRAL, SCOUT), "19(d)")
+    t2 = time.perf_counter()
+    totals = zoo_card_vs_cpu(dev, (WHISPER, PIXTRAL, SCOUT), "19(e)",
+                             frontend=True,
+                             need=("gram_matrix", "graph_mix_masked"))
+    t3 = time.perf_counter()
+    _add(totals, frontend_train(dev))
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s ((a) "
+        f"{times['19(a)']:.1f}, (b) {times['19(b)']:.1f}, (c) "
+        f"{times['19(c)']:.1f}, (d) {t2 - t1:.1f}, (e) {t3 - t2:.1f}, "
+        f"(f) {time.perf_counter() - t3:.1f})")
     return totals
 
 
@@ -5476,6 +5704,8 @@ def main():
     worst["selective_scan_bwd"], times["selective_scan_bwd"], \
         train_counts = train_path(dev)
     zoo_counts = zoo_path(dev)
+    front_counts = frontends_path(dev)
+    launcher_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
             k: v[name] for k, v in sweep_mixes.items()}
@@ -5521,6 +5751,7 @@ def main():
             "launches_sharded": sharded_counts[name],
             "launches_train": train_counts[name],
             "launches_zoo": zoo_counts[name],
+            "launches_frontends": front_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

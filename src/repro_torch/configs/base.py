@@ -5,8 +5,8 @@ the same declarative configurations.
 ``pattern`` describes one repeating period of blocks (``num_layers /
 len(pattern)`` periods), ``prefix`` holds non-repeating leading layers.
 ``reduced()`` is the CPU smoke-test variant of a family (one period,
-d_model <= 256, <= 4 experts, tiny vocab, f32).  Only the configurations
-the port runs are registered here (:func:`_load_all` in the package).
+d_model <= 256, <= 4 experts, tiny vocab, f32).  The package registers
+every configuration of ``ASSIGNED`` (:func:`_load_all`).
 """
 from __future__ import annotations
 

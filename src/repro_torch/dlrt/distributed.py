@@ -11,7 +11,8 @@ the Gram kernel, one grouped launch per 32 leaves of a dtype) and the
 uniform mix over the edges through the masked-mix kernel.  Every
 architecture of the port's zoo trains so: MoE expert banks, RWKV-6's
 mixers (whose ``w0`` and ``u`` stay f32 in a bf16 model, so Eq. 3 takes
-one Gram launch per dtype) and the MoE aux term in the loss.  Serving:
+one Gram launch per dtype), the MoE aux term in the loss, Whisper's
+encoder over a batch's ``frames`` and a VLM's ``patch_embeds``.  Serving:
 :func:`make_serve_step` decodes one token on every node.
 
 Memory.  A round never holds a second population or every node's
@@ -161,6 +162,16 @@ def _set_node_opt_state(state: Dict, i: int, new: Dict) -> None:
                 state[k][p][i].copy_(t)
 
 
+def _to_device(value, dev) -> torch.Tensor:
+    """A batch entry on ``dev``: integers (``tokens``, ``labels``) as
+    ``long``; floats (``frames``, ``patch_embeds``) in their own dtype,
+    which the model casts as the reference does."""
+    t = torch.as_tensor(value)
+    if t.is_floating_point():
+        return t.to(dev)
+    return t.to(dev, torch.long)
+
+
 def _unstaged(stage: str, fn: Callable):
     """The default stage hook of a train step: run ``fn``."""
     return fn()
@@ -173,8 +184,10 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
     (state, metrics)``: one paper round.
 
     1. Local step, node by node: ``model.loss_fn``'s forward and backward
-       on the node's ``[B, S]`` slice of ``batch`` (``tokens`` and
-       ``labels``, ``[n, B, S]``), in ``microbatch``-sized pieces whose
+       on the node's slice of every entry of ``batch`` (``tokens`` and
+       ``labels``, ``[n, B, S]``, and a stub frontend's ``frames`` or
+       ``patch_embeds``, ``[n, B, ...]``), in ``microbatch``-sized pieces
+       whose
        gradients add up (each divided by their number) in f32, or in the
        parameter dtype under ``node_fsdp``; then the optimizer's update,
        written into the node's slice.
@@ -188,9 +201,9 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
 
     ``metrics``: ``loss`` (the nodes' mean) and ``per_node_loss`` ``[n]``,
     both before the update.  ``stage(name, fn)`` runs each stage (``batch``
-    moves the batch to the device, ``forward_backward``, ``update``,
-    ``similarity``, ``controller``, ``mix``), by default just ``fn()``, so
-    a caller can time them."""
+    moves every entry of the batch to the device, ``forward_backward``,
+    ``update``, ``similarity``, ``controller``, ``mix``), by default just
+    ``fn()``, so a caller can time them."""
 
     def node_grads(p: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
         B = b["tokens"].shape[0]
@@ -232,8 +245,7 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
         first = next(iter(params.values()))
         n, dev = first.shape[0], first.device
         batch = stage("batch", lambda: {
-            k: torch.as_tensor(batch[k]).to(dev, torch.long)
-            for k in ("tokens", "labels")})
+            k: _to_device(v, dev) for k, v in batch.items()})
         losses = []
         for i in range(n):
             p_i = OrderedDict((k, v[i].detach().requires_grad_())

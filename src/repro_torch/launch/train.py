@@ -11,8 +11,13 @@ edges (the masked-mix kernel).  Runs on the card unless ``--device cpu``:
       --nodes 8 --rounds 200 --batch 8 --seq 128
 
 ``--arch`` takes every architecture the port registers: the dense
-decoders, ``deepseek-moe-16b``, ``rwkv6-7b`` and ``jamba-1.5-large-398b``
-with its experts.
+decoders, ``deepseek-moe-16b``, ``rwkv6-7b``, ``jamba-1.5-large-398b``
+with its experts, and the two stub-frontend VLMs ``pixtral-12b`` and
+``llama4-scout-17b-a16e``, which train text-only as the reference's
+launcher feeds them (``tokens`` and ``labels``; their ``patch_embeds`` are
+optional).  ``whisper-tiny`` is refused with a ``ValueError``: its
+encoder needs a ``frames`` input that token streams do not give (the
+reference's launcher fails there with a ``KeyError``; ROADMAP queue 3).
 
 The token streams build a ``[vocab, vocab]`` transition matrix, as the
 reference's do, so an unreduced vocabulary needs more host memory than a
@@ -81,6 +86,10 @@ def main(argv=None):
         raise NotImplementedError(f"--checkpoint-dir: checkpoints are "
                                   f"{_WAITS}")
     cfg = get_config(args.arch)
+    if cfg.encoder is not None:
+        raise ValueError(f"--arch {args.arch}: its encoder reads a 'frames' "
+                         "input (stub audio frame embeddings) that the "
+                         "launcher's token streams do not give")
     if args.reduced:
         cfg = cfg.reduced()
     opt = sgd(args.lr)

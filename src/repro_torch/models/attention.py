@@ -1,5 +1,5 @@
-"""GQA attention with RoPE, causal / sliding-window variants and a KV
-cache that decode updates in place: the port of
+"""GQA attention with RoPE, causal / sliding-window / cross variants and
+a KV cache that decode updates in place: the port of
 ``repro.models.attention``.
 
 Shapes: activations ``[batch, seq, d_model]``; caches
@@ -8,9 +8,8 @@ f32 products of the activations' values (the reference's
 ``preferred_element_type=f32``), and the probabilities are cast to
 ``v``'s dtype before the second product, as the reference does.  The
 reference's mesh helpers are single-device no-ops here, so the chunked
-path never fuses (batch, heads).  Cross-attention is not ported yet
-(ROADMAP queue 1 item 5, "Model zoo, the rest", with
-Whisper).
+path never fuses (batch, heads).  Cross-attention (Whisper's decoder
+reading the encoder's memory) has no RoPE and sees every memory position.
 """
 from __future__ import annotations
 
@@ -25,6 +24,8 @@ NEG_INF = -1e30
 
 
 def attn_params(gen, cfg, dtype):
+    """Q, K, V and output projections (a decoder block's cross-attention
+    takes the same layout)."""
     d, hd = cfg.d_model, cfg.head_dim
     q_dim = cfg.num_heads * hd
     kv_dim = cfg.num_kv_heads * hd
@@ -165,6 +166,24 @@ def self_attention(p, x, cfg, *, positions: torch.Tensor,
             mask = torch.ones((b, 1, s, s), dtype=torch.bool,
                               device=x.device)
         out = _sdpa(q, k, v, mask, cfg.head_dim)
+    return layers.dense(p["o"], out.reshape(b, s, -1))
+
+
+def cross_attention(p, x, memory, cfg) -> torch.Tensor:
+    """Decoder -> encoder attention: queries from ``x [b, s, d]``, keys and
+    values from ``memory [b, t, d]``, no RoPE, every position visible."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    groups = cfg.num_heads // cfg.num_kv_heads
+    q = _split_heads(layers.dense(p["q"], x), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(layers.dense(p["k"], memory), cfg.num_kv_heads,
+                     cfg.head_dim)
+    v = _split_heads(layers.dense(p["v"], memory), cfg.num_kv_heads,
+                     cfg.head_dim)
+    k = _repeat_kv(k, groups)
+    v = _repeat_kv(v, groups)
+    mask = torch.ones((b, 1, s, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, cfg.head_dim)
     return layers.dense(p["o"], out.reshape(b, s, -1))
 
 

@@ -130,3 +130,29 @@ def embed_params(gen, vocab: int, d_model: int, dtype):
 def embed(p, tokens):
     return p["table"][tokens]
 
+
+
+def unembed(p, x, tied_table=None):
+    """Logits in f32: ``x @ table.T`` against a tied embedding table, else
+    ``x @ p["w"]``.  The reference defines it and calls it nowhere (its
+    stack's head is ``transformer._lm_logits``); nor does the port."""
+    if tied_table is not None:
+        return x.float() @ tied_table.float().T
+    return x.float() @ p["w"].float()
+
+
+def sinusoidal_positions(length: int, d_model: int,
+                         device) -> torch.Tensor:
+    """``[length, d_model]`` f32 sinusoidal positions: sines in the even
+    columns, cosines in the odd, at ``pos / 10000 ** (2i / d_model)``.
+    The reference defines it and calls it nowhere (its Whisper learns its
+    positions); nor does the port."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            dim / d_model)
+    pe = torch.zeros((length, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe

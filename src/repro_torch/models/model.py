@@ -11,9 +11,11 @@
 ``init_params`` and ``init_cache`` run on the card unless the caller
 passes ``device="cpu"``; the others run where their inputs lie.
 ``batch`` holds ``tokens`` [b, s] (int) and, for ``loss_fn``, ``labels``
-[b, s] (int; ``IGNORE_INDEX`` = -100 masks a position).  The stub
-modality frontends are not ported (ROADMAP queue 1 item 5), so logits and
-labels always have one length.
+[b, s] (int; ``IGNORE_INDEX`` = -100 masks a position); plus the stub
+frontends' inputs: ``frames`` [b, T, d] (float; Whisper's encoder,
+required) or ``patch_embeds`` [b, P, 1024] (float; a VLM's, optional).
+Patch embeddings come before the text, so the logits are P positions
+longer than the labels, and ``loss_fn`` masks those positions.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ def loss_fn(params, batch, cfg, *, window="cfg"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (+ the MoE aux term ``forward`` sums over
     the MoE layers, 0 for a model without experts) over the positions
-    whose label is not
-    ``IGNORE_INDEX``; metrics ``loss``, ``ce``, ``aux`` and ``accuracy``.
+    whose label is not ``IGNORE_INDEX`` (patch positions never count);
+    metrics ``loss``, ``ce``, ``aux`` and ``accuracy``.
 
     The reference takes the label logit as a masked sum over the vocabulary
     (``iota == label``), which keeps a model-sharded vocabulary local; here
@@ -45,6 +47,12 @@ def loss_fn(params, batch, cfg, *, window="cfg"
     zeros, which is exact."""
     logits, aux = transformer.forward(params, batch, cfg, window=window)
     labels = batch["labels"]
+    # Stub-frontend positions come before the text: pad the labels on the
+    # left with IGNORE_INDEX so that positions line up.
+    pad = logits.shape[1] - labels.shape[1]
+    if pad > 0:
+        labels = torch.cat([labels.new_full((labels.shape[0], pad),
+                                            IGNORE_INDEX), labels], dim=1)
     mask = labels != IGNORE_INDEX
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)                    # [b, s]

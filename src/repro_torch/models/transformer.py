@@ -5,23 +5,32 @@ A model is ``prefix blocks + (pattern blocks x num_periods) + head``, with
 the reference's parameter layout::
 
   {"embed": ...,
+   "frontend_proj": ...,             # stub modality projector (audio/vlm)
+   "pos_embed": ...,                 # learned positions (rope_theta=None)
    "prefix": (block, ...),           # non-repeating leading blocks
    "body": (block_stacked, ...),     # one entry per pattern position,
                                      # each leaf stacked [num_periods, ...]
+   "encoder": {"blocks": (block, ...), "pos": ..., "final_norm": ...},
+                                     # Whisper only
    "final_norm": ..., "lm_head": ...}
 
 so weights carried over from the reference are a copy.  The reference's
 ``lax.scan`` over periods is a loop here that indexes the stacked leaves
 (with ``cfg.remat``, a non-reentrant ``torch.utils.checkpoint`` around
 each period under autograd, as the reference's ``jax.checkpoint``).
-Caches mirror the layout, and decode updates them in place.  Ported:
-attention, Mamba and RWKV-6 mixers, dense and MoE MLPs (the RWKV mixer
-with its channel-mix MLP): the dense decoders, DeepSeek-MoE, Jamba with
-its experts and RWKV-6.  ``forward``'s second output sums the MoE
-layers' aux terms.  Not yet ported (ROADMAP queue 1 item 5, "Model zoo,
-the rest"), and refused with ``NotImplementedError`` rather than skipped:
+Caches mirror the layout, and decode updates them in place.  Every
+architecture of the reference's zoo runs: attention, Mamba and RWKV-6
+mixers, dense and MoE MLPs (the RWKV mixer with its channel-mix MLP),
 Whisper's encoder, cross-attention and learned positions, and the stub
-modality frontends.
+frontends (``frames``, 1,500 precomputed audio frame embeddings for
+Whisper's encoder; ``patch_embeds``, precomputed 1024-wide patch
+embeddings a VLM projects and prepends to the text).  ``forward``'s second
+output sums the MoE layers' aux terms.
+
+As in the reference, decode's cross-attention reads ``cross_k`` and
+``cross_v`` caches that :func:`init_cache` makes zeros and nothing fills:
+a decode step attends over zeros, adds nothing, and never sees the
+encoder.
 """
 from __future__ import annotations
 
@@ -31,24 +40,27 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..configs.base import BlockSpec
 from ..tree import flatten, tree_map
 from . import attention, layers, mamba, moe, rwkv
 
-_WAITS = 'not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest")'
+# Whisper's encoder blocks: attention with a dense MLP.
+_ENCODER_SPEC = BlockSpec(mixer="attn", moe=False)
+# Width of a stub vision frontend's patch embeddings (the audio stub's
+# frames are d_model wide).
+VISION_DIM = 1024
 
 
 def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
-def _check_supported(cfg):
-    """Refuse what the port does not run yet, rather than skip it."""
-    if cfg.encoder is not None or cfg.learned_pos:
-        raise NotImplementedError(f"{cfg.name}: the encoder, cross-attention "
-                                  f"and learned positions are {_WAITS}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} stub "
-                                  f"frontend is {_WAITS}")
+def _normal(gen, shape, std: float, dtype):
+    """Normal at ``std``, drawn in f32 on the generator's device and cast
+    there (the reference's learned positions)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(std).to(dtype)
 
 
 def _index(tree, i: int):
@@ -79,7 +91,9 @@ def _stacked(make, periods: int):
 # Single block.
 # ---------------------------------------------------------------------------
 
-def block_params(gen, cfg, spec, dtype):
+def block_params(gen, cfg, spec, dtype, cross: bool = False):
+    """One block's parameters; ``cross`` adds a decoder block's
+    cross-attention (``cross``) and its norm (``norm_cross``)."""
     dev = gen.device
     p: Dict[str, Any] = {
         "norm1": layers.norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
@@ -100,11 +114,18 @@ def block_params(gen, cfg, spec, dtype):
     else:
         p["mlp"] = layers.mlp_params(gen, cfg.d_model, cfg.d_ff,
                                      cfg.mlp_type, dtype)
+    if cross:
+        p["cross"] = attention.attn_params(gen, cfg, dtype)
+        p["norm_cross"] = layers.norm_params(cfg.d_model, cfg.norm_type,
+                                             dtype, dev)
     return p
 
 
-def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None):
-    """Training/prefill forward through one block. Returns (x, aux)."""
+def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None,
+                memory=None):
+    """Training/prefill forward through one block: the mixer, then (a
+    decoder block given the encoder's ``memory``) cross-attention, then
+    the MLP. Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
     if spec.mixer == "attn":
@@ -116,6 +137,9 @@ def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None):
     else:
         mixed, _ = rwkv.apply_rwkv_time_mix(p["mixer"], h, cfg)
     x = x + mixed
+    if "cross" in p and memory is not None:
+        hx = layers.apply_norm(p["norm_cross"], x, cfg.norm_type)
+        x = x + attention.cross_attention(p["cross"], hx, memory, cfg)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
     if spec.mixer == "rwkv":
         out, _ = rwkv.apply_channel_mix(p["mlp"], h2)
@@ -130,13 +154,34 @@ def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None):
 # Block decode (one token, the cache updated in place).
 # ---------------------------------------------------------------------------
 
-def init_block_cache(cfg, spec, batch: int, max_len: int, dtype, device):
+def init_block_cache(cfg, spec, batch: int, max_len: int, dtype, device,
+                     cross_len: int = 0):
+    """One block's decode state; ``cross_len`` adds the cross-attention's
+    ``cross_k`` and ``cross_v`` ``[batch, cross_len, kv_heads, head_dim]``,
+    zeros, as the reference makes them."""
     if spec.mixer == "attn":
-        return {"attn": attention.init_cache(cfg, batch, max_len, dtype,
-                                             device)}
-    if spec.mixer == "mamba":
-        return {"ssm": mamba.init_mamba_state(cfg, batch, dtype, device)}
-    return {"wkv": rwkv.init_rwkv_state(cfg, batch, dtype, device)}
+        c = {"attn": attention.init_cache(cfg, batch, max_len, dtype,
+                                          device)}
+    elif spec.mixer == "mamba":
+        c = {"ssm": mamba.init_mamba_state(cfg, batch, dtype, device)}
+    else:
+        c = {"wkv": rwkv.init_rwkv_state(cfg, batch, dtype, device)}
+    if cross_len:
+        shape = (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
+def _decode_cross(p, x, cfg, cache):
+    """Cross-attention of one token against the cached ``cross_k`` and
+    ``cross_v``, every slot visible."""
+    b = x.shape[0]
+    q = layers.dense(p["q"], x).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    ck, cv = cache["cross_k"], cache["cross_v"]
+    visible = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
+    out = attention._decode_sdpa(q, ck, cv, visible, cfg.head_dim)
+    return layers.dense(p["o"], out.reshape(b, 1, -1))
 
 
 def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
@@ -152,6 +197,9 @@ def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
         mixed, _ = rwkv.decode_rwkv_time_mix(p["mixer"], h, cfg,
                                              cache["wkv"])
     x = x + mixed
+    if "cross" in p:
+        hx = layers.apply_norm(p["norm_cross"], x, cfg.norm_type)
+        x = x + _decode_cross(p["cross"], hx, cfg, cache)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
     if spec.mixer == "rwkv":
         out, last = rwkv.decode_channel_mix(p["mlp"], h2,
@@ -173,7 +221,6 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     (the card unless the caller asks for the CPU) from a
     ``torch.Generator`` seeded with ``seed``; each leaf is drawn in f32
     and cast there, so a full-width model is never built on the host."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _dtype(cfg.param_dtype)
@@ -186,46 +233,95 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_params(gen, cfg.d_model, cfg.vocab_size,
                                            dtype)
+    if cfg.learned_pos:
+        p["pos_embed"] = _normal(gen, (cfg.max_position_embed(),
+                                       cfg.d_model), 0.02, dtype)
+    if cfg.frontend is not None:
+        d_in = cfg.d_model if cfg.frontend == "audio" else VISION_DIM
+        p["frontend_proj"] = layers.dense_params(gen, d_in, cfg.d_model,
+                                                 dtype, bias=True)
+    cross = cfg.encoder is not None
     if cfg.prefix:
-        p["prefix"] = tuple(block_params(gen, cfg, s, dtype)
+        p["prefix"] = tuple(block_params(gen, cfg, s, dtype, cross=cross)
                             for s in cfg.prefix)
     p["body"] = tuple(
-        _stacked(lambda spec=spec: block_params(gen, cfg, spec, dtype),
+        _stacked(lambda spec=spec: block_params(gen, cfg, spec, dtype,
+                                                cross=cross),
                  cfg.num_periods)
         for spec in cfg.pattern)
+    if cfg.encoder is not None:
+        p["encoder"] = {
+            "blocks": tuple(block_params(gen, cfg, _ENCODER_SPEC, dtype)
+                            for _ in range(cfg.encoder.num_layers)),
+            "pos": _normal(gen, (cfg.encoder.seq_len, cfg.d_model), 0.02,
+                           dtype),
+            "final_norm": layers.norm_params(cfg.d_model, cfg.norm_type,
+                                             dtype, dev),
+        }
     return p
 
 
+def _encode(p, frames, cfg):
+    """Whisper's encoder over stub frame embeddings ``[b, T, d]`` (already
+    in the compute dtype): the projector, learned positions, non-causal
+    blocks, the final norm."""
+    if "frontend_proj" in p:
+        frames = layers.dense(p["frontend_proj"], frames)
+    x = frames + p["encoder"]["pos"][None, :frames.shape[1]].to(frames.dtype)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    for blk in p["encoder"]["blocks"]:
+        x, _ = apply_block(blk, x, cfg, _ENCODER_SPEC, positions=positions,
+                           causal=False)
+    return layers.apply_norm(p["encoder"]["final_norm"], x, cfg.norm_type)
+
+
 def _embed_inputs(p, batch, cfg):
-    """Token embedding. Returns (x, positions)."""
+    """Token embedding, with a VLM's projected ``patch_embeds`` prepended
+    (projected in their own dtype, then cast to the embedding's, as the
+    reference does) and learned positions added. Returns (x, positions)."""
     x = layers.embed(p["embed"], batch["tokens"])
+    if cfg.frontend is not None and cfg.encoder is None \
+            and "patch_embeds" in batch:
+        patches = layers.dense(p["frontend_proj"], batch["patch_embeds"])
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
-    return x, torch.arange(s, device=x.device).expand(b, s)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    if cfg.learned_pos:
+        x = x + p["pos_embed"][None, :s].to(x.dtype)
+    return x, positions
 
 
 def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
     """Full forward -> (logits [b, S, vocab] f32, aux_loss scalar).
 
-    ``window``: attention window; the sentinel "cfg" uses
-    ``cfg.sliding_window`` (None = full attention).  ``last_only``: logits
-    for the final position only (the serving prefill).
+    ``batch``: ``tokens [b, s]``; for an encoder-decoder ``frames [b, T,
+    d]``, cast to the compute dtype before the encoder; for a VLM,
+    optionally ``patch_embeds [b, P, 1024]``, whose P positions come
+    before the text's, so the logits have P + s positions.  ``window``:
+    attention window; the sentinel "cfg" uses ``cfg.sliding_window`` (None
+    = full attention).  ``last_only``: logits for the final position only
+    (the serving prefill).
     """
-    _check_supported(cfg)
     if window == "cfg":
         window = cfg.sliding_window
+    cdtype = _dtype(cfg.compute_dtype)
+    memory = None
+    if cfg.encoder is not None:
+        memory = _encode(p, batch["frames"].to(cdtype), cfg)
     x, positions = _embed_inputs(p, batch, cfg)
-    x = x.to(_dtype(cfg.compute_dtype))
+    x = x.to(cdtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk, spec in zip(p.get("prefix", ()), cfg.prefix):
         x, a = apply_block(blk, x, cfg, spec, positions=positions,
-                           window=window)
+                           window=window, memory=memory)
         aux = aux + a
 
-    def period_fn(x, period_params):
+    def period_fn(x, period_params, memory):
         a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, spec in zip(period_params, cfg.pattern):
             x, a = apply_block(blk, x, cfg, spec, positions=positions,
-                               window=window)
+                               window=window, memory=memory)
             a_sum = a_sum + a
         return x, a_sum
 
@@ -236,9 +332,10 @@ def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
             # jax.checkpoint around the period, as the reference does:
             # only the period's input is kept, its activations recomputed
             # in the backward; the numbers do not change.
-            x, a = checkpoint(period_fn, x, period, use_reentrant=False)
+            x, a = checkpoint(period_fn, x, period, memory,
+                              use_reentrant=False)
         else:
-            x, a = period_fn(x, period)
+            x, a = period_fn(x, period, memory)
         aux = aux + a
     if last_only:
         x = x[:, -1:]
@@ -296,15 +393,19 @@ def _lm_logits(p, x, cfg):
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
     """Decode cache on ``device`` (the card unless the caller asks for the
     CPU): ``{"prefix": (...), "body": (...)}`` with body leaves stacked
-    ``[num_periods, ...]``."""
-    _check_supported(cfg)
+    ``[num_periods, ...]``; an encoder-decoder's blocks also hold the
+    cross-attention's zero ``cross_k`` and ``cross_v`` over the encoder's
+    ``seq_len`` slots."""
     dev = resolve_device(device)
     dtype = _dtype(dtype or cfg.param_dtype)
-    prefix = tuple(init_block_cache(cfg, s, batch, max_len, dtype, dev)
+    cross_len = cfg.encoder.seq_len if cfg.encoder is not None else 0
+    prefix = tuple(init_block_cache(cfg, s, batch, max_len, dtype, dev,
+                                    cross_len)
                    for s in cfg.prefix)
     body = tuple(
         _stacked(lambda spec=spec: init_block_cache(cfg, spec, batch,
-                                                    max_len, dtype, dev),
+                                                    max_len, dtype, dev,
+                                                    cross_len),
                  cfg.num_periods)
         for spec in cfg.pattern)
     return {"prefix": prefix, "body": body}
@@ -315,12 +416,18 @@ def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg"):
 
     Returns (logits [b, 1, vocab] f32, cache): every block writes its new
     state into ``cache`` in place (a period's blocks into their index of
-    the stacked leaves), so a step copies no cache.
+    the stacked leaves), so a step copies no cache.  Learned positions
+    take row ``pos`` clamped into the table, as the reference's
+    ``dynamic_slice_in_dim`` clamps it (Whisper's 448 rows: a position
+    past 447 reads row 447).
     """
-    _check_supported(cfg)
     if window == "cfg":
         window = cfg.sliding_window
     x = layers.embed(p["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    if cfg.learned_pos:
+        table = p["pos_embed"]
+        row = min(max(int(pos), 0), table.shape[0] - 1)
+        x = x + table[row][None, None].to(x.dtype)
     for blk, spec, c in zip(p.get("prefix", ()), cfg.prefix,
                             cache["prefix"]):
         x, _ = decode_block(blk, x, cfg, spec, c, pos, window=window)

@@ -1,12 +1,14 @@
 """Whole-model parity checks of the port's model zoo (``repro_torch.
 models``, ``repro_torch.dlrt.distributed``) against the reference's, on the
 CPU at reduced configs in f32, shared by ``tests/test_torch_train.py``,
-``tests/test_torch_moe.py`` and ``tests/test_torch_rwkv.py``.
+``tests/test_torch_moe.py``, ``tests/test_torch_rwkv.py`` and
+``tests/test_torch_frontends.py``.
 
 The port takes the reference's parameters and train state by copy
 (``params_from_jax``, ``train_state_from_jax``) and the reference's Morph
 draws (``tests/_jax_draws.py`` ``morph_key_draws``); both packages see the
-same numpy-made tokens.  Tolerances, all f32:
+same numpy-made tokens, and with ``frontend=True`` the same numpy-made
+stub-frontend inputs (:func:`frontend_inputs`).  Tolerances, all f32:
 
 * ``forward`` logits, ``loss_fn``'s metrics (the MoE aux term included)
   and ``decode_step`` logits and caches: atol 1e-4 / rtol 1e-3,
@@ -16,7 +18,10 @@ same numpy-made tokens.  Tolerances, all f32:
   (``tests/test_arch_smoke.py``'s; MoE at ``capacity_factor`` 100 as
   there, so that no pair is dropped in either);
 * gradients against ``jax.grad``: 1e-4 of each leaf's largest gradient,
-  plus 1e-4 relative;
+  plus 1e-4 relative; a leaf whose gradient is zero in exact arithmetic
+  (an attention's key bias: softmax is invariant to adding ``q . b_k`` to
+  every logit of a row) holds round-off on both sides, and each side is
+  held within 1e-6 of the model's largest gradient instead;
 * train rounds against the reference's jitted step: identical edges,
   parameters within 1e-4, losses within 1e-5.
 """
@@ -29,6 +34,7 @@ import torch
 
 from repro.core import init_state
 from repro.dlrt import distributed as jdist
+from repro.launch import shapes as jshapes
 from repro.models import model as jmodel
 from repro.optim import sgd as jsgd
 from repro_torch.dlrt import distributed as tdist
@@ -98,6 +104,16 @@ def lm_batch(rng, n, b, s, vocab):
     return {"tokens": toks[..., :-1], "labels": labels}
 
 
+def frontend_inputs(cfg, rng, lead):
+    """The stub frontend's input for a batch of leading shape ``lead``, at
+    the shape ``repro.launch.shapes.input_specs`` gives it: Whisper's
+    ``frames [*lead, T, d]`` or a VLM's ``patch_embeds [*lead, P, 1024]``,
+    standard normal f32 (none for a text-only model)."""
+    specs = jshapes.input_specs(cfg, jshapes.SHAPES["train_4k"], 1)
+    return {k: rng.normal(size=tuple(lead) + v.shape[2:]).astype(np.float32)
+            for k, v in specs.items() if k in ("frames", "patch_embeds")}
+
+
 def as_np(x):
     return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -121,20 +137,24 @@ def no_drops(cfg):
 # The checks.
 # ---------------------------------------------------------------------------
 
-def check_forward_loss_decode(jcfg, tcfg, seed, s=16):
+def check_forward_loss_decode(jcfg, tcfg, seed, s=16, frontend=False):
     """``forward`` (logits and aux), ``loss_fn``'s metrics, ``decode_step``
     over the ``s`` tokens (logits at every step, then the cache) and
-    ``greedy_generate`` against the reference."""
+    ``greedy_generate`` against the reference; ``frontend`` adds the stub
+    frontend's input to the forward and the loss."""
     jparams = port_params(tcfg, seed)
     params = to_port(jparams)
     rng = np.random.default_rng(seed)
     batch = {k: v[0] for k, v in lm_batch(rng, 1, 2, s,
                                           jcfg.vocab_size).items()}
+    if frontend:
+        batch.update(frontend_inputs(jcfg, rng, (2,)))
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     want, jaux = compiled(lambda q, b: jmodel.forward(q, b, jcfg), jparams,
                           jbatch)(jparams, jbatch)
-    got, aux = tmodel.forward(params, {"tokens": torch.as_tensor(
-        batch["tokens"])}, tcfg)
+    got, aux = tmodel.forward(params, {k: torch.as_tensor(v)
+                                       for k, v in batch.items()
+                                       if k != "labels"}, tcfg)
     assert got.dtype == aux.dtype == torch.float32
     close(got, want)
     close(aux, jaux, LOSS_TOL)
@@ -187,12 +207,21 @@ def check_prefill_decode(tcfg, seed, s=16):
     close(torch.stack(outs, 1), fwd.numpy(), PREFILL_DECODE_TOL)
 
 
-def check_gradients(jcfg, tcfg, seed):
+ZERO_GRAD_ATOL = 1e-6
+
+
+def check_gradients(jcfg, tcfg, seed, frontend=False, zero_grads=()):
     """Autograd through the port's ``loss_fn`` against the reference's
-    ``jax.grad``, leaf for leaf (the MoE aux term included)."""
+    ``jax.grad``, leaf for leaf (the MoE aux term included; ``frontend``
+    adds the stub frontend's input).  Leaves whose paths end with one of
+    ``zero_grads`` have a zero gradient in exact arithmetic: both sides
+    within ``ZERO_GRAD_ATOL`` of the model's largest gradient."""
     jparams = port_params(tcfg, seed)
-    batch = {k: v[0] for k, v in lm_batch(np.random.default_rng(seed), 1, 2,
-                                          16, jcfg.vocab_size).items()}
+    rng = np.random.default_rng(seed)
+    batch = {k: v[0] for k, v in lm_batch(rng, 1, 2, 16,
+                                          jcfg.vocab_size).items()}
+    if frontend:
+        batch.update(frontend_inputs(jcfg, rng, (2,)))
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     (jloss, _), grads = compiled(jax.value_and_grad(
         lambda q: jmodel.loss_fn(q, jbatch, jcfg), has_aux=True),
@@ -206,17 +235,25 @@ def check_gradients(jcfg, tcfg, seed):
     got = torch.autograd.grad(loss, leaves)
     want = flatten(jax.tree_util.tree_map(np.asarray, grads))
     assert list(want) == list(params)
+    largest = max(float(np.abs(w).max()) for w in want.values())
     for (path, w), t in zip(want.items(), got):
+        if path.endswith(zero_grads):
+            for side in (t.numpy(), w):
+                assert float(np.abs(side).max()) <= ZERO_GRAD_ATOL * largest, \
+                    path
+            continue
         scale = float(np.abs(w).max())
         np.testing.assert_allclose(t.numpy(), w, atol=GRAD_TOL * scale,
                                    rtol=GRAD_TOL, err_msg=path)
 
 
-def check_train_rounds(jcfg, tcfg, n=4, rounds=3, delta_r=2, seed=0):
+def check_train_rounds(jcfg, tcfg, n=4, rounds=3, delta_r=2, seed=0,
+                       frontend=False):
     """``rounds`` rounds of the port's train step (a topology round every
     ``delta_r``, the first included) against the reference's jitted step
     with its Morph draws replayed: identical edges, losses within 1e-5,
-    parameters within 1e-4."""
+    parameters within 1e-4.  ``frontend`` adds the stub frontend's input
+    to every node's batch."""
     jstate = reference_state(port_params(tcfg, seed, n=n), n)
     host = jax.tree_util.tree_map(np.asarray, jstate)
     state = train_state_from_jax(
@@ -226,6 +263,9 @@ def check_train_rounds(jcfg, tcfg, n=4, rounds=3, delta_r=2, seed=0):
     rng = np.random.default_rng(seed + 7)
     batches = [lm_batch(rng, n, 2, 16, jcfg.vocab_size)
                for _ in range(rounds)]
+    if frontend:
+        for batch in batches:
+            batch.update(frontend_inputs(jcfg, rng, (n, 2)))
     jbatch = jax.tree_util.tree_map(jnp.asarray, batches[0])
     jsteps = {topo: compiled(jdist.make_train_step(
         jcfg, jsgd(LR), jdist.MorphHParams(**HP), do_topology=topo),

@@ -1388,3 +1388,70 @@ def test_cuda_eq3_over_leaves_of_two_dtypes(cuda_device):
     torch.cuda.synchronize()
     assert gram_matrix.launches == before + 2
     torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "pixtral-12b"])
+def test_cuda_frontends_are_the_cpu(cuda_device, arch):
+    """Reduced Whisper (its encoder over 16 frames) and Pixtral (4 patch
+    embeddings before the text), f32, from one set of parameters on the
+    card and on the CPU: logits within 1e-4 and 8 greedy tokens
+    identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import frontend_inputs
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    cpu_p = model.init_params(cfg, 6, device="cpu")
+    card_p = tree_map(lambda t: t.to(cuda_device), cpu_p)
+    gen = torch.Generator().manual_seed(6)
+    batch = dict(frontend_inputs(cfg, (2,), gen),
+                 tokens=torch.randint(0, cfg.vocab_size, (2, 32),
+                                      generator=gen))
+    want, _ = model.forward(cpu_p, batch, cfg)
+    got, _ = model.forward(card_p, {k: v.to(cuda_device)
+                                    for k, v in batch.items()}, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    prompt = batch["tokens"][:, :8]
+    assert torch.equal(
+        model.greedy_generate(card_p, cfg, prompt.to(cuda_device), 8).cpu(),
+        model.greedy_generate(cpu_p, cfg, prompt, 8))
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_train_round_launches_gram_and_mix(cuda_device):
+    """One train round of reduced Whisper (f32, n = 4) with its ``frames``
+    and a topology negotiation, from one state on the card and on the
+    CPU: one Gram launch per 32 leaves and one masked-mix launch per 64,
+    nothing else; identical edges, parameters within 1e-4."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import (MorphHParams, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.launch.shapes import frontend_inputs
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = get_config("whisper-tiny").reduced()
+    n = 4
+    cpu = init_train_state(cfg, sgd(0.05), n, seed=7, device="cpu")
+    card = train_state_to(cpu, cuda_device)
+    step = make_train_step(cfg, sgd(0.05), MorphHParams(k=2, view_size=3))
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (n, 2, 33)).astype(np.int32)
+    batch = dict(frontend_inputs(cfg, (n, 2), torch.Generator()
+                                  .manual_seed(7)),
+                 tokens=toks[..., :-1], labels=toks[..., 1:])
+    cpu, _ = step(cpu, batch)
+    kernels.reset_launches()
+    card, _ = step(card, batch)
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in kernels.KERNELS}
+    leaves = len(flatten(cpu.params))
+    assert got == dict(dict.fromkeys(got, 0), gram_matrix=-(-leaves // 32),
+                       graph_mix_masked=-(-leaves // 64))
+    assert torch.equal(card.morph.edges.cpu(), cpu.morph.edges)
+    want_p = flatten(cpu.params)
+    for k, v in flatten(card.params).items():
+        torch.testing.assert_close(v.cpu(), want_p[k], atol=1e-4, rtol=0,
+                                   msg=k)

@@ -3,9 +3,11 @@
 experts (one period of 7 Mamba layers and one attention layer, d_model 256,
 f32) with 2 KV heads for its 4 query heads, so that grouped-query attention
 repeats heads as the published 64 / 8 do; also on two periods of it, and
-on reduced Llama-3.2-3B for RoPE and tied embeddings.  DeepSeek-MoE-16B's
-and RWKV-6's configurations and parameter counts are pinned here too
-(their modules: ``tests/test_torch_moe.py``, ``tests/test_torch_rwkv.py``).
+on reduced Llama-3.2-3B for RoPE and tied embeddings.  DeepSeek-MoE-16B's,
+RWKV-6's, Whisper-tiny's, Pixtral-12B's and Llama-4-Scout's configurations
+and parameter counts are pinned here too (their modules:
+``tests/test_torch_moe.py``, ``tests/test_torch_rwkv.py``,
+``tests/test_torch_frontends.py``).
 
 The port takes the reference's parameters by copy
 (``params_from_jax``), and both packages see the same numpy-made inputs.
@@ -121,13 +123,16 @@ def _acts(shape, seed, scale=1.0):
 # Configs and parameter trees.
 # ---------------------------------------------------------------------------
 
+ZOO_ARCHS = ("deepseek-moe-16b", "rwkv6-7b", "whisper-tiny", "pixtral-12b",
+             "llama4-scout-17b-a16e")
+
+
 @pytest.mark.parametrize("variant", ["published", "without-experts",
-                                     "reduced", "deepseek-moe-16b",
-                                     "deepseek-moe-16b-reduced", "rwkv6-7b",
-                                     "rwkv6-7b-reduced"])
+                                     "reduced"] + [
+    a + suffix for a in ZOO_ARCHS for suffix in ("", "-reduced")])
 def test_config_matches_reference(variant):
     arch = variant.removesuffix("-reduced") if variant.startswith(
-        ("deepseek", "rwkv")) else ARCH
+        ZOO_ARCHS) else ARCH
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     if variant in ("without-experts", "reduced"):
         j, t = without_experts(j), without_experts(t)
@@ -143,14 +148,26 @@ def test_config_matches_reference(variant):
 # analytic: DeepSeek-MoE's final norm; RWKV-6's final LayerNorm (2 d), and
 # in each block the 325 d it leaves out (the ddlerp mus and LoRA, the decay
 # LoRA, u, the group norm and the two LayerNorms' biases) with its channel
-# mix taken at 3.5 d wide where the model has d_ff.
+# mix taken at 3.5 d wide where the model has d_ff.  Whisper: each
+# LayerNorm's bias (d a norm: two norms a block, encoder and decoder), the
+# cross-attention's norm taken at d where it is a LayerNorm of 2 d, the
+# frame projector (d x d and its bias), the encoder's and the decoder's
+# final LayerNorms.  The two VLMs: the final norm and the patch projector
+# (1024 x d and its bias).
 BEYOND_ANALYTIC = {
     "deepseek-moe-16b": lambda c: c.d_model,
     "rwkv6-7b": lambda c: 2 * c.d_model + c.num_layers * (
-        325 * c.d_model + 2 * c.d_model * (c.d_ff - int(3.5 * c.d_model)))}
+        325 * c.d_model + 2 * c.d_model * (c.d_ff - int(3.5 * c.d_model))),
+    "whisper-tiny": lambda c: (3 * c.num_layers + 2 * c.encoder.num_layers
+                               + c.d_model + 5) * c.d_model,
+    "pixtral-12b": lambda c: (1024 + 2) * c.d_model,
+    "llama4-scout-17b-a16e": lambda c: (1024 + 2) * c.d_model}
 # ArchConfig.param_count() of the published configurations.
 PUBLISHED_COUNT = {"deepseek-moe-16b": 16_879_566_848,
-                   "rwkv6-7b": 7_534_411_776}
+                   "rwkv6-7b": 7_534_411_776,
+                   "whisper-tiny": 37_200_768,
+                   "pixtral-12b": 12_247_777_280,
+                   "llama4-scout-17b-a16e": 107_769_856_000}
 
 
 @pytest.mark.parametrize("arch", sorted(PUBLISHED_COUNT))
@@ -460,20 +477,3 @@ def test_rope_and_tied_embeddings_match_reference():
     jcfg = jconfigs.get_config("llama3.2-3b").reduced()
     assert jcfg.tie_embeddings and jcfg.rope_theta is not None
     _forward_and_decode(jcfg, port_config(jcfg), seed=3, steps=4)
-
-
-@pytest.mark.parametrize("what", ["encoder", "frontend"])
-def test_unported_features_raise(what):
-    cfg = jamba_pair()[1]
-    cfg = {"encoder": lambda: dataclasses.replace(
-               cfg, encoder=tconfigs.EncoderConfig(2, 16), learned_pos=True),
-           "frontend": lambda: dataclasses.replace(cfg, frontend="vision"),
-           }[what]()
-    tokens = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
-    for entry in (lambda: tmodel.init_params(cfg, 0, device="cpu"),
-                  lambda: tmodel.init_cache(cfg, 1, 4, device="cpu"),
-                  lambda: tmodel.forward({}, tokens, cfg),
-                  lambda: tmodel.decode_step({}, {}, tokens["tokens"], 0,
-                                             cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            entry()
