@@ -287,9 +287,27 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    only) and refuses whisper-tiny with a ``ValueError`` naming its
    ``frames``; ``launches_frontends`` in every kernel row counts (e) and
    (f)'s card runs;
+20. checkpoints, the launcher's checkpoint directory and the dry run
+   (``repro_torch.checkpoint``, ``repro_torch.launch.dryrun``): (a)
+   Whisper-tiny whole at n = 2 (bf16, 149.4 MB of population), two rounds
+   of batches of 2 x 448 tokens and their frames (a topology round first,
+   through :func:`train_rounds`), ``{"params": ...}`` saved by
+   ``CheckpointManager`` (zlib where ``zstandard`` is missing) and
+   restored onto the card: every leaf the same dtype, shape and bits;
+   then one plain round on one batch from the restored parameters and
+   from the live ones: losses bit for bit, parameters bit for bit or
+   within 1e-6 (the record says which); the file's bytes, save and
+   restore seconds and MB/s, the compressor; (b) the launcher at
+   ``--reduced --nodes 4 --rounds 3 --checkpoint-dir`` leaves exactly
+   ``ckpt_00000003.msgpack.zst``, a population of a fresh one's
+   structure, shapes and dtypes; (c) the dry run over every ``ASSIGNED``
+   architecture, shape and production mesh on meta tensors: the card's
+   allocated bytes unchanged, each record's per-card argument GB beside
+   the card's memory; ``launches_checkpoint`` in every kernel row counts
+   (a)'s four rounds;
 
-17(f), 18(g) and 19(g) run last, their seven launcher processes started
-together; then one JSON line with every kernel's numbers, the card line, and the
+17(f), 18(g), 19(g) and 20(b) run last, their eight launcher processes
+started together; then one JSON line with every kernel's numbers, the card line, and the
 result line ``{"ok": true, "device": {...}}`` last.  TF32 is off for
 cuDNN convolutions and matmuls in every phase, so the card computes in
 full f32 like the plain versions it is compared with, and bf16 products
@@ -4485,8 +4503,8 @@ def next_batch(batchers):
 
 
 def train_rounds(dev, cfg, phase, n=TRAIN_N, batch_size=TRAIN_BATCH,
-                 seq=TRAIN_SEQ, frontend=None):
-    """TRAIN_ROUNDS rounds of the train step at ``cfg``'s widths as
+                 seq=TRAIN_SEQ, frontend=None, rounds=TRAIN_ROUNDS):
+    """``rounds`` rounds of the train step at ``cfg``'s widths as
     launch/train.py runs them (``n`` nodes, sgd 0.05, Morph k = 3, view 5,
     beta 500, delta_r 5; ``batch_size`` sequences of ``seq`` tokens a node
     from :func:`train_batchers`, and ``frontend(gen)``'s stub-frontend
@@ -4530,7 +4548,7 @@ def train_rounds(dev, cfg, phase, n=TRAIN_N, batch_size=TRAIN_BATCH,
     base = torch.cuda.memory_allocated()
     kernels.reset_launches()
     losses, rounds_ms, timers = [], [], []
-    for rnd in range(TRAIN_ROUNDS):
+    for rnd in range(rounds):
         batch = next_batch(batchers)
         if frontend is not None:
             batch.update(frontend(gen))
@@ -4543,10 +4561,10 @@ def train_rounds(dev, cfg, phase, n=TRAIN_N, batch_size=TRAIN_BATCH,
         timers.append(timer.ms)
     got = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    topo_rounds = sum(1 for r in range(TRAIN_ROUNDS) if r % DELTA_R == 0)
+    topo_rounds = sum(1 for r in range(rounds) if r % DELTA_R == 0)
     want = dict.fromkeys(got, 0)
     want.update(gram_matrix=topo_rounds * grams,
-                graph_mix_masked=TRAIN_ROUNDS * mixes)
+                graph_mix_masked=rounds * mixes)
     if got != want:
         raise AssertionError(f"{phase}: launches {got} != {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -4897,28 +4915,33 @@ def serve_step_bits(dev):
         "5 positions: each node's decode_step bit for bit")
 
 
-def launchers(archs):
-    """``python -m repro_torch.launch.train --arch <arch> --reduced --nodes
-    8 --rounds 20`` on the card for each of ``archs``, the child processes
-    (one torch thread each) started together and each awaited (at most
-    300 s; any still running is killed).  Returns {arch: (returncode,
-    stdout, stderr, wall s)}."""
+def launcher_argv(arch):
+    """The launcher's arguments for ``arch`` at the launcher phases' size:
+    reduced, 8 nodes, 20 rounds."""
+    return ["--arch", arch, "--reduced", "--nodes", "8", "--rounds", "20"]
+
+
+def launchers(runs):
+    """``python -m repro_torch.launch.train <argv>`` on the card for each
+    ``{label: argv}`` of ``runs``, the child processes (one torch thread
+    each) started together and each awaited (at most 300 s; any still
+    running is killed).  Returns {label: (returncode, stdout, stderr,
+    wall s)}."""
     import os
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-         "--reduced", "--nodes", "8", "--rounds", "20"],
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv,
         env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for arch in archs}
+        text=True) for label, argv in runs.items()}
     out = {}
     try:
-        for arch, proc in procs.items():
+        for label, proc in procs.items():
             stdout, stderr = proc.communicate(
                 timeout=max(1.0, 300 - (time.perf_counter() - t0)))
-            out[arch] = (proc.returncode, stdout, stderr,
-                         time.perf_counter() - t0)
+            out[label] = (proc.returncode, stdout, stderr,
+                          time.perf_counter() - t0)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -5593,13 +5616,22 @@ LAUNCHED = {"17(f)": ("llama3.2-3b",),
 
 
 def launcher_path(dev):
-    """17(f), 18(g) and 19(g): the launcher on the card for the
-    architectures of LAUNCHED and for Whisper, the child processes started
-    together: each of LAUNCHED exits 0 after twenty rounds (Jamba with its
-    experts; Pixtral and Llama-4-Scout text only); Whisper is refused with
-    a ``ValueError`` that names the missing ``frames``."""
+    """17(f), 18(g), 19(g) and 20(b): the launcher on the card for the
+    architectures of LAUNCHED, for Whisper and with a checkpoint
+    directory, the child processes started together: each of LAUNCHED
+    exits 0 after twenty rounds (Jamba with its experts; Pixtral and
+    Llama-4-Scout text only); Whisper is refused with a ``ValueError`` that
+    names the missing ``frames``; 20(b) as :func:`launcher_checkpoint`."""
+    import tempfile
     t0 = time.perf_counter()
-    got = launchers(sum(LAUNCHED.values(), ()) + (WHISPER,))
+    runs = {arch: launcher_argv(arch)
+            for arch in sum(LAUNCHED.values(), ()) + (WHISPER,)}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["20(b)"] = ["--arch", CKPT_LAUNCH_ARCH, "--reduced", "--nodes",
+                         str(CKPT_LAUNCH_N), "--rounds",
+                         str(CKPT_LAUNCH_ROUNDS), "--checkpoint-dir", tmp]
+        got = launchers(runs)
+        launcher_checkpoint(got.pop("20(b)"), tmp)
     code, _, stderr, _ = got.pop(WHISPER)
     last = stderr.strip().splitlines()[-1] if stderr.strip() else ""
     if code == 0 or not last.startswith("ValueError") \
@@ -5607,13 +5639,13 @@ def launcher_path(dev):
         raise AssertionError(f"19(g): the launcher on {WHISPER} exited "
                              f"{code}, last error line {last!r}")
     for phase, archs in LAUNCHED.items():
-        runs = {arch: launcher_lines(phase, arch, got[arch])
-                for arch in archs}
+        lines = {arch: launcher_lines(phase, arch, got[arch])
+                 for arch in archs}
         log(f"phase {phase}: launcher exit 0 for {', '.join(archs)}: "
-            f"{json.dumps(runs)}")
+            f"{json.dumps(lines)}")
     log(f"phase 19(g): {WHISPER} refused: {last}")
-    log(f"phase 17(f), 18(g), 19(g): {time.perf_counter() - t0:.1f} s, "
-        f"{len(got) + 1} launchers at once")
+    log(f"phase 17(f), 18(g), 19(g), 20(b): {time.perf_counter() - t0:.1f} "
+        f"s, {len(runs)} launchers at once")
 
 
 def frontends_path(dev):
@@ -5634,6 +5666,199 @@ def frontends_path(dev):
         f"{times['19(c)']:.1f}, (d) {t2 - t1:.1f}, (e) {t3 - t2:.1f}, "
         f"(f) {time.perf_counter() - t3:.1f})")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: checkpoints, the launcher's checkpoint directory, the dry run.
+# ---------------------------------------------------------------------------
+
+# 20(a): Whisper-tiny whole (37.36 M parameters a node, bf16) at n = 2,
+# batch 2 of 448 tokens and their frames a node, two rounds (a topology
+# round first), then one more round from the restored parameters and one
+# from the live ones.  The save's zlib (the reference's fallback, about
+# 13 MB/s on bf16 weights on the card's host) grows with the population,
+# so two nodes keep the phase short.
+CKPT_N, CKPT_BATCH, CKPT_ROUNDS = 2, 2, 2
+# 20(b): the launcher with --checkpoint-dir.
+CKPT_LAUNCH_ARCH, CKPT_LAUNCH_N, CKPT_LAUNCH_ROUNDS = "llama3.2-3b", 4, 3
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaNs included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def checkpoint_roundtrip(dev):
+    """20(a): Whisper-tiny whole trained CKPT_ROUNDS rounds at n = CKPT_N
+    (:func:`train_rounds`), ``{"params": state.params}`` saved by
+    ``CheckpointManager`` and restored onto the card: every leaf the same
+    dtype, shape and bits; then one plain round (``do_topology=False``) on
+    one batch from the restored parameters and from the live ones, each on
+    its own copy of the optimizer and Morph state: the losses bit for bit,
+    the parameters bit for bit or within 1e-6 (the record says which).
+    Returns the launches of the four rounds."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager, compressor
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import MorphHParams, make_train_step, train_state_to
+    from repro_torch.launch.shapes import frontend_inputs
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = get_config(WHISPER)
+    got, rec, state = train_rounds(
+        dev, cfg, "20(a)", n=CKPT_N, batch_size=CKPT_BATCH,
+        seq=cfg.max_position, rounds=CKPT_ROUNDS,
+        frontend=lambda gen: frontend_inputs(cfg, (CKPT_N, CKPT_BATCH), gen))
+    live = flatten(state.params)
+    population = sum(v.numel() * v.element_size() for v in live.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(CKPT_ROUNDS, {"params": state.params})
+        save_s = time.perf_counter() - t0
+        file_bytes = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        step, tree = mgr.restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    back = flatten(tree["params"])
+    if step != CKPT_ROUNDS or list(back) != list(live):
+        raise AssertionError(f"20(a): restored step {step}, leaves "
+                             f"{list(back)[:4]}... != {list(live)[:4]}...")
+    bad = [k for k, v in live.items() if not same_bits(back[k], v)
+           or back[k].device != v.device]
+    if bad:
+        raise AssertionError(f"20(a): restored leaves differ: {bad[:8]}")
+    # One more round from each: the same batch, each its own state copy.
+    batchers = train_batchers(CKPT_N, seed0=2000, batch=CKPT_BATCH,
+                              seq=cfg.max_position)
+    batch = next_batch(batchers)
+    batch.update(frontend_inputs(cfg, (CKPT_N, CKPT_BATCH),
+                                 torch.Generator(device=dev).manual_seed(20)))
+    opt = sgd(0.05)
+    hp = MorphHParams(k=min(3, CKPT_N - 1), view_size=min(3, CKPT_N - 1),
+                      beta=500.0)
+    step_fn = make_train_step(cfg, opt, hp, do_topology=False)
+    resumed = train_state_to(state, dev)._replace(params=tree["params"])
+    del tree, back
+    kernels.reset_launches()
+    with deterministic_cudnn():
+        resumed, m_resumed = step_fn(resumed, batch)
+        state, m_live = step_fn(state, batch)
+    torch.cuda.synchronize()
+    more = launch_counts()
+    got = {k: got[k] + more[k] for k in got}
+    if not same_bits(m_resumed["per_node_loss"], m_live["per_node_loss"]):
+        raise AssertionError(f"20(a): resumed losses "
+                             f"{m_resumed['per_node_loss'].tolist()} != "
+                             f"{m_live['per_node_loss'].tolist()}")
+    a, b = flatten(resumed.params), flatten(state.params)
+    bitwise = all(same_bits(a[k], b[k]) for k in b)
+    gap = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    if not bitwise and gap > 1e-6:
+        raise AssertionError(f"20(a): resumed parameters {gap} from the "
+                             "live ones (limit 1e-6)")
+    out = {"arch": WHISPER, "nodes": CKPT_N, "batch": [CKPT_BATCH,
+                                                        cfg.max_position],
+           "rounds": CKPT_ROUNDS, "losses": rec["losses"],
+           "round_ms": rec["round_ms"], "leaves": len(live),
+           "population_bytes": population, "file_bytes": file_bytes,
+           "compressor": compressor(), "save_s": save_s,
+           "restore_s": restore_s, "save_mb_per_s": population / 1e6 / save_s,
+           "restore_mb_per_s": population / 1e6 / restore_s,
+           "restored_bits_equal": True,
+           "resumed_loss": m_resumed["loss"].item(),
+           "resumed_losses_bitwise": True,
+           "resumed_params_bitwise": bitwise,
+           "resumed_params_max_abs_diff": gap, "launches": got}
+    log(f"phase 20(a): {json.dumps(out)}")
+    del state, resumed
+    torch.cuda.empty_cache()
+    return got
+
+
+def launcher_checkpoint(result, directory):
+    """20(b): the launcher with ``--checkpoint-dir`` exits 0 after its
+    rounds and leaves exactly ``ckpt_{rounds:08d}.msgpack.zst``, whose
+    ``params`` have a fresh population's structure, shapes and dtypes
+    (``abstract_stacked_params``, on the meta device)."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import abstract_stacked_params
+    from repro_torch.tree import flatten
+    code, stdout, stderr, wall = result
+    if code != 0 or f"done: {CKPT_LAUNCH_ROUNDS} rounds" not in stdout:
+        raise AssertionError(f"20(b): the launcher exited {code}: "
+                             f"{stderr[-2000:]}")
+    name = f"ckpt_{CKPT_LAUNCH_ROUNDS:08d}.msgpack.zst"
+    files = sorted(p.name for p in Path(directory).iterdir())
+    if files != [name]:
+        raise AssertionError(f"20(b): the checkpoint directory holds "
+                             f"{files}, not [{name!r}]")
+    path = Path(directory) / name
+    tree = load_pytree(str(path), device="cuda")
+    got = flatten(tree["params"])
+    want = flatten(abstract_stacked_params(
+        get_config(CKPT_LAUNCH_ARCH).reduced(), CKPT_LAUNCH_N))
+    shapes = lambda flat: [(k, tuple(v.shape), v.dtype)
+                           for k, v in flat.items()]
+    if list(tree) != ["params"] or shapes(got) != shapes(want):
+        raise AssertionError("20(b): the checkpoint's tree is not a fresh "
+                             "population's")
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    if not finite:
+        raise AssertionError("20(b): the checkpoint holds non-finite "
+                             "parameters")
+    log(f"phase 20(b): launcher --checkpoint-dir exit 0 in {wall:.1f} s: "
+        f"{name}, {path.stat().st_size} bytes, {len(got)} leaves as a "
+        f"fresh population's; last line {stdout.strip().splitlines()[-1]!r}")
+
+
+def dryrun_on_meta(dev):
+    """20(c): ``repro_torch.launch.dryrun`` over every ``ASSIGNED``
+    architecture, every shape and both production meshes, on meta
+    tensors: the card's allocated memory does not change; each record's
+    per-card argument bytes beside the card's memory."""
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.launch import SHAPES, dryrun
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    records = dryrun.run(ASSIGNED, list(SHAPES), [False, True])
+    wall = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"20(c): the dry run moved the card's "
+                             f"allocated memory {before} -> {after}")
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    rows = {}
+    for r in records:
+        key = (f"{r['arch']}/{r['shape']}/"
+               f"{'multi' if r['multi_pod'] else 'single'}")
+        rows[key] = ("skipped" if "skipped" in r else
+                     round(r["memory"]["argument_bytes"] / 1e9, 6))
+    done = [v for v in rows.values() if v != "skipped"]
+    log(f"phase 20(c): dry run, {len(records)} records ({len(done)} run, "
+        f"{len(records) - len(done)} skipped) in {wall:.1f} s, allocated "
+        f"{before} -> {after} bytes; per-card argument GB beside the card's "
+        f"{hbm / 1e9:.3f} GB (largest {max(done):.3f}, "
+        f"{max(done) / (hbm / 1e9):.1%}): {json.dumps(rows)}")
+
+
+def checkpoint_path(dev):
+    """Phase 20: (a) and (c) ((b) runs in :func:`launcher_path`); returns
+    the launches of (a)."""
+    t0 = time.perf_counter()
+    got = checkpoint_roundtrip(dev)
+    t1 = time.perf_counter()
+    dryrun_on_meta(dev)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
+        f"(c) {time.perf_counter() - t1:.1f})")
+    return got
 
 
 def main():
@@ -5705,6 +5930,7 @@ def main():
         train_counts = train_path(dev)
     zoo_counts = zoo_path(dev)
     front_counts = frontends_path(dev)
+    ckpt_counts = checkpoint_path(dev)
     launcher_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
@@ -5752,6 +5978,7 @@ def main():
             "launches_train": train_counts[name],
             "launches_zoo": zoo_counts[name],
             "launches_frontends": front_counts[name],
+            "launches_checkpoint": ckpt_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

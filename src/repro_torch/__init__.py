@@ -2,7 +2,8 @@
 
 The package mirrors ``repro``'s subpackages so that every function has an
 obvious counterpart, and is held against it by the ``tests/test_torch_*``
-parity tests.  It imports ``torch`` and numpy only.
+parity tests.  It imports ``torch`` and numpy only (and, for checkpoints,
+``zstandard`` where it is installed).
 
 Entry points (:class:`repro_torch.dlrt.DecentralizedRunner`, whose
 ``RunnerConfig.engine`` picks the dense or the sparse (CSR) engine; the

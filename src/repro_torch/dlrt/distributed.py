@@ -23,15 +23,31 @@ inputs before the next group starts (:func:`repro_torch.kernels.ops.
 mix_masked_in_place`).  So a step updates the parameters and optimizer
 state of the ``TrainState`` it is given, and returns them.
 
-The node-axis sharding the sharded superstep reads (``node_axes``,
-``superstep_node_sharding``) is reduced to what a ``torch.distributed``
-mesh has: the shard count and this rank's index.  Still to port (ROADMAP
-queue 1 item 5): ``leaf_spec``, ``params_sharding``, ``cache_spec``,
-``train_state_sharding``, ``serve_kv_spec``, the abstract-shape helpers
-and ``launch/mesh.py`` ``make_production_mesh``.
+Sharding policies (DESIGN.md §4).  The zoo's production mesh
+(``repro_torch.launch.mesh.make_production_mesh``: ``("data", "model")``
+of (16, 16), or ``("pod", "data", "model")`` of (2, 16, 16)) and the
+reference's two policies: ``node_dp`` puts the node axis on ``data`` (and
+``pod``), each replica tensor-parallel over ``model``; ``node_fsdp``
+replicates the node axis (multi-pod: over ``pod``) and shards every node's
+leaves over ``data`` x ``model``.  :func:`leaf_spec`, :func:`cache_spec`,
+:func:`batch_sharding`, :func:`serve_kv_spec` and the tree builders
+(:func:`params_sharding`, :func:`cache_sharding`,
+:func:`train_state_sharding`) give the reference's ``PartitionSpec`` for
+every leaf, as the port's own :class:`PartitionSpec` (a tuple of None, an
+axis name or a tuple of names a dim); :func:`shard_shape` is a leaf's
+shape on one card and :func:`placements` its DTensor placements.  The
+``abstract_*`` helpers build a state's, a population's or a cache's
+leaves on the meta device: shapes and dtypes, no memory.  They are pure
+functions of shapes, so they run on any host; the train step over a 256-
+or 512-rank ``DeviceMesh`` with DTensor state under these specs is not
+ported (ROADMAP queue 1 item 5).  The node-axis sharding the sharded
+superstep reads (``node_axes``, ``superstep_node_sharding``) is reduced to
+what a ``torch.distributed`` node mesh has: the shard count and this
+rank's index.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -45,17 +61,18 @@ from ..models import model
 from ..optim import Optimizer, apply_updates
 from ..tree import flatten, tree_map, unflatten
 
-# The one axis a NodeMesh has: the reference's single-pod node axis.
-NODE_AXES = ("data",)
 # The mix's groups of leaves stop below this many bytes (a larger leaf is
 # a group of its own), which bounds the mix's extra memory.
 MIX_GROUP_BYTES = 2 << 30
 
 
 def node_axes(mesh) -> Tuple[str, ...]:
-    """Mesh axes the node axis maps onto: ``("data",)`` (a
-    :class:`~repro_torch.launch.NodeMesh` is one axis of ranks)."""
-    return NODE_AXES
+    """Mesh axes the node axis maps onto under ``node_dp`` (and in the
+    sharded superstep): ``("pod", "data")`` on a multi-pod layout, else
+    ``("data",)`` (a :class:`~repro_torch.launch.NodeMesh` is one axis of
+    ranks)."""
+    return (("pod", "data") if "pod" in getattr(mesh, "axis_names", ())
+            else ("data",))
 
 
 def superstep_node_sharding(mesh) -> Tuple[int, int]:
@@ -64,6 +81,242 @@ def superstep_node_sharding(mesh) -> Tuple[int, int]:
     rank's shard.  A one-rank mesh runs the same sharded program, its
     collectives over one rank."""
     return mesh.world, mesh.rank
+
+
+# ---------------------------------------------------------------------------
+# Sharding policies on the production mesh.
+# ---------------------------------------------------------------------------
+
+_EXPERT_KEYS = ("up", "down", "gate")
+
+
+class PartitionSpec(tuple):
+    """A leaf's sharding, one entry a dim: None (replicated), a mesh axis
+    name, or a tuple of names (the dim split over those axes, the first
+    outermost); dims past the last entry are replicated.  The reference's
+    ``jax.sharding.PartitionSpec``, as a tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh layout (the reference's ``NamedSharding``)."""
+    mesh: Any
+    spec: PartitionSpec
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A leaf's shape on one card of ``mesh`` under ``spec`` (raises where
+    a dim does not divide by its axes' sizes)."""
+    out = []
+    for d, size in enumerate(shape):
+        parts = math.prod(mesh.shape[a] for a in _entry_axes(
+            spec[d] if d < len(spec) else None))
+        if size % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"into {parts} shards ({spec})")
+        out.append(size // parts)
+    return tuple(out)
+
+
+def placements(spec, mesh):
+    """``spec`` as DTensor placements, one a mesh axis: ``Shard(d)`` where
+    dim d is split over that axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate() for _ in mesh.axis_names]
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            out[list(mesh.axis_names).index(a)] = Shard(d)
+    return tuple(out)
+
+
+def _path_names(path) -> Tuple[str, ...]:
+    """The names of a dotted path (or a sequence of segments), tuple
+    indices dropped, as the reference's ``_path_names`` drops its
+    ``SequenceKey``s."""
+    segments = path.split(".") if isinstance(path, str) else path
+    return tuple(str(s) for s in segments
+                 if str(s) and not (isinstance(s, int) or str(s).isdigit()))
+
+
+def _map_with_names(fn, tree, names: Tuple[str, ...] = ()):
+    """``fn(names, leaf)`` on every tensor (or shape-carrying) leaf of
+    nested dicts, tuples and NamedTuples, keeping the structure: a dict
+    key adds its names (a flat dict's dotted key all of its segments), a
+    NamedTuple field its name, a tuple index none.  A leaf that is neither
+    a container nor has a ``shape`` (Morph's generator) maps to None."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_with_names(fn, v, names + _path_names(
+            str(k)))) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_names(fn, v, names + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_with_names(fn, v, names) for v in tree)
+    if not hasattr(tree, "shape"):
+        return None
+    return fn(names, tree)
+
+
+def _node_spec(mesh, n: int):
+    """Greedy mesh axes for the node axis: ("pod", "data") when both
+    divide, else whichever does, else replicated."""
+    used = []
+    rem = n
+    for a in node_axes(mesh):
+        size = _axis_size(mesh, a)
+        if size > 1 and rem % size == 0:
+            used.append(a)
+            rem //= size
+    if not used:
+        return None
+    return used[0] if len(used) == 1 else tuple(used)
+
+
+def leaf_spec(path, shape: Tuple[int, ...], *, policy: str, mesh,
+              num_periods: int, n_nodes: int) -> PartitionSpec:
+    """The spec of one node-stacked parameter leaf ``[n_nodes, ...]`` at
+    ``path`` (its dotted path or its names): the node axis by the policy;
+    an expert bank's (a leaf named ``up``, ``down`` or ``gate`` with three
+    body dims) expert axis to ``model``, else the last divisible dim; under
+    ``node_fsdp`` the largest remaining divisible dim to ``data``; the scan
+    period axis never."""
+    names = _path_names(path)
+    spec: list = [None] * len(shape)
+    dsize, msize = _axis_size(mesh, "data"), _axis_size(mesh, "model")
+    psize = _axis_size(mesh, "pod")
+
+    if policy == "node_dp":
+        spec[0] = _node_spec(mesh, shape[0])
+    elif psize > 1 and shape[0] % psize == 0:
+        spec[0] = "pod"
+
+    start = 1
+    skip = set()
+    if len(shape) > start + 1 and shape[start] == num_periods:
+        skip.add(start)                     # never shard the scan axis
+    cand = [i for i in range(start, len(shape)) if i not in skip]
+
+    is_expert_bank = (names and names[-1] in _EXPERT_KEYS
+                      and len(cand) >= 3)
+    model_dim = None
+    if is_expert_bank:
+        e_dim = cand[0]
+        if shape[e_dim] % msize == 0 and msize > 1:
+            spec[e_dim] = "model"
+            model_dim = e_dim
+    if model_dim is None and msize > 1:
+        for i in reversed(cand):
+            if shape[i] % msize == 0 and shape[i] >= msize:
+                spec[i] = "model"
+                model_dim = i
+                break
+    if policy == "node_fsdp" and dsize > 1:
+        rest = [i for i in cand if i != model_dim]
+        rest.sort(key=lambda i: -shape[i])
+        for i in rest:
+            if shape[i] % dsize == 0 and shape[i] >= dsize:
+                spec[i] = "data"
+                break
+    return P(*spec)
+
+
+def params_sharding(mesh, cfg, params_shape) -> Any:
+    """The :class:`NamedSharding` of every node-stacked parameter leaf
+    (the leading axis the node's)."""
+    return _map_with_names(
+        lambda names, leaf: NamedSharding(mesh, leaf_spec(
+            names, tuple(leaf.shape), policy=cfg.sharding_policy, mesh=mesh,
+            num_periods=cfg.num_periods, n_nodes=leaf.shape[0])),
+        params_shape)
+
+
+def batch_sharding(mesh, cfg, n_nodes: int,
+                   per_node_batch: Optional[int] = None) -> NamedSharding:
+    """``[n_nodes, per_node_batch, seq]`` inputs."""
+    if cfg.sharding_policy == "node_dp":
+        return NamedSharding(mesh, P(_node_spec(mesh, n_nodes), None, None))
+    pod = ("pod" if "pod" in mesh.axis_names
+           and n_nodes % _axis_size(mesh, "pod") == 0 else None)
+    data = ("data" if per_node_batch is None
+            or (per_node_batch % _axis_size(mesh, "data") == 0
+                and per_node_batch >= _axis_size(mesh, "data")) else None)
+    return NamedSharding(mesh, P(pod, data, None))
+
+
+def cache_spec(path, shape, *, policy: str, mesh,
+               num_periods: int) -> PartitionSpec:
+    """Decode caches: ``[n, (periods,) batch, seq, kv_heads, head_dim]``
+    KV buffers and ``[n, (periods,) batch, ...]`` states.  The batch goes
+    to ``data`` under ``node_fsdp`` (``node_dp`` gave it the node axis),
+    the innermost divisible feature dim to ``model``."""
+    msize, dsize = _axis_size(mesh, "model"), _axis_size(mesh, "data")
+    psize = _axis_size(mesh, "pod")
+    spec: list = [None] * len(shape)
+    n = shape[0]
+    if policy == "node_dp":
+        spec[0] = _node_spec(mesh, n)
+    elif psize > 1 and n % psize == 0:
+        spec[0] = "pod"
+    i = 1
+    if len(shape) > i + 1 and shape[i] == num_periods:
+        i += 1                               # skip the period axis
+    if policy == "node_fsdp" and len(shape) > i \
+            and shape[i] % dsize == 0 and dsize > 1:
+        spec[i] = "data"
+    if msize > 1:
+        for j in reversed(range(i + 1, len(shape))):
+            if shape[j] % msize == 0 and shape[j] >= msize:
+                spec[j] = "model"
+                break
+    return P(*spec)
+
+
+def cache_sharding(mesh, cfg, cache_shape) -> Any:
+    """The :class:`NamedSharding` of every node-stacked cache leaf
+    (:func:`cache_spec`)."""
+    return _map_with_names(
+        lambda names, leaf: NamedSharding(mesh, cache_spec(
+            names, tuple(leaf.shape), policy=cfg.sharding_policy, mesh=mesh,
+            num_periods=cfg.num_periods)),
+        cache_shape)
+
+
+def replicated(mesh) -> NamedSharding:
+    """Replicated on every card of ``mesh`` (the empty spec)."""
+    return NamedSharding(mesh, P())
+
+
+def serve_kv_spec(mesh, cfg, per_node_batch: int) -> PartitionSpec:
+    """The spec of one node's KV buffer ``[b, t, kvh, hd]`` (what
+    :func:`cache_sharding` gives the node-stacked leaf)."""
+    msize, dsize = _axis_size(mesh, "model"), _axis_size(mesh, "data")
+    spec = [None, None, None, None]
+    if cfg.sharding_policy == "node_fsdp" and dsize > 1 \
+            and per_node_batch % dsize == 0:
+        spec[0] = "data"
+    for j, size in ((3, cfg.head_dim), (2, cfg.num_kv_heads)):
+        if msize > 1 and size % msize == 0 and size >= msize:
+            spec[j] = "model"
+            break
+    return P(*spec)
 
 
 # ---------------------------------------------------------------------------
@@ -314,3 +567,53 @@ def make_serve_step(cfg, *, window="cfg"):
         return torch.stack(logits), cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Shapes and shardings of whole states (the dry run's arguments).
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def abstract_stacked_params(cfg, n_nodes: int):
+    """Node-stacked parameters ``[n_nodes, ...]`` as meta tensors: the
+    shapes and dtypes of :func:`init_train_state`'s ``params``, with no
+    memory and no draws."""
+    one = model.init_params(cfg, 0, META)
+    return tree_map(lambda leaf: leaf.new_empty((n_nodes,) + leaf.shape),
+                    one)
+
+
+def abstract_train_state(cfg, optimizer: Optimizer, n_nodes: int
+                         ) -> TrainState:
+    """:func:`init_train_state`'s state as meta tensors (its Morph
+    generator a CPU generator, as always): no memory, no draws."""
+    params = abstract_stacked_params(cfg, n_nodes)
+    return TrainState(params, _init_opt_state(optimizer, flatten(params)),
+                      init_state(_ring(n_nodes, META)))
+
+
+def abstract_cache(cfg, n_nodes: int, per_node_batch: int, max_len: int):
+    """Node-stacked decode caches as meta tensors
+    (:func:`init_node_caches` on the meta device)."""
+    return init_node_caches(cfg, n_nodes, per_node_batch, max_len,
+                            device=META)
+
+
+def train_state_sharding(mesh, cfg, state_shape) -> TrainState:
+    """The :class:`NamedSharding` of every tensor of a
+    :class:`TrainState`: the parameters by :func:`leaf_spec`, the
+    optimizer's moments mirroring them and its ``[n]`` counts replicated,
+    Morph's tensors replicated (its generator, host state, None)."""
+    def opt_leaf(names, leaf):
+        if leaf.dim() <= 1:
+            return replicated(mesh)
+        return NamedSharding(mesh, leaf_spec(
+            names, tuple(leaf.shape), policy=cfg.sharding_policy, mesh=mesh,
+            num_periods=cfg.num_periods, n_nodes=leaf.shape[0]))
+    morph = MorphGraphState(*(replicated(mesh) for _ in range(4)),
+                            generator=None)
+    return TrainState(params_sharding(mesh, cfg, state_shape.params),
+                      _map_with_names(opt_leaf, state_shape.opt_state),
+                      morph)

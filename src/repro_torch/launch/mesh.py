@@ -1,5 +1,5 @@
-"""The node mesh of the sharded round engine — the port of
-``repro.launch.mesh.make_superstep_mesh`` onto ``torch.distributed``.
+"""The meshes of the port (``repro.launch.mesh`` on ``torch.distributed``):
+the node mesh of the sharded round engine and the zoo's production mesh.
 
 The reference shards the node axis over a 1-D ``("data",)`` JAX mesh and
 runs the round body under ``shard_map``.  Here each shard is a process:
@@ -20,17 +20,25 @@ Three cases (:func:`make_superstep_mesh`):
 * none is, and more shards are asked for: the ranks must be started
   first, so it raises and says how.
 
-``make_production_mesh`` and ``make_sweep_mesh`` (the zoo's training mesh
-and the sweep's ``("exp", "data")`` mesh) are not ported.
+The production mesh (:func:`make_production_mesh`) is the layout the
+zoo's sharding policies (``repro_torch.dlrt.distributed``) and the dry run
+(``repro_torch.launch.dryrun``) reason about: 256 cards as ``("data",
+"model")`` of (16, 16), or two such pods as ``("pod", "data", "model")``.
+It is a :class:`MeshLayout`, names and sizes only, so the policies run on
+any host; :meth:`MeshLayout.device_mesh` makes the real ``DeviceMesh``
+where a process group of that many ranks runs.  ``make_sweep_mesh`` (the
+sweep's ``("exp", "data")`` mesh) is not ported (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
+import math
 import shutil
 import tempfile
+from collections import OrderedDict
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,6 +47,46 @@ from .. import resolve_device
 
 # How long a collective waits for the other ranks before the run fails.
 DEFAULT_TIMEOUT = timedelta(seconds=300)
+
+
+@dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's axis names and sizes, as the reference's ``Mesh`` gives
+    them (``shape``: name -> size, ``axis_names``), and its card count
+    ``size``; no devices."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        return OrderedDict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def device_mesh(self, device_type: str = "cuda"):
+        """The ``DeviceMesh`` of this layout over the default process
+        group, which must have :attr:`size` ranks (as ``jax.make_mesh``
+        fails with fewer devices)."""
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if world != self.size:
+            raise ValueError(
+                f"a {dict(self.shape)} mesh needs {self.size} ranks and the "
+                f"default process group has {world}: start {self.size} "
+                "ranks (torchrun --nnodes ... --nproc-per-node ...) and "
+                "initialise the group first")
+        from torch.distributed.device_mesh import init_device_mesh
+        return init_device_mesh(device_type, self.sizes,
+                                mesh_dim_names=self.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """Single pod: 256 cards as (data=16, model=16).  Multi-pod: 2 pods =
+    512 cards as (pod=2, data=16, model=16)."""
+    if multi_pod:
+        return MeshLayout(("pod", "data", "model"), (2, 16, 16))
+    return MeshLayout(("data", "model"), (16, 16))
 
 
 def backend_for(device: torch.device) -> str:

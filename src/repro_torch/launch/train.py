@@ -21,9 +21,12 @@ reference's launcher fails there with a ``KeyError``; ROADMAP queue 3).
 
 The token streams build a ``[vocab, vocab]`` transition matrix, as the
 reference's do, so an unreduced vocabulary needs more host memory than a
-machine has (ROADMAP queue 3).  ``--mesh single|multi`` (the production
-mesh and its sharding policies) and ``--checkpoint-dir`` are not ported
-(ROADMAP queue 1 item 5, "Model zoo, the rest") and raise.
+machine has (ROADMAP queue 3).  ``--checkpoint-dir D`` saves ``{"params":
+...}`` in the reference's file format (``repro_torch.checkpoint``) every
+100th round and at the end, under step ``--rounds``, the newest three
+kept.  ``--mesh single|multi`` raises: the train step over the production
+mesh's 256 or 512 ranks, with DTensor state under
+``train_state_sharding``, is not ported (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -39,7 +42,11 @@ from ..dlrt.distributed import (MorphHParams, init_train_state,
                                 make_train_step)
 from ..optim import sgd
 
-_WAITS = 'not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest")'
+_WAITS = ('not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest"): '
+          "the zoo's train step over a 256- or 512-rank DeviceMesh, with "
+          "DTensor state under train_state_sharding; the sharding policies "
+          "and the mesh layout are ported (python -m "
+          "repro_torch.launch.dryrun)")
 
 
 def build_batcher(args, cfg, node: int) -> TokenBatcher:
@@ -80,11 +87,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: the production mesh "
-                                  f"and its sharding policies are {_WAITS}")
-    if args.checkpoint_dir:
-        raise NotImplementedError(f"--checkpoint-dir: checkpoints are "
-                                  f"{_WAITS}")
+        raise NotImplementedError(f"--mesh {args.mesh}: training on the "
+                                  f"production mesh is {_WAITS}")
     cfg = get_config(args.arch)
     if cfg.encoder is not None:
         raise ValueError(f"--arch {args.arch}: its encoder reads a 'frames' "
@@ -103,6 +107,10 @@ def main(argv=None):
     step_plain = make_train_step(cfg, opt, hp, microbatch=args.microbatch,
                                  do_topology=False)
     batchers = [build_batcher(args, cfg, i) for i in range(args.nodes)]
+    ckpt = None
+    if args.checkpoint_dir:
+        from ..checkpoint import CheckpointManager
+        ckpt = CheckpointManager(args.checkpoint_dir)
 
     t0 = time.time()
     for rnd in range(args.rounds):
@@ -117,6 +125,10 @@ def main(argv=None):
             print(f"round {rnd:5d}  loss {loss:.4f}  "
                   f"in-deg [{deg.min()}..{deg.max()}]  "
                   f"({time.time() - t0:.1f}s)", flush=True)
+        if ckpt is not None and rnd and rnd % 100 == 0:
+            ckpt.save(rnd, {"params": state.params})
+    if ckpt is not None:
+        ckpt.save(args.rounds, {"params": state.params})
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     print(f"done: {args.rounds} rounds in {time.time() - t0:.1f}s")

@@ -15,13 +15,76 @@ import math
 
 import torch
 
+from ..tree import flatten, tree_map
+
+
+class MetaGenerator(torch.Generator):
+    """The generator of an initialiser on the meta device: its ``device``
+    is meta, so :func:`drawn` gives meta tensors (a shape and a dtype, no
+    values, no memory) and nothing is drawn."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed`` (a
+    :class:`MetaGenerator` on the meta device)."""
+    if device.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def drawn(gen: torch.Generator, shape, dtype, draw):
+    """``draw()``, a tensor of ``shape`` drawn with ``gen`` on its device,
+    cast to ``dtype`` there (no copy where it is ``dtype`` already).  On
+    the meta device ``draw`` is not called: an empty meta tensor of
+    ``shape`` and ``dtype``.  Every initialiser draws through here, so
+    this is the one place that decides whether to draw (the card's torch
+    runs meta kernels such as ``trunc_normal_`` as slow Python refs)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return draw().to(dtype)
+
+
+def stacked(make, periods: int):
+    """``make()``'s tree for each of ``periods`` periods, stacked on a new
+    leading period axis as each is made, so no more than the stack and one
+    period's tree are alive at once (a view of the one tree when there is
+    one period).  On the meta device one period is made, for its shapes."""
+    first = make()
+    if periods == 1:
+        return tree_map(lambda leaf: leaf.unsqueeze(0), first)
+    out = tree_map(lambda leaf: leaf.new_empty((periods,) + leaf.shape),
+                   first)
+    dst = flatten(out)
+    if next(iter(dst.values())).is_meta:
+        return out
+    for i in range(periods):
+        tree, first = (first if i == 0 else make()), None
+        for path, leaf in flatten(tree).items():
+            dst[path][i].copy_(leaf)
+        del tree
+    return out
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype):
+    """Normal at ``std``, drawn in f32 on the generator's device and cast
+    there."""
+    return drawn(gen, shape, dtype, lambda: torch.randn(
+        shape, generator=gen, dtype=torch.float32,
+        device=gen.device).mul_(std))
+
 
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype):
     """Standard normal truncated to [-2, 2], times ``std``: drawn in f32 on
     the generator's device and cast to ``dtype`` there."""
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w.mul_(std).to(dtype)
+    def draw():
+        w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w.mul_(std)
+    return drawn(gen, shape, dtype, draw)
 
 
 def _dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0):

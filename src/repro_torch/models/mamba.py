@@ -48,15 +48,17 @@ def mamba_params(gen, cfg, dtype):
     # [dt_min, dt_max] as in the reference implementation.
     a = torch.arange(1, s.d_state + 1, dtype=torch.float32,
                      device=dev)[None, :].repeat(di, 1)
-    u = torch.rand((di,), generator=gen, dtype=torch.float32, device=dev)
+    u = layers.drawn(gen, (di,), torch.float32, lambda: torch.rand(
+        (di,), generator=gen, dtype=torch.float32, device=dev))
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     inv_softplus = dt + torch.log(-torch.expm1(-dt))
     in_proj = layers.dense_params(gen, d, 2 * di, dtype)
-    conv_w = torch.randn((s.d_conv, di), generator=gen, dtype=torch.float32,
-                         device=dev) / math.sqrt(s.d_conv)
+    conv_w = layers.drawn(gen, (s.d_conv, di), dtype, lambda: torch.randn(
+        (s.d_conv, di), generator=gen, dtype=torch.float32,
+        device=dev) / math.sqrt(s.d_conv))
     return {
         "in_proj": in_proj,
-        "conv_w": conv_w.to(dtype),
+        "conv_w": conv_w,
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
         "x_proj": layers.dense_params(gen, di, dtr + 2 * s.d_state, dtype),
         "dt_proj": {"w": layers._dense_init(gen, (dtr, di), dtype),

@@ -45,10 +45,12 @@ def _expert_bank(gen, E: int, d_in: int, d_out: int, dtype):
     """``E`` experts' ``[d_in, d_out]`` weights, each drawn on its own at
     fan-in ``d_in`` (one ``[E, d_in, d_out]`` draw would take ``E`` as
     its fan-in)."""
-    bank = torch.empty((E, d_in, d_out), dtype=dtype, device=gen.device)
-    for e in range(E):
-        bank[e] = layers._dense_init(gen, (d_in, d_out), dtype)
-    return bank
+    def draw():
+        bank = torch.empty((E, d_in, d_out), dtype=dtype, device=gen.device)
+        for e in range(E):
+            bank[e] = layers._dense_init(gen, (d_in, d_out), dtype)
+        return bank
+    return layers.drawn(gen, (E, d_in, d_out), dtype, draw)
 
 
 def moe_params(gen, cfg, dtype):

@@ -38,13 +38,6 @@ def _num_heads(cfg) -> int:
         else cfg.d_model // cfg.ssm.head_dim
 
 
-def _normal(gen, shape, std: float, dtype):
-    """A plain normal times ``std``, drawn in f32 and cast."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(std).to(dtype)
-
-
 def rwkv_params(gen, cfg, dtype):
     d = cfg.d_model
     dev = gen.device
@@ -53,7 +46,7 @@ def rwkv_params(gen, cfg, dtype):
         "mu_base": torch.zeros((d,), dtype=dtype, device=dev),
         "mu": torch.zeros((_MIX_KINDS, d), dtype=dtype, device=dev),
         "mix_a": layers._dense_init(gen, (d, _MIX_KINDS * _MIX_LORA), dtype),
-        "mix_b": _normal(gen, (_MIX_KINDS, _MIX_LORA, d), 0.01, dtype),
+        "mix_b": layers.normal(gen, (_MIX_KINDS, _MIX_LORA, d), 0.01, dtype),
         # projections
         "r": layers.dense_params(gen, d, d, dtype),
         "k": layers.dense_params(gen, d, d, dtype),
@@ -63,9 +56,9 @@ def rwkv_params(gen, cfg, dtype):
         # data-dependent decay: w = exp(-exp(w0 + tanh(xw @ w1) @ w2))
         "w0": torch.full((d,), -2.0, dtype=torch.float32, device=dev),
         "w1": layers._dense_init(gen, (d, _DECAY_LORA), dtype),
-        "w2": _normal(gen, (_DECAY_LORA, d), 0.01, dtype),
+        "w2": layers.normal(gen, (_DECAY_LORA, d), 0.01, dtype),
         # per-channel current-token bonus
-        "u": _normal(gen, (d,), 0.1, torch.float32),
+        "u": layers.normal(gen, (d,), 0.1, torch.float32),
         # post-WKV group norm (per head)
         "ln_x": {"scale": torch.ones((d,), dtype=dtype, device=dev),
                  "bias": torch.zeros((d,), dtype=dtype, device=dev)},

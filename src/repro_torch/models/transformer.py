@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import BlockSpec
-from ..tree import flatten, tree_map
+from ..tree import tree_map
 from . import attention, layers, mamba, moe, rwkv
 
 # Whisper's encoder blocks: attention with a dense MLP.
@@ -55,36 +55,9 @@ def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
-def _normal(gen, shape, std: float, dtype):
-    """Normal at ``std``, drawn in f32 on the generator's device and cast
-    there (the reference's learned positions)."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(std).to(dtype)
-
-
 def _index(tree, i: int):
     """Period ``i`` of a period-stacked tree."""
     return tree_map(lambda leaf: leaf[i], tree)
-
-
-def _stacked(make, periods: int):
-    """``make()``'s tree for each of ``periods`` periods, stacked on a new
-    leading period axis as each is made, so no more than the stack and one
-    period's tree are alive at once (a view of the one tree when there is
-    one period)."""
-    first = make()
-    if periods == 1:
-        return tree_map(lambda leaf: leaf.unsqueeze(0), first)
-    out = tree_map(lambda leaf: leaf.new_empty((periods,) + leaf.shape),
-                   first)
-    dst = flatten(out)
-    for i in range(periods):
-        tree, first = (first if i == 0 else make()), None
-        for path, leaf in flatten(tree).items():
-            dst[path][i].copy_(leaf)
-        del tree
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +193,11 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     """Random parameters in the reference's layout, drawn on ``device``
     (the card unless the caller asks for the CPU) from a
     ``torch.Generator`` seeded with ``seed``; each leaf is drawn in f32
-    and cast there, so a full-width model is never built on the host."""
+    and cast there, so a full-width model is never built on the host.  On
+    ``device="meta"`` it draws nothing and allocates nothing: the leaves
+    are meta tensors of the model's shapes and dtypes."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = layers.generator(dev, seed)
     dtype = _dtype(cfg.param_dtype)
     p: Dict[str, Any] = {
         "embed": layers.embed_params(gen, cfg.vocab_size, cfg.d_model,
@@ -234,8 +209,8 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         p["lm_head"] = layers.dense_params(gen, cfg.d_model, cfg.vocab_size,
                                            dtype)
     if cfg.learned_pos:
-        p["pos_embed"] = _normal(gen, (cfg.max_position_embed(),
-                                       cfg.d_model), 0.02, dtype)
+        p["pos_embed"] = layers.normal(
+            gen, (cfg.max_position_embed(), cfg.d_model), 0.02, dtype)
     if cfg.frontend is not None:
         d_in = cfg.d_model if cfg.frontend == "audio" else VISION_DIM
         p["frontend_proj"] = layers.dense_params(gen, d_in, cfg.d_model,
@@ -244,17 +219,15 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     if cfg.prefix:
         p["prefix"] = tuple(block_params(gen, cfg, s, dtype, cross=cross)
                             for s in cfg.prefix)
-    p["body"] = tuple(
-        _stacked(lambda spec=spec: block_params(gen, cfg, spec, dtype,
-                                                cross=cross),
-                 cfg.num_periods)
-        for spec in cfg.pattern)
+    p["body"] = tuple(layers.stacked(
+        lambda spec=spec: block_params(gen, cfg, spec, dtype, cross=cross),
+        cfg.num_periods) for spec in cfg.pattern)
     if cfg.encoder is not None:
         p["encoder"] = {
             "blocks": tuple(block_params(gen, cfg, _ENCODER_SPEC, dtype)
                             for _ in range(cfg.encoder.num_layers)),
-            "pos": _normal(gen, (cfg.encoder.seq_len, cfg.d_model), 0.02,
-                           dtype),
+            "pos": layers.normal(gen, (cfg.encoder.seq_len, cfg.d_model),
+                                 0.02, dtype),
             "final_norm": layers.norm_params(cfg.d_model, cfg.norm_type,
                                              dtype, dev),
         }
@@ -402,12 +375,10 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
     prefix = tuple(init_block_cache(cfg, s, batch, max_len, dtype, dev,
                                     cross_len)
                    for s in cfg.prefix)
-    body = tuple(
-        _stacked(lambda spec=spec: init_block_cache(cfg, spec, batch,
-                                                    max_len, dtype, dev,
-                                                    cross_len),
-                 cfg.num_periods)
-        for spec in cfg.pattern)
+    body = tuple(layers.stacked(
+        lambda spec=spec: init_block_cache(cfg, spec, batch, max_len, dtype,
+                                           dev, cross_len),
+        cfg.num_periods) for spec in cfg.pattern)
     return {"prefix": prefix, "body": body}
 
 

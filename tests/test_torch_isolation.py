@@ -1,9 +1,11 @@
-"""The port stands alone: it imports neither JAX nor the reference package,
+"""The port stands alone: it imports neither JAX nor the reference package
+(nor ``msgpack``: its checkpoints carry their own codec),
 its entry points refuse a host without a card unless asked for the CPU,
 and a kernel wrapper given a CUDA tensor launches its kernel or raises —
 it never runs the plain version in the kernel's place."""
 import ast
 import dataclasses
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -15,6 +17,8 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 import numpy as np                                           # noqa: E402
 
 from repro_torch.bench import common                         # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager,       # noqa: E402
+                                    load_pytree, save_pytree)
 from repro_torch.configs import get_config                  # noqa: E402
 from repro_torch.core import (InGraphEpidemicLocalStrategy,  # noqa: E402
                               InGraphEpidemicStrategy,
@@ -58,7 +62,7 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), \
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
@@ -68,7 +72,15 @@ ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "zoo-init-params", "zoo-init-cache", "async-runner",
                 "train-state", "train-launcher", "moe-init-params",
                 "moe-init-cache", "rwkv-init-params", "rwkv-init-cache",
-                "moe-train-launcher")
+                "moe-train-launcher", "load-checkpoint",
+                "restore-checkpoint")
+
+
+def _checkpoint_file() -> str:
+    """A checkpoint written on the CPU, in a fresh temporary directory."""
+    path = str(Path(tempfile.mkdtemp()) / "ckpt_00000001.msgpack.zst")
+    save_pytree(path, {"w": torch.ones(2)})
+    return path
 
 
 def _jamba_reduced():
@@ -121,6 +133,9 @@ def _make_entry_point(name):
         "moe-train-launcher": lambda: train_launcher.main(
             ["--arch", "jamba-1.5-large-398b", "--reduced", "--nodes", "2",
              "--rounds", "1"]),
+        "load-checkpoint": lambda: load_pytree(_checkpoint_file()),
+        "restore-checkpoint": lambda: CheckpointManager(
+            str(Path(_checkpoint_file()).parent)).restore(),
         "async-runner": lambda: AsyncRunner(
             init_fn=lambda g: cnn_params(g, image_size=8, width=4),
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),

@@ -324,11 +324,35 @@ def test_launcher_at_smoke_size_without_jax():
         assert "in-deg [2..2]" in ln or "in-deg [3..3]" in ln
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "single"], ["--mesh", "multi"],
-                                  ["--checkpoint-dir", "ckpt"]])
+@pytest.mark.parametrize("argv", [["--mesh", "single"], ["--mesh", "multi"]])
 def test_launcher_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         tlaunch.main(["--reduced", "--device", "cpu"] + argv)
+
+
+def test_launcher_writes_a_checkpoint_that_loads(tmp_path):
+    """``--checkpoint-dir`` saves ``{"params": ...}`` under step
+    ``--rounds`` at the end (none at round 0), as the reference's launcher
+    does; the file holds a population of the launcher's structure, shapes
+    and dtypes."""
+    from repro_torch.checkpoint import CheckpointManager
+    d = tmp_path / "ckpt"
+    assert tlaunch.main(["--reduced", "--nodes", "4", "--rounds", "3",
+                         "--batch", "2", "--seq", "16", "--stream-len",
+                         "2000", "--device", "cpu", "--checkpoint-dir",
+                         str(d)]) == 0
+    assert sorted(p.name for p in d.iterdir()) == \
+        ["ckpt_00000003.msgpack.zst"]
+    step, tree = CheckpointManager(str(d)).restore(device="cpu")
+    assert step == 3 and list(tree) == ["params"]
+    cfg = tconfigs.get_config("llama3.2-3b").reduced()
+    fresh = flatten(tdist.init_train_state(cfg, sgd(0.05), 4,
+                                           device="cpu").params)
+    got = flatten(tree["params"])
+    assert list(got) == list(fresh)
+    for k, v in fresh.items():
+        assert (got[k].shape, got[k].dtype) == (v.shape, v.dtype), k
+        assert torch.isfinite(got[k]).all(), k
 
 
 @pytest.mark.parametrize("arch", ZOO + (JAMBA,))
