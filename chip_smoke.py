@@ -305,6 +305,20 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    allocated bytes unchanged, each record's per-card argument GB beside
    the card's memory; ``launches_checkpoint`` in every kernel row counts
    (a)'s four rounds;
+21. the zoo's train step on a device mesh (``repro_torch.dlrt.mesh_step``)
+   on a one-rank NCCL group, every mesh axis of size 1, so every spec is
+   replicated: each part runs the mesh step (``make_train_step(...,
+   mesh=...)`` on a ``distribute_train_state`` state) and the one-device
+   step, each from its own copy of one state, three rounds (topology on
+   rounds 0 and 2) on the same batches: per-node losses, edges and the
+   last parameters (``gather_train_state``) bit for bit, every kernel
+   launched as often, ms a round and peak memory of both; (a)
+   Llama-3.2-3B at published widths, 2 of 28 layers, n = 4, bf16, 2 x
+   512 tokens, ``("data", "model")``; (b) Qwen1.5-110B at published
+   widths, 1 of 80 layers, n = 2, bf16, 1 x 512 tokens, ``("pod",
+   "data", "model")`` (node_fsdp: the batch over ``data``); (c) reduced
+   Jamba without experts (the scan and its backward kernel inside);
+   ``launches_mesh`` in every kernel row counts the mesh runs;
 
 17(f), 18(g), 19(g) and 20(b) run last, their eight launcher processes
 started together; then one JSON line with every kernel's numbers, the card line, and the
@@ -5861,6 +5875,133 @@ def checkpoint_path(dev):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the zoo's train step on a device mesh, one NCCL rank.
+# ---------------------------------------------------------------------------
+
+# Three rounds, topology on rounds 0 and 2, sgd 0.05, Morph k = 3, view 5,
+# beta 500; uniform tokens over MESH_IDS ids (the config's vocabulary where
+# smaller).  (label, arch, layers kept (None: the reduced config, Jamba
+# without experts), nodes, batch, tokens, mesh axes, each of size 1.)
+MESH_ROUNDS, MESH_DELTA_R, MESH_IDS = 3, 2, TRAIN_IDS
+MESH_CASES = (
+    ("21(a)", "llama3.2-3b", 2, 4, 2, 512, ("data", "model")),
+    ("21(b)", "qwen1.5-110b", 1, 2, 1, 512, ("pod", "data", "model")),
+    ("21(c)", "jamba-1.5-large-398b", None, 4, 2, 64,
+     ("pod", "data", "model")))
+
+
+def mesh_case(dev, label, arch, layers, n, batch_size, seq, axes):
+    """One case of phase 21: the mesh step (``make_train_step(...,
+    mesh=...)`` on a ``distribute_train_state`` state over a one-rank
+    ``DeviceMesh`` of ``axes``, all of size 1) and the one-device step,
+    each from its own copy of one state, on the same batches and draws:
+    per-node losses, edges and the last parameters bit for bit, and every
+    kernel launched as often.  Returns (the mesh runs' launches, record)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import (MorphHParams, distribute_train_state,
+                                  gather_train_state, init_train_state,
+                                  make_train_step, train_state_to)
+    from repro_torch.launch import MeshLayout
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = (reduced_train_config(arch) if layers is None else
+           dataclasses.replace(get_config(arch), num_layers=layers))
+    layout = MeshLayout(axes, (1,) * len(axes))
+    device_mesh = layout.device_mesh(dev.type)
+    opt = sgd(0.05)
+    hp = MorphHParams(k=min(3, n - 1), view_size=min(5, n - 1), beta=500.0)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, n, seed=21, device=dev)
+    one = train_state_to(state, dev)
+    mesh_state = distribute_train_state(state, layout, device_mesh, cfg)
+    del state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    population = sum(v.numel() * v.element_size()
+                     for v in flatten(one.params).values())
+    rng = np.random.default_rng(21)
+    ids = min(MESH_IDS, cfg.vocab_size)
+    batches = []
+    for _ in range(MESH_ROUNDS):
+        toks = rng.integers(0, ids, (n, batch_size, seq + 1)).astype(
+            np.int32)
+        batches.append({"tokens": toks[..., :-1], "labels": toks[..., 1:]})
+
+    def run(state, mesh):
+        steps = {topo: make_train_step(cfg, opt, hp, do_topology=topo,
+                                       mesh=mesh) for topo in (True, False)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        ms, losses, edges = [], [], []
+        for rnd, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            state, m = steps[rnd % MESH_DELTA_R == 0](state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(m["per_node_loss"].clone())
+            edges.append(state.morph.edges.clone())
+        got = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"round_ms": ms, "steady_round_ms": float(np.mean(ms[1:])),
+               "peak_gb": peak / 1e9, "peak_over_base_gb": (peak - base) / 1e9,
+               "losses": [v.tolist() for v in losses]}
+        return state, got, rec, (losses, edges)
+
+    with deterministic_cudnn():
+        one, one_launches, one_rec, one_bits = run(one, None)
+        mesh_state, mesh_launches, mesh_rec, mesh_bits = run(mesh_state,
+                                                             device_mesh)
+    for rnd in range(MESH_ROUNDS):
+        for what, a, b in (("losses", mesh_bits[0][rnd], one_bits[0][rnd]),
+                           ("edges", mesh_bits[1][rnd], one_bits[1][rnd])):
+            if not same_bits(a, b):
+                raise AssertionError(f"{label} {arch} round {rnd}: the mesh "
+                                     f"step's {what} differ from the "
+                                     "one-device step's")
+    got, want = flatten(gather_train_state(mesh_state).params), \
+        flatten(one.params)
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{label} {arch}: parameters differ from the "
+                             f"one-device step's: {bad[:6]}")
+    if mesh_launches != one_launches or not (
+            mesh_launches["gram_matrix"]
+            and mesh_launches["graph_mix_masked"]):
+        raise AssertionError(f"{label} {arch}: launches {mesh_launches} on "
+                             f"the mesh, {one_launches} on one device")
+    if not all(np.isfinite(mesh_rec["losses"][-1])):
+        raise AssertionError(f"{label} {arch}: losses {mesh_rec['losses']}")
+    rec = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "dtype": cfg.param_dtype, "policy": cfg.sharding_policy,
+           "layout": dict(layout.shape), "nodes": n,
+           "batch": [batch_size, seq], "population_gb": population / 1e9,
+           "init_s": init_s, "mesh": mesh_rec, "one_device": one_rec,
+           "bitwise": True, "launches": mesh_launches}
+    log(f"phase {label}: {json.dumps(rec)}")
+    del one, mesh_state, got, want
+    torch.cuda.empty_cache()
+    return mesh_launches, rec
+
+
+def mesh_path(dev):
+    """Phase 21: :func:`mesh_case` for each of MESH_CASES on a one-rank
+    NCCL group; returns the mesh runs' launches."""
+    t0 = time.perf_counter()
+    totals, times = {}, []
+    with one_rank_nccl_group():
+        for case in MESH_CASES:
+            t1 = time.perf_counter()
+            _add(totals, mesh_case(dev, *case)[0])
+            times.append(f"{case[0][-3:]} {time.perf_counter() - t1:.1f}")
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s ({', '.join(times)})")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5931,6 +6072,7 @@ def main():
     zoo_counts = zoo_path(dev)
     front_counts = frontends_path(dev)
     ckpt_counts = checkpoint_path(dev)
+    mesh_counts = mesh_path(dev)
     launcher_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
@@ -5979,6 +6121,7 @@ def main():
             "launches_zoo": zoo_counts[name],
             "launches_frontends": front_counts[name],
             "launches_checkpoint": ckpt_counts[name],
+            "launches_mesh": mesh_counts[name],
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

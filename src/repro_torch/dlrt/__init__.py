@@ -2,7 +2,8 @@
 and sparse round engines, on one device or sharded over the ranks of a
 process group), the sweep farm (E experiments stacked on one device), the
 model zoo's decentralized train and serve steps with their sharding
-policies on the production mesh, and the round- and wall-clock-domain
+policies on the production mesh (the train step also over a
+``DeviceMesh``, its state DTensors), and the round- and wall-clock-domain
 metrics."""
 from .distributed import (MorphHParams, NamedSharding, PartitionSpec,
                           TrainState, abstract_cache,
@@ -14,6 +15,7 @@ from .distributed import (MorphHParams, NamedSharding, PartitionSpec,
                           serve_kv_spec, shard_shape,
                           superstep_node_sharding, train_state_sharding,
                           train_state_to)
+from .mesh_step import distribute_train_state, gather_train_state
 from .metrics import (MetricsLog, NetMetricsLog, NetRecord, RoundRecord,
                       internode_variance, net_staleness_mean)
 from .runtime import (DecentralizedRunner, RunnerConfig, evaluate_record,
@@ -30,7 +32,9 @@ __all__ = ["MorphHParams", "NamedSharding", "PartitionSpec", "TrainState",
            "leaf_spec", "make_serve_step", "make_train_step", "node_axes",
            "params_sharding", "placements", "replicated", "serve_kv_spec",
            "shard_shape", "superstep_node_sharding",
-           "train_state_sharding", "train_state_to", "COLLECTIVES", "MetricsLog", "NetMetricsLog", "NetRecord",
+           "train_state_sharding", "train_state_to",
+           "distribute_train_state", "gather_train_state", "COLLECTIVES",
+           "MetricsLog", "NetMetricsLog", "NetRecord",
            "RoundRecord", "internode_variance", "net_staleness_mean",
            "DecentralizedRunner", "RunnerConfig", "evaluate_record",
            "host_params", "make_evaluator",

@@ -38,9 +38,11 @@ axis name or a tuple of names a dim); :func:`shard_shape` is a leaf's
 shape on one card and :func:`placements` its DTensor placements.  The
 ``abstract_*`` helpers build a state's, a population's or a cache's
 leaves on the meta device: shapes and dtypes, no memory.  They are pure
-functions of shapes, so they run on any host; the train step over a 256-
-or 512-rank ``DeviceMesh`` with DTensor state under these specs is not
-ported (ROADMAP queue 1 item 5).  The node-axis sharding the sharded
+functions of shapes, so they run on any host.  The train step runs on a
+``DeviceMesh`` with DTensor state under these specs
+(``make_train_step(..., mesh=...)``, :mod:`.mesh_step`); the serve step
+on the mesh, with its KV constraint, is not ported (ROADMAP queue 1
+item 5).  The node-axis sharding the sharded
 superstep reads (``node_axes``, ``superstep_node_sharding``) is reduced to
 what a ``torch.distributed`` node mesh has: the shard count and this
 rank's index.
@@ -432,9 +434,12 @@ def _unstaged(stage: str, fn: Callable):
 
 def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
                     microbatch: Optional[int] = None,
-                    do_topology: bool = True, window="cfg"):
+                    do_topology: bool = True, window="cfg", mesh=None):
     """Returns ``train_step(state, batch, noise=None, stage=None) ->
-    (state, metrics)``: one paper round.
+    (state, metrics)``: one paper round.  Given a ``DeviceMesh``
+    (``mesh``), the step over it, on a state under
+    :func:`train_state_sharding` (:mod:`.mesh_step`: every rank builds it
+    at once); the rest of this docstring is the one-device step.
 
     1. Local step, node by node: ``model.loss_fn``'s forward and backward
        on the node's slice of every entry of ``batch`` (``tokens`` and
@@ -458,9 +463,10 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
     ``update``, ``similarity``, ``controller``, ``mix``), by default just
     ``fn()``, so a caller can time them."""
 
-    def node_grads(p: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    def node_grads(p: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
+                   mb: Optional[int] = microbatch):
         B = b["tokens"].shape[0]
-        mb = microbatch or B
+        mb = mb or B
         if B % mb != 0:
             raise ValueError(f"batch {B} not divisible by microbatch {mb}")
         steps = B // mb
@@ -489,6 +495,13 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
             losses.append(loss)
             del grads
         return OrderedDict(zip(p, acc)), torch.stack(losses).mean()
+
+    if mesh is not None:
+        from .mesh_step import make_mesh_train_step
+        return make_mesh_train_step(cfg, optimizer, hp, node_grads,
+                                    microbatch=microbatch,
+                                    do_topology=do_topology,
+                                    device_mesh=mesh)
 
     def train_step(state: TrainState, batch, noise: Optional[MorphNoise]
                    = None, stage: Optional[Callable] = None

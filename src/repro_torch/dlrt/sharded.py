@@ -63,12 +63,12 @@ from typing import Callable, List, Mapping
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..compress import CompressConfig, decode_wire_tree
 from ..core.mixing import uniform_weights_torch
 from ..kernels import ops
 from ..kernels.graph_mix import graph_mix_leaves
+from ..launch.mesh import packed_all_gather, reduce_scatter_into
 from ..sparse.adjacency import SparseAdjacency, pad_adjacency
 from ..sparse.mix import sparse_mix_pytree, sparse_push_leaves
 from .distributed import superstep_node_sharding
@@ -77,15 +77,6 @@ from .runtime import make_round_record, resolve_engine, to_device
 from .superstep import Superstep
 
 COLLECTIVES = ("gather", "psum")
-# Byte alignment of each tensor inside a packed gather buffer.
-_ALIGN = 128
-
-# torch 2.13 renames these two (the old names warn); both take (output,
-# input) as before.
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -190,28 +181,9 @@ class ShardedSuperstep(Superstep):
         """Every rank's ``[n_local, ...]`` rows of each tensor (any dtype)
         as ``[n_pad, ...]``, bit for bit: one ``all_gather`` of all of them
         packed as bytes into one buffer."""
-        segs, spans, at = [], [], 0
-        for t in tensors:
-            b = t.contiguous().view(torch.uint8).reshape(-1)
-            pad = -b.numel() % _ALIGN
-            segs.append(b)
-            if pad:
-                segs.append(b.new_zeros(pad))
-            spans.append((at, b.numel()))
-            at += b.numel() + pad
-        send = torch.cat(segs) if len(segs) > 1 else segs[0]
-        recv = torch.empty(self.world * at, dtype=torch.uint8,
-                           device=send.device)
-        _all_gather(recv, send)
-        recv = recv.view(self.world, at)
-        out = []
-        for t, (a, nb) in zip(tensors, spans):
-            seg = recv[:, a:a + nb]
-            if self.world > 1:
-                seg = seg.contiguous()
-            out.append(seg.view(t.dtype).reshape((self.n_pad,)
-                                                 + tuple(t.shape[1:])))
-        return out
+        return [g.reshape((self.n_pad,) + tuple(t.shape[1:]))
+                for t, g in zip(tensors, packed_all_gather(tensors,
+                                                           self.world))]
 
     def gather_tree(self, tree):
         """:meth:`gather` over the leaves of a tree that have this rank's
@@ -310,7 +282,7 @@ class ShardedSuperstep(Superstep):
         nl = self.n_local
         recv = torch.empty(nl * sum(ds), dtype=torch.float32,
                            device=self.device)
-        stage("reduce", lambda: _reduce_scatter(recv, send))
+        stage("reduce", lambda: reduce_scatter_into(recv, send))
         out, at = OrderedDict(), 0
         for k, d in zip(keys, ds):
             own = recv[at:at + nl * d].view(nl, d)

@@ -42,10 +42,11 @@ def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
 def model_pairwise_cosine(stacked: Dict[str, torch.Tensor],
                           experiments: bool = False) -> torch.Tensor:
     """Eq. 3 on node-stacked parameters: per-leaf cosine, averaged in leaf
-    order.  On the card the Gram matrices of all leaves come from one
-    launch and the epilogue runs on their stack, with the same operations
-    per element as :func:`pairwise_cosine`, so the result is the bits of
-    the leaf-by-leaf loop the CPU runs.
+    order: :func:`cosine_from_grams` of :func:`leaf_grams`.  On the card
+    the Gram matrices of all leaves come from one launch and the epilogue
+    runs on their stack, with the same operations per element as
+    :func:`pairwise_cosine`, so the result is the bits of the
+    leaf-by-leaf loop the CPU runs.
 
     ``experiments=True``: the leaves are ``[E, n, ...]``, and the result
     is each experiment's ``[E, n, n]`` matrix; on the card one launch
@@ -53,29 +54,50 @@ def model_pairwise_cosine(stacked: Dict[str, torch.Tensor],
     :data:`~repro_torch.kernels.pairwise_cosine.MAX_LEAVES` a launch), and
     each experiment's mean still adds its leaves one after another from
     leaf 0.  Leaves of several dtypes take one launch per dtype."""
+    if not experiments:
+        return cosine_from_grams(leaf_grams(stacked))
     leaves = list(stacked.values())
-    if experiments:
-        E, n = leaves[0].shape[:2]
-        if leaves[0].device.type == "cpu":
-            return torch.stack([model_pairwise_cosine(
-                {k: v[e] for k, v in stacked.items()}) for e in range(E)])
-        grams = [leaf[e].reshape(n, -1) for e in range(E) for leaf in leaves]
-    else:
-        n = leaves[0].shape[0]
-        if leaves[0].device.type == "cpu":
-            acc = torch.zeros((n, n), dtype=torch.float32)
-            for leaf in leaves:
-                acc += pairwise_cosine(leaf.reshape(n, -1))
-            return acc / len(leaves)
-        grams = [leaf.reshape(n, -1) for leaf in leaves]
-    # [E, L, n, n] (E = 1 without the experiment axis).
-    g = _gram_by_dtype(grams).view(-1, len(leaves), n, n)
-    norms = torch.sqrt(torch.diagonal(g, dim1=2, dim2=3)).clamp_min(_EPS)
-    cos = g / (norms[..., :, None] * norms[..., None, :])
-    # A running sum along the leaves adds them one after another from 0,
-    # as the loop does, in one launch.
-    mean = torch.cumsum(cos, dim=1)[:, -1] / len(leaves)
-    return mean if experiments else mean[0]
+    E, n = leaves[0].shape[:2]
+    if leaves[0].device.type == "cpu":
+        return torch.stack([model_pairwise_cosine(
+            {k: v[e] for k, v in stacked.items()}) for e in range(E)])
+    grams = [leaf[e].reshape(n, -1) for e in range(E) for leaf in leaves]
+    return cosine_from_grams(_gram_by_dtype(grams).view(
+        E, len(leaves), n, n))
+
+
+def leaf_grams(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The Gram matrix of every node-stacked leaf ``[n, ...]``, in leaf
+    order, as ``[L, n, n]`` f32: Eq. 3's first stage.  On the card one
+    grouped launch per dtype and :data:`~repro_torch.kernels.
+    pairwise_cosine.MAX_LEAVES` leaves; on the CPU the plain Gram leaf by
+    leaf.  A leaf whose columns are split over ranks gives its partial
+    Gram, which the ranks sum before :func:`cosine_from_grams`."""
+    leaves = list(stacked.values())
+    n = leaves[0].shape[0]
+    xs = [leaf.reshape(n, -1) for leaf in leaves]
+    if leaves[0].device.type == "cpu":
+        return torch.stack([gram_matrix(x) for x in xs])
+    return _gram_by_dtype(xs)
+
+
+def cosine_from_grams(grams: torch.Tensor) -> torch.Tensor:
+    """Eq. 3's epilogue on ``[..., L, n, n]`` Gram matrices: each leaf's
+    cosine (the Gram over ``max(sqrt(diag), 1e-12)`` on both sides, as
+    :func:`pairwise_cosine`), averaged over the leaves -> ``[..., n, n]``.
+    The leaves are added one after another from 0: on the card by a
+    running sum along them, in one launch; on the CPU, whose ``cumsum``
+    adds in f64, by a loop."""
+    norms = torch.sqrt(torch.diagonal(grams, dim1=-2, dim2=-1)
+                       ).clamp_min(_EPS)
+    cos = grams / (norms[..., :, None] * norms[..., None, :])
+    leaves = grams.shape[-3]
+    if grams.device.type != "cpu":
+        return torch.cumsum(cos, dim=-3).select(-3, -1) / leaves
+    acc = torch.zeros_like(cos.select(-3, 0))
+    for i in range(leaves):
+        acc += cos.select(-3, i)
+    return acc / leaves
 
 
 def _gram_by_dtype(xs: List[torch.Tensor]) -> torch.Tensor:

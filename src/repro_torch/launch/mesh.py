@@ -26,11 +26,16 @@ zoo's sharding policies (``repro_torch.dlrt.distributed``) and the dry run
 "model")`` of (16, 16), or two such pods as ``("pod", "data", "model")``.
 It is a :class:`MeshLayout`, names and sizes only, so the policies run on
 any host; :meth:`MeshLayout.device_mesh` makes the real ``DeviceMesh``
-where a process group of that many ranks runs.  ``make_sweep_mesh`` (the
-sweep's ``("exp", "data")`` mesh) is not ported (ROADMAP queue 1 item 6).
+where a process group of that many ranks runs, and :class:`MeshGroups`
+gives a rank its coordinates on it and the process group over any set of
+its axes: what the zoo's train step on the mesh
+(``repro_torch.dlrt.mesh_step``) meets the other ranks in.
+``make_sweep_mesh`` (the sweep's ``("exp", "data")`` mesh) is not ported
+(ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import shutil
 import tempfile
@@ -38,7 +43,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,6 +52,37 @@ from .. import resolve_device
 
 # How long a collective waits for the other ranks before the run fails.
 DEFAULT_TIMEOUT = timedelta(seconds=300)
+# Byte alignment of each tensor inside a packed gather buffer.
+_ALIGN = 128
+
+# torch 2.13 renames these two (the old names warn); both take (output,
+# input) as before.
+all_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+reduce_scatter_into = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def packed_all_gather(tensors, world: int, group=None):
+    """Every rank's copy of each tensor (any dtypes) as ``[world, ...]``,
+    in group-rank order, bit for bit: one ``all_gather`` of all of them
+    packed as bytes into one buffer (``group`` None: the default group of
+    ``world`` ranks)."""
+    segs, spans, at = [], [], 0
+    for t in tensors:
+        b = t.contiguous().view(torch.uint8).reshape(-1)
+        pad = -b.numel() % _ALIGN
+        segs.append(b)
+        if pad:
+            segs.append(b.new_zeros(pad))
+        spans.append((at, b.numel()))
+        at += b.numel() + pad
+    send = torch.cat(segs) if len(segs) > 1 else segs[0]
+    recv = torch.empty(world * at, dtype=torch.uint8, device=send.device)
+    all_gather_into(recv, send, group=group)
+    recv = recv.view(world, at)
+    return [recv[:, a:a + nb].contiguous().view(t.dtype).reshape(
+        (world,) + tuple(t.shape)) for t, (a, nb) in zip(tensors, spans)]
 
 
 @dataclass(frozen=True)
@@ -79,6 +115,65 @@ class MeshLayout:
         from torch.distributed.device_mesh import init_device_mesh
         return init_device_mesh(device_type, self.sizes,
                                 mesh_dim_names=self.axis_names)
+
+
+class MeshGroups:
+    """This rank's place on a ``DeviceMesh``: its coordinate along each
+    axis, and the process group over any set of axes (the ranks that share
+    this rank's coordinates on the other axes), ranked first axis
+    outermost, as a dim split over those axes is laid out.  One axis is
+    the mesh's own group; the groups of two or more axes are made here
+    (``flattened``), every one of them in the same order on every rank
+    (``new_group`` wants all ranks), so build this on every rank at once;
+    without them it gives coordinates only."""
+
+    def __init__(self, device_mesh, flattened: bool = True):
+        self.device_mesh = device_mesh
+        self.names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        self.sizes: Tuple[int, ...] = tuple(device_mesh.mesh.shape)
+        self.coords: Dict[str, int] = dict(zip(
+            self.names, device_mesh.get_coordinate()))
+        ranks = device_mesh.mesh
+        self._groups = {}
+        for k in range(2, len(self.names) + 1 if flattened else 2):
+            for dims in itertools.combinations(range(len(self.names)), k):
+                rest = [d for d in range(len(self.names)) if d not in dims]
+                rows = ranks.permute(rest + list(dims)).reshape(
+                    -1, math.prod(self.sizes[d] for d in dims))
+                me = dist.get_rank()
+                for row in rows.tolist():
+                    group = dist.new_group(row)
+                    if me in row:
+                        self._groups[tuple(self.names[d]
+                                           for d in dims)] = group
+
+    def order(self, axes) -> Tuple[str, ...]:
+        """``axes`` in mesh order."""
+        return tuple(a for a in self.names if a in axes)
+
+    def size(self, axes) -> int:
+        """The number of ranks over ``axes``."""
+        return math.prod(self.sizes[self.names.index(a)] for a in axes)
+
+    @property
+    def layout(self) -> MeshLayout:
+        return MeshLayout(self.names, self.sizes)
+
+    def index(self, axes) -> int:
+        """This rank's index over ``axes``, the first outermost."""
+        out = 0
+        for a in self.order(axes):
+            out = out * self.sizes[self.names.index(a)] + self.coords[a]
+        return out
+
+    def group(self, axes):
+        """The process group over ``axes`` (mesh order); None for none."""
+        axes = self.order(axes)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self._groups[axes]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:

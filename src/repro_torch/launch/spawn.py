@@ -3,8 +3,8 @@ the tests and ``repro_torch.bench.fig10`` use in place of ``torchrun``.
 
 :func:`start` runs ``fn(*args)`` in ``world`` child processes started by
 ``torch.multiprocessing``, each rank ``r`` of one default process group
-(gloo for ``device="cpu"``, NCCL on ``cuda:(r % device_count)`` for
-``"cuda"``) initialised on a ``file://`` store in a fresh temporary
+(NCCL on ``cuda:(r % device_count)`` by default, gloo for
+``device="cpu"``) initialised on a ``file://`` store in a fresh temporary
 directory; ``fn`` then builds its mesh with
 :func:`repro_torch.launch.make_superstep_mesh` as it would under
 ``torchrun``.  :meth:`Ranks.join` waits for every child and returns the
@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from .. import resolve_device
 from .mesh import DEFAULT_TIMEOUT, backend_for, rank_device
 
 
@@ -74,22 +75,24 @@ class Ranks:
             shutil.rmtree(self._store, ignore_errors=True)
 
 
-def start(fn: Callable, world: int, *args, device: str = "cpu",
+def start(fn: Callable, world: int, *args, device: str = "cuda",
           timeout: timedelta = DEFAULT_TIMEOUT,
           threads: Optional[int] = None) -> Ranks:
     """Start ``world`` ranks running ``fn(*args)`` (see the module
-    docstring) and return without waiting; ``threads`` sets each child's
-    intra-op thread count."""
+    docstring) on the card unless ``device="cpu"``, and return without
+    waiting; ``threads`` sets each child's intra-op thread count.  Without
+    a card it raises, as every entry point does, and starts nothing."""
+    dev = resolve_device(device)
     if world < 1:
         raise ValueError(f"world={world} < 1")
-    if torch.device(device).type == "cuda" and \
-            world > torch.cuda.device_count():
+    if dev.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(f"{world} NCCL ranks need {world} cards, have "
                          f"{torch.cuda.device_count()} (NCCL refuses two "
                          "ranks on one device)")
     store = tempfile.mkdtemp(prefix="repro_torch_spawn_")
     context = mp.start_processes(
-        _rank_main, args=(world, fn, args, device, store, timeout, threads),
+        _rank_main,
+        args=(world, fn, args, dev.type, store, timeout, threads),
         nprocs=world, join=False, start_method="spawn")
     return Ranks(context, world, store)
 

@@ -24,29 +24,42 @@ reference's do, so an unreduced vocabulary needs more host memory than a
 machine has (ROADMAP queue 3).  ``--checkpoint-dir D`` saves ``{"params":
 ...}`` in the reference's file format (``repro_torch.checkpoint``) every
 100th round and at the end, under step ``--rounds``, the newest three
-kept.  ``--mesh single|multi`` raises: the train step over the production
-mesh's 256 or 512 ranks, with DTensor state under
-``train_state_sharding``, is not ported (ROADMAP queue 1 item 5).
+kept.
+
+``--mesh single|multi`` trains on the production mesh
+(``make_production_mesh``: 256 ranks as ``("data", "model")``, or 512 as
+``("pod", "data", "model")``), as the reference's ``--mesh`` does: the
+state under ``train_state_sharding`` as DTensors
+(``distribute_train_state``) and the train step over the ``DeviceMesh``
+(``repro_torch.dlrt.mesh_step``).  Start one process a card:
+
+  torchrun --nnodes 16 --nproc-per-node 16 -m repro_torch.launch.train \\
+      --mesh single ...
+
+Each rank builds every node's batches and takes its shard; rank 0 prints
+and writes the checkpoints (the parameters gathered whole, the same
+file).  Without a process group of that many ranks it raises the
+``ValueError`` naming the ranks it needs, as ``jax.make_mesh`` fails with
+fewer devices.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import resolve_device
 from ..configs import get_config
 from ..data import TokenBatcher, make_token_stream
 from ..dlrt.distributed import (MorphHParams, init_train_state,
                                 make_train_step)
+from ..dlrt.mesh_step import distribute_train_state, gather_train_state
 from ..optim import sgd
-
-_WAITS = ('not ported yet (ROADMAP queue 1 item 5, "Model zoo, the rest"): '
-          "the zoo's train step over a 256- or 512-rank DeviceMesh, with "
-          "DTensor state under train_state_sharding; the sharding policies "
-          "and the mesh layout are ported (python -m "
-          "repro_torch.launch.dryrun)")
+from .mesh import backend_for, make_production_mesh, rank_device
 
 
 def build_batcher(args, cfg, node: int) -> TokenBatcher:
@@ -84,11 +97,30 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def join_mesh(args, dev: torch.device):
+    """``--mesh``: the production mesh's layout and ``DeviceMesh``, this
+    rank's device, and whether the launcher started the default group
+    (from ``torchrun``'s environment, where none is initialised yet)."""
+    layout = make_production_mesh(multi_pod=args.mesh == "multi")
+    started = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend_for(dev))
+        started = True
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    dev = rank_device(dev, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        mesh = layout.device_mesh(dev.type)
+    except ValueError:
+        if started:
+            dist.destroy_process_group()
+        raise
+    return layout, mesh, dev, started
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: training on the "
-                                  f"production mesh is {_WAITS}")
     cfg = get_config(args.arch)
     if cfg.encoder is not None:
         raise ValueError(f"--arch {args.arch}: its encoder reads a 'frames' "
@@ -96,21 +128,34 @@ def main(argv=None):
                          "launcher's token streams do not give")
     if args.reduced:
         cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    mesh, started, rank = None, False, 0
+    if args.mesh != "none":
+        layout, mesh, dev, started = join_mesh(args, dev)
+        rank = dist.get_rank()
     opt = sgd(args.lr)
     hp = MorphHParams(k=min(args.k, args.nodes - 1),
                       view_size=min(args.view_size, args.nodes - 1),
                       beta=args.beta)
-    state = init_train_state(cfg, opt, args.nodes, seed=0,
-                             device=args.device)
+    state = init_train_state(cfg, opt, args.nodes, seed=0, device=dev)
+    if mesh is not None:
+        state = distribute_train_state(state, layout, mesh, cfg)
     step_topo = make_train_step(cfg, opt, hp, microbatch=args.microbatch,
-                                do_topology=True)
+                                do_topology=True, mesh=mesh)
     step_plain = make_train_step(cfg, opt, hp, microbatch=args.microbatch,
-                                 do_topology=False)
+                                 do_topology=False, mesh=mesh)
     batchers = [build_batcher(args, cfg, i) for i in range(args.nodes)]
     ckpt = None
     if args.checkpoint_dir:
         from ..checkpoint import CheckpointManager
         ckpt = CheckpointManager(args.checkpoint_dir)
+
+    def save(step):
+        # Gathering is a collective: every rank gathers, rank 0 writes.
+        params = (gather_train_state(state).params if mesh is not None
+                  else state.params)
+        if rank == 0:
+            ckpt.save(step, {"params": params})
 
     t0 = time.time()
     for rnd in range(args.rounds):
@@ -119,19 +164,23 @@ def main(argv=None):
                    for k in ("tokens", "labels")}
         step = step_topo if rnd % args.delta_r == 0 else step_plain
         state, metrics = step(state, stacked)
-        if rnd % args.log_every == 0 or rnd == args.rounds - 1:
+        if rank == 0 and (rnd % args.log_every == 0
+                          or rnd == args.rounds - 1):
             loss = float(metrics["loss"])
             deg = state.morph.edges.sum(1).cpu().numpy()
             print(f"round {rnd:5d}  loss {loss:.4f}  "
                   f"in-deg [{deg.min()}..{deg.max()}]  "
                   f"({time.time() - t0:.1f}s)", flush=True)
         if ckpt is not None and rnd and rnd % 100 == 0:
-            ckpt.save(rnd, {"params": state.params})
+            save(rnd)
     if ckpt is not None:
-        ckpt.save(args.rounds, {"params": state.params})
-    if torch.device(args.device).type == "cuda":
+        save(args.rounds)
+    if dev.type == "cuda":
         torch.cuda.synchronize()
-    print(f"done: {args.rounds} rounds in {time.time() - t0:.1f}s")
+    if rank == 0:
+        print(f"done: {args.rounds} rounds in {time.time() - t0:.1f}s")
+    if started:
+        dist.destroy_process_group()
     return 0
 
 

@@ -5,7 +5,9 @@ The paper's D-PSGD is plain SGD (``x - gamma * grad``, :func:`sgd` with its
 defaults); AdamW and global-norm clipping are for the model zoo's training
 launcher.  A state is a dict of the int32 step ``count`` and, where the
 optimizer keeps them, dicts of f32 moments shaped like the parameters, so
-node-stacked parameters give node-stacked states.  Every update is taken
+node-stacked parameters give node-stacked states.  A gradient may be a
+DTensor, a shard of a node's leaf: the update reads its local shard, and
+:func:`global_norm` sums the whole leaf.  Every update is taken
 in f32 and :func:`apply_updates` casts the sum back to each leaf's dtype,
 as the reference does.  ``lr`` is a number or a schedule of the count
 (:mod:`repro_torch.optim.schedules`).
@@ -42,12 +44,30 @@ def _lr_at(lr: ScalarOrSchedule, count: torch.Tensor) -> torch.Tensor:
     return torch.tensor(lr, dtype=torch.float32, device=count.device)
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A gradient's values here: a DTensor's local shard, else itself."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's f32 sum of squares; a DTensor's summed over the mesh axes
+    that split it, so it is the whole leaf's."""
+    total = torch.sum(torch.square(_local(x).float()))
+    if hasattr(x, "to_local"):
+        import torch.distributed as dist
+        for dim, p in enumerate(x.placements):
+            if p.is_shard():
+                dist.all_reduce(total, group=x.device_mesh.get_group(dim))
+    return total
+
+
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``sqrt`` of the sum over leaves (in leaf order) of each leaf's f32
-    sum of squares."""
+    sum of squares; a DTensor leaf (a shard of a node's leaf, as the train
+    step on a mesh hands the optimizer its gradients) counts whole."""
     total = 0
     for x in tree.values():
-        total = total + torch.sum(torch.square(x.float()))
+        total = total + _sum_squares(x)
     return torch.sqrt(total)
 
 
@@ -69,7 +89,7 @@ def sgd(lr: ScalarOrSchedule, momentum: float = 0.0,
         def g32(k):
             # Leaf by leaf, so no second f32 copy of every gradient is
             # held at once.
-            g = grads[k].float()
+            g = _local(grads[k]).float()
             if weight_decay > 0 and params is not None:
                 g = g + weight_decay * params[k].float()
             return g
@@ -98,7 +118,7 @@ def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
     def update(grads, state, params=None):
         count = state["count"] + 1
         step = _lr_at(lr, count)
-        g32 = OrderedDict((k, g.float()) for k, g in grads.items())
+        g32 = OrderedDict((k, _local(g).float()) for k, g in grads.items())
         m = OrderedDict((k, b1 * state["m"][k] + (1 - b1) * g)
                         for k, g in g32.items())
         v = OrderedDict((k, b2 * state["v"][k] + (1 - b2) * torch.square(g))
@@ -126,7 +146,7 @@ def chain_clip(inner: Optimizer, max_norm: float) -> Optimizer:
     def update(grads, state, params=None):
         norm = global_norm(grads)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-        clipped = OrderedDict((k, (g.float() * scale).to(g.dtype))
+        clipped = OrderedDict((k, (_local(g).float() * scale).to(g.dtype))
                               for k, g in grads.items())
         return inner.update(clipped, state, params)
     return Optimizer(inner.init, update)

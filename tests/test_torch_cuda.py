@@ -1163,6 +1163,79 @@ def test_cuda_one_rank_sharded_run_is_the_run_without_a_mesh(
         [r.comm_bytes for r in sharded.log.records]
 
 
+# The zoo's train step on a device mesh (``chip_smoke.py`` phase 21) at
+# reduced widths: ``tests/_mesh_cases.py`` on the card.
+
+MESH_BASE = {"n": 4, "batch": 2, "rounds": 3, "delta_r": 2,
+             "microbatch": None, "opt": "sgd", "noise": None,
+             "single": True, "device": "cuda"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,axes", [
+    ("llama3.2-3b", ("data", "model")),
+    ("jamba-1.5-large-398b", ("pod", "data", "model"))])
+def test_cuda_mesh_step_on_one_rank_is_the_one_device_step(cuda_device,
+                                                           arch, axes):
+    """Reduced Llama (node_dp) and Jamba without experts (node_fsdp, the
+    scan and its backward kernel inside) on a one-rank NCCL mesh, every
+    axis of size 1: against the one-device step from the same state,
+    losses, edges and parameters bit for bit and every kernel launched as
+    often (the Gram and the masked mix among them)."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch.distributed as dist
+    import _mesh_cases as mc
+    case = dict(MESH_BASE, arch=arch, axes=axes, sizes=(1,) * len(axes),
+                experts=False)
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=(Path(tmp) / "store")
+                                .as_uri(), world_size=1, rank=0)
+        try:
+            got = mc.one_case(case)
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = False
+    single = got["single"]
+    for a, b in zip(got["record"], single["record"]):
+        for k in a:
+            assert np.array_equal(a[k], b[k]), k
+    for k, v in single["params"].items():
+        assert np.array_equal(got["params"][k], v), k
+    assert got["launches"] == single["launches"]
+    assert got["launches"]["gram_matrix"] and \
+        got["launches"]["graph_mix_masked"]
+    if arch.startswith("jamba"):
+        assert got["launches"]["selective_scan_bwd"]
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_step_on_four_ranks(cuda_device):
+    """Reduced Llama at n = 4 on a (2, 2) mesh of four NCCL ranks (one a
+    card): every rank the same edges and parameters; against the
+    one-device step, edges identical and parameters within 1e-5."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one rank a card")
+    import numpy as np
+    import _mesh_cases as mc
+    from repro_torch.launch import start
+    case = dict(MESH_BASE, arch="llama3.2-3b", axes=("data", "model"),
+                sizes=(2, 2))
+    results = [r[0] for r in start(mc.rank_main, 4, [case]).join()]
+    for other in results[1:]:
+        for a, b in zip(other["record"], results[0]["record"]):
+            for k in a:
+                assert np.array_equal(a[k], b[k]), k
+    got, single = results[0], results[0]["single"]
+    for a, b in zip(got["record"], single["record"]):
+        assert np.array_equal(a["edges"], b["edges"])
+    for k, v in single["params"].items():
+        np.testing.assert_allclose(got["params"][k], v, atol=1e-5, rtol=0,
+                                   err_msg=k)
+
+
 @pytest.mark.cuda
 def test_cuda_fig10_refuses_more_ranks_than_cards(cuda_device, capsys):
     """NCCL takes one rank a card: fig10 stops before starting a child,

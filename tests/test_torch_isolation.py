@@ -33,6 +33,7 @@ from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
                                  gram_matrix, ref, selective_scan,
                                  selective_scan_bwd)
+from repro_torch.launch import start                         # noqa: E402
 from repro_torch.launch import train as train_launcher       # noqa: E402
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
 from repro_torch.netsim import AsyncConfig, AsyncRunner      # noqa: E402
@@ -73,7 +74,7 @@ ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "train-state", "train-launcher", "moe-init-params",
                 "moe-init-cache", "rwkv-init-params", "rwkv-init-cache",
                 "moe-train-launcher", "load-checkpoint",
-                "restore-checkpoint")
+                "restore-checkpoint", "start-ranks")
 
 
 def _checkpoint_file() -> str:
@@ -136,6 +137,7 @@ def _make_entry_point(name):
         "load-checkpoint": lambda: load_pytree(_checkpoint_file()),
         "restore-checkpoint": lambda: CheckpointManager(
             str(Path(_checkpoint_file()).parent)).restore(),
+        "start-ranks": lambda: start(print, 2),
         "async-runner": lambda: AsyncRunner(
             init_fn=lambda g: cnn_params(g, image_size=8, width=4),
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),

@@ -122,8 +122,8 @@ def runs():
     mlp = {7: reference_init(7), 8: _init(8)}
     batches = {w: [_batch(n, RUNS[w, n], draws[n], mlp[n])
                    for (ww, n) in RUNS if ww == w] for w in WORLDS}
-    jobs = {w: start(sc.rank_main, w, batches[w], threads=1)
-            for w in WORLDS}
+    jobs = {w: start(sc.rank_main, w, batches[w], device="cpu",
+                     threads=1) for w in WORLDS}
     refs = {}
     for kind, (name, knobs) in REFERENCE.items():
         init, ref = reference_run("mlp", name, 7, **knobs)

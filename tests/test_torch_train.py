@@ -324,9 +324,14 @@ def test_launcher_at_smoke_size_without_jax():
         assert "in-deg [2..2]" in ln or "in-deg [3..3]" in ln
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "single"], ["--mesh", "multi"]])
-def test_launcher_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+@pytest.mark.parametrize("argv,ranks", [(["--mesh", "single"], 256),
+                                        (["--mesh", "multi"], 512)])
+def test_launcher_refuses_what_is_not_ported(argv, ranks):
+    """``--mesh`` without a process group of the production mesh's ranks
+    raises the ``ValueError`` naming them (as ``jax.make_mesh`` fails with
+    fewer devices), before it builds anything; the mesh branch itself runs
+    in ``tests/test_torch_mesh_train.py``."""
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
         tlaunch.main(["--reduced", "--device", "cpu"] + argv)
 
 
