@@ -319,6 +319,21 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    "data", "model")`` (node_fsdp: the batch over ``data``); (c) reduced
    Jamba without experts (the scan and its backward kernel inside);
    ``launches_mesh`` in every kernel row counts the mesh runs;
+22. the zoo's serve step and prefill on a device mesh
+   (``repro_torch.dlrt.mesh_serve``) on a one-rank NCCL group, every mesh
+   axis of size 1: each part serves on the mesh (``make_serve_step(...,
+   kv_spec=serve_kv_spec(...), mesh=...)`` on ``distribute_params``
+   parameters, which share the one-device leaves, and
+   ``init_mesh_caches``) and on one device from the same parameters: 4
+   requests a node, 16-token prompts fed one token at a time, then 8
+   greedy tokens, in 24 slots; every step's logits, the caches at the end
+   (``gather_tree``) and the prefills (``make_prefill_step``) bit for bit,
+   every kernel launched as often, ms a decode step and peak memory on
+   both; (a) Llama-3.2-3B whole at published widths (28 layers), n = 2,
+   bf16; (b) Jamba-1.5-Large's serving period (:func:`jamba_serving_config`),
+   n = 1, with a prefill of 2 x 2,048 tokens (7 scan launches a prefill);
+   (c) RWKV-6 7B at published widths, 2 of 32 layers, n = 2;
+   ``launches_serve_mesh`` in every kernel row counts the mesh runs;
 
 17(f), 18(g), 19(g) and 20(b) run last, their eight launcher processes
 started together; then one JSON line with every kernel's numbers, the card line, and the
@@ -6002,6 +6017,177 @@ def mesh_path(dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the zoo's serve step and prefill on a device mesh.
+# ---------------------------------------------------------------------------
+
+# Each node serves SERVE_MESH_REQUESTS requests: prompts of
+# SERVE_MESH_PROMPT tokens fed one at a time, then SERVE_MESH_NEW greedy
+# tokens, in a cache of as many slots; 22(b) also prefills 2 x 2,048.
+SERVE_MESH_REQUESTS, SERVE_MESH_PROMPT, SERVE_MESH_NEW = 4, 16, 8
+SERVE_MESH_LONG = (2, 2048)
+# (label, arch, layers kept (None: all; "jamba": jamba_serving_config),
+# nodes, mesh axes (each of size 1), 22(b)'s long prefill.)
+SERVE_MESH_CASES = (
+    ("22(a)", "llama3.2-3b", None, 2, ("data", "model"), False),
+    ("22(b)", "jamba-1.5-large-398b", "jamba", 1, ("pod", "data", "model"),
+     True),
+    ("22(c)", "rwkv6-7b", 2, 2, ("data", "model"), False))
+
+
+def serve_mesh_case(dev, label, arch, layers, n, axes, long_prefill):
+    """One case of phase 22: the serve step and the prefill on a one-rank
+    ``DeviceMesh`` of ``axes`` (``make_serve_step(..., mesh=)`` on
+    ``distribute_params`` parameters, which share the one-device leaves,
+    and ``init_mesh_caches``) and on one device, from the same
+    parameters and prompts: every step's logits, the greedy tokens, the
+    caches at the end (``gather_tree``) and the prefills bit for bit, every
+    kernel launched as often.  Returns (the mesh runs' launches, record)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.dlrt import (distribute_params, gather_tree,
+                                  init_mesh_caches, init_node_caches,
+                                  init_train_state, make_prefill_step,
+                                  make_serve_step, serve_kv_spec)
+    from repro_torch.launch import MeshLayout
+    from repro_torch.optim import sgd
+    from repro_torch.tree import flatten
+    cfg = (jamba_serving_config() if layers == "jamba" else get_config(arch)
+           if layers is None else
+           dataclasses.replace(get_config(arch), num_layers=layers))
+    layout = MeshLayout(axes, (1,) * len(axes))
+    device_mesh = layout.device_mesh(dev.type)
+    b, steps = SERVE_MESH_REQUESTS, SERVE_MESH_PROMPT + SERVE_MESH_NEW
+    t0 = time.perf_counter()
+    params = init_train_state(cfg, sgd(0.05), n, seed=22, device=dev).params
+    mesh_params = distribute_params(params, layout, device_mesh, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat = flatten(params)
+    shared = all(v.to_local().data_ptr() == flat[k].data_ptr()
+                 for k, v in flatten(mesh_params).items())
+    gen = torch.Generator(device=dev).manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab_size, (n, b, SERVE_MESH_PROMPT),
+                            generator=gen, device=dev)
+    long = (torch.randint(0, cfg.vocab_size, (n,) + SERVE_MESH_LONG,
+                          generator=gen, device=dev) if long_prefill
+            else None)
+
+    def run(mesh):
+        p = mesh_params if mesh else params
+        if mesh:
+            cache = init_mesh_caches(cfg, n, b, steps, layout, device_mesh,
+                                     device=dev)
+            step = make_serve_step(cfg, kv_spec=serve_kv_spec(layout, cfg, b),
+                                   mesh=device_mesh)
+        else:
+            cache = init_node_caches(cfg, n, b, steps, device=dev)
+            step = make_serve_step(cfg)
+        prefill = make_prefill_step(cfg, mesh=device_mesh if mesh else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        logits, ms, tok = [], [], prompts[..., :1]
+        for pos in range(steps):
+            if pos < SERVE_MESH_PROMPT:
+                tok = prompts[..., pos:pos + 1]
+            t1 = time.perf_counter()
+            got, cache = step(p, cache, tok, pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            logits.append(got)
+            tok = got.argmax(-1)
+        decode_peak = torch.cuda.max_memory_allocated()
+        counts = {"decode": launch_counts()}
+        prefills, prefill_ms = [], []
+        for what in (["prompts"] + (["warm", "long"] if long is not None
+                                     else [])):
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            prefills.append(prefill(p, {"tokens": prompts if what ==
+                                        "prompts" else long}))
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t1) * 1e3)
+            counts[what] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"decode_ms": ms,
+               "steady_decode_ms": float(np.mean(ms[2:])),
+               "decode_peak_over_base_gb": (decode_peak - base) / 1e9,
+               "peak_gb": peak / 1e9,
+               "prefill_ms": dict(zip(counts, [None] + prefill_ms)),
+               "launches": counts}
+        full = gather_tree(cache) if mesh else cache
+        return logits, full, prefills, rec
+
+    with deterministic_cudnn():
+        one = run(False)
+        mesh = run(True)
+    for pos, (a, c) in enumerate(zip(mesh[0], one[0])):
+        if not same_bits(a, c):
+            raise AssertionError(f"{label} {arch}: step {pos}'s logits on "
+                                 "the mesh differ from one device's")
+    got, want = flatten(mesh[1]), flatten(one[1])
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    if bad or list(got) != list(want):
+        raise AssertionError(f"{label} {arch}: caches differ: {bad[:6]}")
+    for i, (a, c) in enumerate(zip(mesh[2], one[2])):
+        if not same_bits(a, c):
+            raise AssertionError(f"{label} {arch}: prefill {i} differs")
+    m_rec, o_rec = mesh[3], one[3]
+    if m_rec["launches"] != o_rec["launches"]:
+        raise AssertionError(f"{label} {arch}: launches {m_rec['launches']} "
+                             f"on the mesh, {o_rec['launches']} on one "
+                             "device")
+    n_mamba = n * sum(s.mixer == "mamba" for s in cfg.pattern) \
+        * cfg.num_periods
+    none = dict.fromkeys(m_rec["launches"]["decode"], 0)
+    for what, got in m_rec["launches"].items():
+        want = none if what == "decode" else dict(
+            none, selective_scan=n_mamba)
+        if got != want:
+            raise AssertionError(f"{label} {arch}: {what} launched {got}, "
+                                 f"want {want}")
+    shape = (n, b, 1, cfg.vocab_size)
+    if mesh[0][-1].shape != shape or not all(
+            torch.isfinite(t).all() for t in mesh[0] + mesh[2]):
+        raise AssertionError(f"{label}: logits {mesh[0][-1].shape}, want "
+                             f"{shape} and finite")
+    launches = dict(none)
+    for got in m_rec["launches"].values():
+        _add(launches, got)
+    rec = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": cfg.param_dtype,
+           "policy": cfg.sharding_policy, "layout": dict(layout.shape),
+           "nodes": n, "requests": b, "prompt": SERVE_MESH_PROMPT,
+           "new_tokens": SERVE_MESH_NEW, "slots": steps,
+           "params_per_node_b": sum(v[0].numel() for v in flat.values())
+           / 1e9, "shared_storage": shared, "init_s": init_s,
+           "long_prefill": list(SERVE_MESH_LONG) if long_prefill else None,
+           "mesh": {k: v for k, v in m_rec.items() if k != "launches"},
+           "one_device": {k: v for k, v in o_rec.items()
+                          if k != "launches"},
+           "bitwise": True, "launches": m_rec["launches"]}
+    log(f"phase {label}: {json.dumps(rec)}")
+    del params, mesh_params, one, mesh, got, want, flat
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def serve_mesh_path(dev):
+    """Phase 22: :func:`serve_mesh_case` for each of SERVE_MESH_CASES on a
+    one-rank NCCL group; returns the mesh runs' launches."""
+    t0 = time.perf_counter()
+    totals, times = {}, []
+    with one_rank_nccl_group():
+        for case in SERVE_MESH_CASES:
+            t1 = time.perf_counter()
+            _add(totals, serve_mesh_case(dev, *case)[0])
+            times.append(f"{case[0][-3:]} {time.perf_counter() - t1:.1f}")
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s ({', '.join(times)})")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6073,6 +6259,7 @@ def main():
     front_counts = frontends_path(dev)
     ckpt_counts = checkpoint_path(dev)
     mesh_counts = mesh_path(dev)
+    serve_mesh_counts = serve_mesh_path(dev)
     launcher_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
@@ -6122,6 +6309,7 @@ def main():
             "launches_frontends": front_counts[name],
             "launches_checkpoint": ckpt_counts[name],
             "launches_mesh": mesh_counts[name],
+            "launches_serve_mesh": serve_mesh_counts.get(name, 0),
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

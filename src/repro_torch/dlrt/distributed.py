@@ -13,7 +13,8 @@ architecture of the port's zoo trains so: MoE expert banks, RWKV-6's
 mixers (whose ``w0`` and ``u`` stay f32 in a bf16 model, so Eq. 3 takes
 one Gram launch per dtype), the MoE aux term in the loss, Whisper's
 encoder over a batch's ``frames`` and a VLM's ``patch_embeds``.  Serving:
-:func:`make_serve_step` decodes one token on every node.
+:func:`make_serve_step` decodes one token on every node, and
+:func:`make_prefill_step` runs every node's prefill.
 
 Memory.  A round never holds a second population or every node's
 gradients: each node's forward and backward run alone, its update is
@@ -40,9 +41,11 @@ shape on one card and :func:`placements` its DTensor placements.  The
 leaves on the meta device: shapes and dtypes, no memory.  They are pure
 functions of shapes, so they run on any host.  The train step runs on a
 ``DeviceMesh`` with DTensor state under these specs
-(``make_train_step(..., mesh=...)``, :mod:`.mesh_step`); the serve step
-on the mesh, with its KV constraint, is not ported (ROADMAP queue 1
-item 5).  The node-axis sharding the sharded
+(``make_train_step(..., mesh=...)``, :mod:`.mesh_step`), and the serve
+step and the prefill on parameters under these specs, each node's caches
+staying on their ranks under :func:`cache_sharding`
+(``make_serve_step(..., mesh=...)``, ``make_prefill_step(...,
+mesh=...)``, :mod:`.mesh_serve`).  The node-axis sharding the sharded
 superstep reads (``node_axes``, ``superstep_node_sharding``) is reduced to
 what a ``torch.distributed`` node mesh has: the shard count and this
 rank's index.
@@ -464,7 +467,7 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
     ``fn()``, so a caller can time them."""
 
     def node_grads(p: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
-                   mb: Optional[int] = microbatch):
+                   mb: Optional[int] = microbatch, rows=None):
         B = b["tokens"].shape[0]
         mb = mb or B
         if B % mb != 0:
@@ -473,7 +476,8 @@ def make_train_step(cfg, optimizer: Optimizer, hp: MorphHParams, *,
         leaves = list(p.values())
 
         def grads_of(piece):
-            loss, _ = model.loss_fn(unflatten(p), piece, cfg, window=window)
+            loss, _ = model.loss_fn(unflatten(p), piece, cfg, window=window,
+                                    rows=rows)
             got = torch.autograd.grad(loss, leaves, allow_unused=True)
             return loss.detach(), [torch.zeros_like(v) if g is None else g
                                    for v, g in zip(leaves, got)]
@@ -565,11 +569,24 @@ def init_node_caches(cfg, n_nodes: int, batch: int, max_len: int,
         (n_nodes,) + (1,) * leaf.dim()), one)
 
 
-def make_serve_step(cfg, *, window="cfg"):
+def make_serve_step(cfg, *, window="cfg", kv_spec=None, mesh=None):
     """Returns ``serve_step(params, cache, tokens, pos) -> (logits,
     cache)`` for node-stacked state: ``tokens [n, b, 1]``, caches ``[n,
     ...]`` (:func:`init_node_caches`); node i's ``model.decode_step`` on
-    its slices, the cache updated in place, ``logits [n, b, 1, vocab]``."""
+    its slices, the cache updated in place, ``logits [n, b, 1, vocab]``.
+
+    Given a ``DeviceMesh`` (``mesh``), the step over it on parameters
+    under :func:`params_sharding` and caches under :func:`cache_sharding`
+    that never leave their ranks (:mod:`.mesh_serve`; every rank builds it
+    at once); there ``kv_spec`` (the reference's pin of each node's KV
+    buffer), where given, must be :func:`serve_kv_spec` of the mesh, the
+    config and a call's batch, or that call raises ``ValueError``.  Without
+    a mesh ``kv_spec`` changes nothing, as the reference's constraint
+    outside a mesh."""
+    if mesh is not None:
+        from .mesh_serve import make_mesh_serve_step
+        return make_mesh_serve_step(cfg, window=window, device_mesh=mesh,
+                                    kv_spec=kv_spec)
 
     def serve_step(params, cache, tokens, pos: int):
         n = tokens.shape[0]
@@ -580,6 +597,29 @@ def make_serve_step(cfg, *, window="cfg"):
         return torch.stack(logits), cache
 
     return serve_step
+
+
+def make_prefill_step(cfg, *, window="cfg", mesh=None):
+    """Returns ``prefill(params, batch) -> logits [n, b, 1, vocab]``: node
+    i's ``model.forward(..., last_only=True)`` on its slice of every entry
+    of ``batch`` (``tokens [n, b, s]``, a frontend's ``frames`` or
+    ``patch_embeds``), without autograd: the reference's dry-run prefill.
+    Given a ``DeviceMesh`` (``mesh``), the prefill over it on parameters
+    under :func:`params_sharding` (:mod:`.mesh_serve`)."""
+    if mesh is not None:
+        from .mesh_serve import make_mesh_prefill_step
+        return make_mesh_prefill_step(cfg, window=window, device_mesh=mesh)
+
+    def prefill(params, batch):
+        n, dev = batch["tokens"].shape[0], \
+            next(iter(flatten(params).values())).device
+        with torch.no_grad():
+            return torch.stack([model.forward(
+                tree_map(lambda v: v[i], params),
+                {k: _to_device(v[i], dev) for k, v in batch.items()}, cfg,
+                window=window, last_only=True)[0] for i in range(n)])
+
+    return prefill
 
 
 # ---------------------------------------------------------------------------

@@ -64,10 +64,12 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..collectives import packed_all_gather, reduce_scatter_into
 from ..core.mixing import uniform_weights_torch
 from ..core.morph import MorphNoise, update_topology
 from ..kernels import ops
-from ..launch.mesh import MeshGroups, packed_all_gather, reduce_scatter_into
+from ..launch.mesh import MeshGroups
+from ..models.shards import RowShards
 from ..optim import Optimizer, apply_updates
 from ..tree import flatten
 from .distributed import (MIX_GROUP_BYTES, NamedSharding, TrainState,
@@ -163,6 +165,46 @@ def _nontrivial(mesh: MeshGroups, axes) -> Tuple[str, ...]:
     return tuple(a for a in axes if mesh.size((a,)) > 1)
 
 
+def gather_whole(mesh: MeshGroups, blocks, dims):
+    """Tensors whole from this rank's ``blocks`` (by key; ``dims``: each
+    one's split dims -> axes, in its own coordinates): each split dim
+    gathered over its axes, innermost axis first, one packed
+    ``all_gather`` an axis.  A tensor nothing splits is returned as it
+    is."""
+    full = OrderedDict(blocks)
+    for axis in reversed(mesh.names):
+        keys = [k for k, ds in dims.items()
+                if any(axis in axes for axes in ds.values())]
+        if not keys:
+            continue
+        got = packed_all_gather([full[k] for k in keys],
+                                mesh.size((axis,)), mesh.group((axis,)))
+        for k, g in zip(keys, got):
+            d = next(d for d, axes in dims[k].items() if axis in axes)
+            shape = list(full[k].shape)
+            shape[d] *= g.shape[0]
+            full[k] = g.movedim(0, d).reshape(shape)
+    return full
+
+
+def body_dims(dims):
+    """Each leaf's split dims past the node's, in a node row's
+    coordinates."""
+    return OrderedDict((k, {d - 1: axes for d, axes in ds.items() if d})
+                       for k, ds in dims.items())
+
+
+def row_shards(mesh: MeshGroups, batch_ax, piece: Optional[int]
+               ) -> Optional[RowShards]:
+    """The MoE layers' routing batch where ``batch_ax`` splits a node's
+    batch (None where it does not): the node's whole batch, routed in
+    pieces of ``piece`` rows (None: at once)."""
+    if mesh.size(batch_ax) == 1:
+        return None
+    return RowShards(mesh.group(batch_ax), mesh.size(batch_ax),
+                     mesh.index(batch_ax), piece)
+
+
 def make_mesh_train_step(cfg, optimizer: Optimizer, hp, node_grads: Callable,
                          *, microbatch: Optional[int], do_topology: bool,
                          device_mesh):
@@ -172,31 +214,13 @@ def make_mesh_train_step(cfg, optimizer: Optimizer, hp, node_grads: Callable,
     and returned.  ``batch`` is every node's whole batch (``[n, B, ...]``,
     the same on every rank); ``noise`` and the metrics as the one-device
     step's, the metrics the same bits on every rank; ``stage`` also sees
-    ``gather`` and ``reduce``.  ``node_grads(p, b, microbatch)`` is the
-    one-device step's local step.  Every rank builds the step at once (it
+    ``gather`` and ``reduce``.  ``node_grads(p, b, microbatch, rows)`` is the
+    one-device step's local step (``rows``: the MoE layers' routing
+    batch, :func:`row_shards`).  Every rank builds the step at once (it
     makes the mesh's process groups)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = MeshGroups(device_mesh)
     names = mesh.names
-
-    def gather_body(rows, dims):
-        """A node's leaves whole: each split dim gathered over its axes,
-        innermost axis first, one packed ``all_gather`` an axis."""
-        full = OrderedDict(rows)
-        for axis in reversed(names):
-            keys = [k for k, ds in dims.items()
-                    if any(axis in axes for d, axes in ds.items() if d)]
-            if not keys:
-                continue
-            got = packed_all_gather([full[k] for k in keys],
-                                    mesh.size((axis,)), mesh.group((axis,)))
-            for k, g in zip(keys, got):
-                d = next(d for d, axes in dims[k].items()
-                         if d and axis in axes) - 1
-                shape = list(full[k].shape)
-                shape[d] *= g.shape[0]
-                full[k] = g.movedim(0, d).reshape(shape)
-        return full
 
     def reduce(grads, loss, dims, batch_ax):
         """Each gradient averaged over ``batch_ax`` and cut to its leaf's
@@ -270,6 +294,7 @@ def make_mesh_train_step(cfg, optimizer: Optimizer, hp, node_grads: Callable,
         params = flatten(state.params)
         dims = OrderedDict((k, _dim_axes(v, names))
                            for k, v in params.items())
+        node_dims = body_dims(dims)
         local = OrderedDict((k, v.to_local()) for k, v in params.items())
         n = next(iter(params.values())).shape[0]
         dev = next(iter(local.values())).device
@@ -294,6 +319,10 @@ def make_mesh_train_step(cfg, optimizer: Optimizer, hp, node_grads: Callable,
             # Pieces of the node's batch; where they straddle this rank's
             # shard, the shard is one piece (the same mean gradient).
             mb = mb if b_local % mb == 0 else None
+        # Where no piece lies on this rank alone, the MoE layers route the
+        # node's whole batch (or each whole piece) across the batch's axes.
+        routing = None if mb is not None else row_shards(mesh, batch_ax,
+                                                         microbatch)
         mine = stage("batch", lambda: {
             k: _to_device(v[off:off + n_local, b0:b0 + b_local], dev)
             for k, v in batch.items()})
@@ -325,11 +354,12 @@ def make_mesh_train_step(cfg, optimizer: Optimizer, hp, node_grads: Callable,
         for j in range(n_local):
             i = off + j
             rows = OrderedDict((k, v[j]) for k, v in local.items())
-            full = stage("gather", lambda: gather_body(rows, dims))
+            full = stage("gather", lambda: gather_whole(mesh, rows,
+                                                        node_dims))
             p_i = OrderedDict((k, v.detach().requires_grad_())
                               for k, v in full.items())
             grads, loss = stage("forward_backward", lambda: node_grads(
-                p_i, {k: v[j] for k, v in mine.items()}, mb))
+                p_i, {k: v[j] for k, v in mine.items()}, mb, routing))
             del p_i, full
             grads, loss = stage("reduce", lambda: reduce(grads, loss, dims,
                                                          batch_ax))

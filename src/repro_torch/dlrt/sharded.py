@@ -64,11 +64,11 @@ from typing import Callable, List, Mapping
 import numpy as np
 import torch
 
+from ..collectives import packed_all_gather, reduce_scatter_into
 from ..compress import CompressConfig, decode_wire_tree
 from ..core.mixing import uniform_weights_torch
 from ..kernels import ops
 from ..kernels.graph_mix import graph_mix_leaves
-from ..launch.mesh import packed_all_gather, reduce_scatter_into
 from ..sparse.adjacency import SparseAdjacency, pad_adjacency
 from ..sparse.mix import sparse_mix_pytree, sparse_push_leaves
 from .distributed import superstep_node_sharding

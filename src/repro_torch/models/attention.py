@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import layers
+from . import shards as shards_mod
 
 NEG_INF = -1e30
 
@@ -204,34 +205,51 @@ def init_cache(cfg, batch: int, max_len: int, dtype,
 DECODE_BLOCK = 1024
 
 
-def _decode_sdpa(q, ck, cv, mask, head_dim):
+def _decode_sdpa(q, ck, cv, mask, head_dim, shards=None, dim=None):
     """``_sdpa`` for one query position against the cache, without
     repeating the KV heads or upcasting the whole cache: q [b, 1, h, hd],
     ck/cv [b, t, kvh, hd], mask [t] bool -> [b, 1, h, hd] in ``cv``'s
-    dtype.  Query head i reads KV head ``i // groups`` (``_repeat_kv``)."""
+    dtype.  Query head i reads KV head ``i // groups`` (``_repeat_kv``).
+
+    On a mesh (``shards``, a :class:`~.shards.CacheShards`) ck and cv are
+    this rank's block, split on ``dim``: 3 (head_dim; the partial logits
+    ``[b, kvh, g, t]`` summed over the ranks, then the rank's columns of
+    the output gathered) or 2 (KV heads; its heads' outputs gathered).
+    The result is whole on every rank."""
     b, _, h, hd = q.shape
-    t, kvh = ck.shape[1], ck.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, hd).float()
-    logits = torch.empty((b, kvh, h // kvh, t), dtype=torch.float32,
+    t = ck.shape[1]
+    kvh = ck.shape[2] * (shards.size if dim == 2 else 1)
+    qg = q.reshape(b, kvh, h // kvh, hd)
+    if dim is not None:
+        if dim not in (2, 3):
+            raise shards_mod.unsupported("a KV cache", dim)
+        qg = shards.take(qg, 1 if dim == 2 else 3)
+    qg = qg.float()
+    logits = torch.empty(qg.shape[:3] + (t,), dtype=torch.float32,
                          device=q.device)
     blocks = [slice(lo, min(lo + DECODE_BLOCK, t))
               for lo in range(0, t, DECODE_BLOCK)]
     for blk in blocks:
         logits[..., blk] = torch.einsum("bkgd,btkd->bkgt", qg,
                                         ck[:, blk].float())
+    if dim == 3:
+        shards.sum(logits)
     logits.mul_(1.0 / math.sqrt(head_dim)).masked_fill_(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(cv.dtype)
     del logits
-    out = torch.zeros((b, kvh, h // kvh, hd), dtype=torch.float32,
+    out = torch.zeros(qg.shape[:3] + (cv.shape[3],), dtype=torch.float32,
                       device=q.device)
     for blk in blocks:
         out += torch.einsum("bkgt,btkd->bkgd", probs[..., blk].float(),
                             cv[:, blk].float())
-    return out.to(cv.dtype).reshape(b, 1, h, hd)
+    out = out.to(cv.dtype)
+    if dim is not None:
+        out = shards.gather(out, 1 if dim == 2 else 3)
+    return out.reshape(b, 1, h, hd)
 
 
 def decode_self_attention(p, x, cfg, cache, pos: int,
-                          window: Optional[int] = None
+                          window: Optional[int] = None, shards=None
                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode. x: [b, 1, d]; ``pos``: the current position.
 
@@ -240,6 +258,9 @@ def decode_self_attention(p, x, cfg, cache, pos: int,
     otherwise it is linear in ``max_len``.  The new key and value are
     written into their slot of the given cache, which is returned: a step
     costs O(1) cache writes, where the reference builds a new cache.
+    ``shards`` (a :class:`~.shards.CacheShards` of ``{"k", "v"}``): the
+    cache is this rank's block; the new token's slice of k and v goes into
+    it, and :func:`_decode_sdpa` meets the other ranks.
     """
     b = x.shape[0]
     q = _split_heads(layers.dense(p["q"], x), cfg.num_heads, cfg.head_dim)
@@ -251,6 +272,9 @@ def decode_self_attention(p, x, cfg, cache, pos: int,
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    dim = shards_mod.split_dim(shards, "k")
+    if dim is not None:
+        k, v = shards.take(k, dim), shards.take(v, dim)
     max_len = ck.shape[1]
     ring = window is not None and max_len == window
     slot = pos % max_len if ring else pos
@@ -265,6 +289,6 @@ def decode_self_attention(p, x, cfg, cache, pos: int,
         mask = k_pos <= pos
         if window is not None:
             mask &= k_pos > pos - window
-    out = _decode_sdpa(q, ck, cv, mask, cfg.head_dim)
+    out = _decode_sdpa(q, ck, cv, mask, cfg.head_dim, shards, dim)
     y = layers.dense(p["o"], out.reshape(b, 1, -1))
     return y, cache

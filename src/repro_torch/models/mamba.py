@@ -26,6 +26,7 @@ import torch
 
 from ..kernels import selective_scan
 from . import layers
+from .shards import split_dim, unsupported
 
 
 def _dt_rank(cfg) -> int:
@@ -141,17 +142,40 @@ def init_mamba_state(cfg, batch: int, dtype,
                                 device=device)}
 
 
-def decode_mamba(p, x, cfg, state
+def decode_mamba(p, x, cfg, state, shards=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [b, 1, d_model] -> (y [b,1,d_model], state), the state updated
-    in place."""
+    in place.  ``shards`` (a :class:`~.shards.CacheShards` of ``{"h",
+    "conv"}``): the state is this rank's block; the conv runs on this
+    rank's channels and its output ``[b, 1, d_inner]`` is gathered, and
+    ``h`` steps on its d_state columns, ``y``'s partial sums added over
+    the ranks."""
     xz = layers.dense(p["in_proj"], x)
     xr, z = torch.chunk(xz, 2, dim=-1)
-    xr, new_tail = _causal_conv(p, xr, state["conv"])
+    conv_dim = split_dim(shards, "conv")
+    if conv_dim is None:
+        xr, new_tail = _causal_conv(p, xr, state["conv"])
+    elif conv_dim == 2:
+        cols = shards.cols(xr.shape[-1])
+        xr, new_tail = _causal_conv(
+            {"conv_w": p["conv_w"][:, cols], "conv_b": p["conv_b"][cols]},
+            xr[..., cols], state["conv"])
+        xr = shards.gather(xr, 2)
+    else:
+        raise unsupported("Mamba's conv state", conv_dim)
     xr = torch.nn.functional.silu(xr)
     dA, dBx, C = _ssm_inputs(p, xr, cfg)
-    h = state["h"] * dA[:, 0] + dBx[:, 0]
-    y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None]
+    h_dim = split_dim(shards, "h")
+    if h_dim is None:
+        h = state["h"] * dA[:, 0] + dBx[:, 0]
+        y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None]
+    elif h_dim == 2:
+        cols = shards.cols(dA.shape[-1])
+        h = state["h"] * dA[:, 0, :, cols] + dBx[:, 0, :, cols]
+        y = shards.sum(torch.einsum("bds,bs->bd", h,
+                                    C[:, 0, cols]).contiguous())[:, None]
+    else:
+        raise unsupported("Mamba's h", h_dim)
     y = y + p["D"][None, None] * xr.float()
     y = y.to(x.dtype) * torch.nn.functional.silu(z)
     state["h"].copy_(h)

@@ -34,7 +34,7 @@ init_cache = transformer.init_cache
 decode_step = transformer.decode_step
 
 
-def loss_fn(params, batch, cfg, *, window="cfg"
+def loss_fn(params, batch, cfg, *, window="cfg", rows=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy (+ the MoE aux term ``forward`` sums over
     the MoE layers, 0 for a model without experts) over the positions
@@ -44,8 +44,9 @@ def loss_fn(params, batch, cfg, *, window="cfg"
     The reference takes the label logit as a masked sum over the vocabulary
     (``iota == label``), which keeps a model-sharded vocabulary local; here
     it is a gather.  The values are equal: that sum adds one logit to
-    zeros, which is exact."""
-    logits, aux = transformer.forward(params, batch, cfg, window=window)
+    zeros, which is exact.  ``rows``: as ``forward``'s."""
+    logits, aux = transformer.forward(params, batch, cfg, window=window,
+                                      rows=rows)
     labels = batch["labels"]
     # Stub-frontend positions come before the text: pad the labels on the
     # left with IGNORE_INDEX so that positions line up.

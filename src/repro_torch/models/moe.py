@@ -29,16 +29,27 @@ The capacity comes from the call's own token count ``T``, so a decode step
 (``T`` = batch) has its own, often 1: colliding pairs are dropped there as
 in the reference.  Router jitter is never drawn: the reference's forward
 and decode pass no key.
+
+Rows on other ranks.  On a device mesh a node's batch may be split over
+ranks (``node_fsdp``: over ``data``), while the reference, partitioned by
+GSPMD, still routes the node's whole batch.  Given ``rows`` (a
+:class:`~.shards.RowShards`), a call gathers the hidden rows of its group
+(an all-gather whose gradient sums each rank's rows back to it), routes
+the whole batch, or each whole ``piece`` of it, with that batch's
+capacity, drops and aux term, and keeps this rank's rows.  Without it
+nothing changes.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from .. import collectives
 from ..core.selection import stable_topk
 from . import layers
+from .shards import RowShards
 
 
 def _expert_bank(gen, E: int, d_in: int, d_out: int, dtype):
@@ -151,8 +162,28 @@ def _combine(out_buf, slot, keep, gates):
     return y
 
 
-def apply_moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [batch, seq, d] -> (y, aux_loss f32 scalar)."""
+class _GatherRows(torch.autograd.Function):
+    """``x [b, ...]`` of every rank of ``rows.group`` as ``[size b, ...]``
+    in rank order; the gradient of each rank's rows summed over the
+    ranks back to it."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        out = x.new_empty((rows.size * x.shape[0],) + x.shape[1:])
+        collectives.all_gather_into(out, x.contiguous(), group=rows.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = g.new_empty((g.shape[0] // ctx.rows.size,) + g.shape[1:])
+        collectives.reduce_scatter_into(out, g, group=ctx.rows.group)
+        return out, None
+
+
+def _moe_rows(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [batch, seq, d] routed as one batch -> (y, aux)."""
     m = cfg.moe
     b, s, d = x.shape
     T, E = b * s, m.num_experts
@@ -167,3 +198,20 @@ def apply_moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     frac_probs = probs.mean(0)
     aux = E * torch.sum(frac_tokens * frac_probs) * m.aux_loss_weight
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def apply_moe(p, x, cfg, rows: Optional[RowShards] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [batch, seq, d] -> (y, aux_loss f32 scalar).  Given ``rows``,
+    ``x`` is this rank's share of a batch routed whole (see the module
+    docstring), and the aux term the mean over its pieces."""
+    if rows is None or rows.size == 1:
+        return _moe_rows(p, x, cfg)
+    b = x.shape[0]
+    whole = _GatherRows.apply(x, rows)
+    step = rows.piece or whole.shape[0]
+    ys, auxes = zip(*(_moe_rows(p, whole[lo:lo + step], cfg)
+                      for lo in range(0, whole.shape[0], step)))
+    y = torch.cat(ys) if len(ys) > 1 else ys[0]
+    aux = torch.stack(auxes).mean() if len(auxes) > 1 else auxes[0]
+    return y[rows.index * b:(rows.index + 1) * b], aux

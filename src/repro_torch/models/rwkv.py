@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import layers
+from .shards import split_dim, unsupported
 
 _DECAY_LORA = 64
 _MIX_LORA = 32
@@ -229,14 +230,21 @@ def init_rwkv_state(cfg, batch: int, dtype,
     }
 
 
-def decode_rwkv_time_mix(p, x, cfg, state
+def decode_rwkv_time_mix(p, x, cfg, state, shards=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [b, 1, d] -> (y, state): the exact single-step recurrence,
-    ``state["s"]`` and ``state["last_tm"]`` updated in place."""
+    ``state["s"]`` and ``state["last_tm"]`` updated in place.  ``shards``
+    (a :class:`~.shards.CacheShards` of the state): the state is this
+    rank's block; the previous token is gathered, ``s`` steps on its value
+    columns, whose ``y`` is gathered, and this rank's slice of the token
+    is kept."""
     b, _, d = x.shape
     h = _num_heads(cfg)
     hd = d // h
-    x_prev = state["last_tm"].to(x.dtype)
+    tm_dim = split_dim(shards, "last_tm")
+    last = state["last_tm"]
+    x_prev = (last if tm_dim is None else shards.gather(last, tm_dim)
+              ).to(x.dtype)
     r, k, v, g, log_w = _rkvgw(p, x, x_prev, cfg)
     rh = r.reshape(b, h, hd).float()
     kh = k.reshape(b, h, hd).float()
@@ -244,17 +252,31 @@ def decode_rwkv_time_mix(p, x, cfg, state
     wh = torch.exp(log_w.reshape(b, h, hd))
     u = p["u"].reshape(h, hd).float()
     s = state["s"]
+    s_dim = split_dim(shards, "s")
+    if s_dim not in (None, 3):
+        raise unsupported("the WKV state", s_dim)
+    if s_dim == 3:
+        vh = vh[..., shards.cols(hd)]
     kv = kh[..., :, None] * vh[..., None, :]              # [b,h,hd,hd]
     y = torch.einsum("bhk,bhkv->bhv", rh, s + u[None, :, :, None] * kv)
     s_new = wh[..., None] * s + kv
+    if s_dim == 3:
+        y = shards.gather(y, 2)
     y = y.reshape(b, 1, d)
     y = _group_norm(p["ln_x"], y.to(x.dtype), h) * g
     state["s"].copy_(s_new)
-    state["last_tm"].copy_(x)
+    last.copy_(x if tm_dim is None else shards.take(x, tm_dim))
     return layers.dense(p["o"], y), state
 
 
-def decode_channel_mix(p, x, state_last
+def decode_channel_mix(p, x, state_last, shards=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [b, 1, d] -> (y, new last token); the caller keeps it."""
-    return apply_channel_mix(p, x, last_token=state_last)
+    """x: [b, 1, d] -> (y, new last token); the caller keeps it.
+    ``shards`` (of ``{"last_cm"}``): ``state_last`` is this rank's slice,
+    gathered whole first, and the new last token is returned sliced."""
+    dim = split_dim(shards, "last_cm")
+    if dim is None:
+        return apply_channel_mix(p, x, last_token=state_last)
+    out, last = apply_channel_mix(p, x, last_token=shards.gather(
+        state_last, dim))
+    return out, shards.take(last, dim)

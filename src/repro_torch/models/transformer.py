@@ -43,6 +43,7 @@ from .. import resolve_device
 from ..configs.base import BlockSpec
 from ..tree import tree_map
 from . import attention, layers, mamba, moe, rwkv
+from .shards import split_dim, sub
 
 # Whisper's encoder blocks: attention with a dense MLP.
 _ENCODER_SPEC = BlockSpec(mixer="attn", moe=False)
@@ -95,10 +96,11 @@ def block_params(gen, cfg, spec, dtype, cross: bool = False):
 
 
 def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None,
-                memory=None):
+                memory=None, rows=None):
     """Training/prefill forward through one block: the mixer, then (a
     decoder block given the encoder's ``memory``) cross-attention, then
-    the MLP. Returns (x, aux)."""
+    the MLP (a MoE MLP routing across ``rows``, a
+    :class:`~.shards.RowShards`, where given). Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
     if spec.mixer == "attn":
@@ -117,7 +119,7 @@ def apply_block(p, x, cfg, spec, *, positions, causal=True, window=None,
     if spec.mixer == "rwkv":
         out, _ = rwkv.apply_channel_mix(p["mlp"], h2)
     elif spec.moe:
-        out, aux = moe.apply_moe(p["mlp"], h2, cfg)
+        out, aux = moe.apply_moe(p["mlp"], h2, cfg, rows)
     else:
         out = layers.apply_mlp(p["mlp"], h2, cfg.mlp_type)
     return x + out, aux
@@ -146,40 +148,49 @@ def init_block_cache(cfg, spec, batch: int, max_len: int, dtype, device,
     return c
 
 
-def _decode_cross(p, x, cfg, cache):
+def _decode_cross(p, x, cfg, cache, shards=None):
     """Cross-attention of one token against the cached ``cross_k`` and
-    ``cross_v``, every slot visible."""
+    ``cross_v``, every slot visible (on a mesh, this rank's blocks of
+    them: ``shards``)."""
     b = x.shape[0]
     q = layers.dense(p["q"], x).reshape(b, 1, cfg.num_heads, cfg.head_dim)
     ck, cv = cache["cross_k"], cache["cross_v"]
     visible = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
-    out = attention._decode_sdpa(q, ck, cv, visible, cfg.head_dim)
+    out = attention._decode_sdpa(q, ck, cv, visible, cfg.head_dim, shards,
+                                 split_dim(shards, "cross_k"))
     return layers.dense(p["o"], out.reshape(b, 1, -1))
 
 
-def decode_block(p, x, cfg, spec, cache, pos, *, window=None):
+def decode_block(p, x, cfg, spec, cache, pos, *, window=None, shards=None,
+                 rows=None):
     """One-token decode through one block. Returns (x, cache), the cache
-    updated in place."""
+    updated in place.  ``shards`` (a :class:`~.shards.CacheShards` of the
+    block's cache): on a mesh, the cache is this rank's blocks; ``rows``
+    (a :class:`~.shards.RowShards`): a MoE MLP routes across them."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
     if spec.mixer == "attn":
         mixed, _ = attention.decode_self_attention(
-            p["mixer"], h, cfg, cache["attn"], pos, window=window)
+            p["mixer"], h, cfg, cache["attn"], pos, window=window,
+            shards=sub(shards, "attn"))
     elif spec.mixer == "mamba":
-        mixed, _ = mamba.decode_mamba(p["mixer"], h, cfg, cache["ssm"])
+        mixed, _ = mamba.decode_mamba(p["mixer"], h, cfg, cache["ssm"],
+                                      shards=sub(shards, "ssm"))
     else:
         mixed, _ = rwkv.decode_rwkv_time_mix(p["mixer"], h, cfg,
-                                             cache["wkv"])
+                                             cache["wkv"],
+                                             shards=sub(shards, "wkv"))
     x = x + mixed
     if "cross" in p:
         hx = layers.apply_norm(p["norm_cross"], x, cfg.norm_type)
-        x = x + _decode_cross(p["cross"], hx, cfg, cache)
+        x = x + _decode_cross(p["cross"], hx, cfg, cache, shards)
     h2 = layers.apply_norm(p["norm2"], x, cfg.norm_type)
     if spec.mixer == "rwkv":
         out, last = rwkv.decode_channel_mix(p["mlp"], h2,
-                                            cache["wkv"]["last_cm"])
+                                            cache["wkv"]["last_cm"],
+                                            shards=sub(shards, "wkv"))
         cache["wkv"]["last_cm"].copy_(last)
     elif spec.moe:
-        out, _ = moe.apply_moe(p["mlp"], h2, cfg)
+        out, _ = moe.apply_moe(p["mlp"], h2, cfg, rows)
     else:
         out = layers.apply_mlp(p["mlp"], h2, cfg.mlp_type)
     return x + out, cache
@@ -265,7 +276,8 @@ def _embed_inputs(p, batch, cfg):
     return x, positions
 
 
-def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
+def forward(p, batch, cfg, *, window="cfg", last_only: bool = False,
+            rows=None):
     """Full forward -> (logits [b, S, vocab] f32, aux_loss scalar).
 
     ``batch``: ``tokens [b, s]``; for an encoder-decoder ``frames [b, T,
@@ -274,7 +286,9 @@ def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
     before the text's, so the logits have P + s positions.  ``window``:
     attention window; the sentinel "cfg" uses ``cfg.sliding_window`` (None
     = full attention).  ``last_only``: logits for the final position only
-    (the serving prefill).
+    (the serving prefill).  ``rows`` (a :class:`~.shards.RowShards`): on a
+    mesh, ``batch`` is this rank's rows of a node's batch, which the MoE
+    layers route whole.
     """
     if window == "cfg":
         window = cfg.sliding_window
@@ -287,14 +301,14 @@ def forward(p, batch, cfg, *, window="cfg", last_only: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk, spec in zip(p.get("prefix", ()), cfg.prefix):
         x, a = apply_block(blk, x, cfg, spec, positions=positions,
-                           window=window, memory=memory)
+                           window=window, memory=memory, rows=rows)
         aux = aux + a
 
     def period_fn(x, period_params, memory):
         a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, spec in zip(period_params, cfg.pattern):
             x, a = apply_block(blk, x, cfg, spec, positions=positions,
-                               window=window, memory=memory)
+                               window=window, memory=memory, rows=rows)
             a_sum = a_sum + a
         return x, a_sum
 
@@ -382,7 +396,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device="cuda"):
     return {"prefix": prefix, "body": body}
 
 
-def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg"):
+def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg",
+                shards=None, rows=None):
     """One-token decode. tokens: [b, 1] int; pos: the position.
 
     Returns (logits [b, 1, vocab] f32, cache): every block writes its new
@@ -390,7 +405,13 @@ def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg"):
     the stacked leaves), so a step copies no cache.  Learned positions
     take row ``pos`` clamped into the table, as the reference's
     ``dynamic_slice_in_dim`` clamps it (Whisper's 448 rows: a position
-    past 447 reads row 447).
+    past 447 reads row 447).  ``shards`` (a :class:`~.shards.CacheShards`
+    whose ``dims`` mirror ``cache``, a body block's dims without the
+    period axis): on a mesh, ``cache`` holds this rank's blocks and
+    ``tokens`` its batch rows (the device mesh's serve step,
+    ``repro_torch.dlrt.mesh_serve``); ``rows`` (a
+    :class:`~.shards.RowShards`): the ranks holding the node's other rows,
+    which the MoE layers route with this rank's.
     """
     if window == "cfg":
         window = cfg.sliding_window
@@ -399,12 +420,15 @@ def decode_step(p, cache, tokens, pos: int, cfg, *, window="cfg"):
         table = p["pos_embed"]
         row = min(max(int(pos), 0), table.shape[0] - 1)
         x = x + table[row][None, None].to(x.dtype)
-    for blk, spec, c in zip(p.get("prefix", ()), cfg.prefix,
-                            cache["prefix"]):
-        x, _ = decode_block(blk, x, cfg, spec, c, pos, window=window)
+    for j, (blk, spec, c) in enumerate(zip(p.get("prefix", ()), cfg.prefix,
+                                           cache["prefix"])):
+        x, _ = decode_block(blk, x, cfg, spec, c, pos, window=window,
+                            shards=sub(shards, "prefix", j), rows=rows)
     for i in range(cfg.num_periods):
-        for blk, spec, c in zip(p["body"], cfg.pattern, cache["body"]):
+        for j, (blk, spec, c) in enumerate(zip(p["body"], cfg.pattern,
+                                               cache["body"])):
             x, _ = decode_block(_index(blk, i), x, cfg, spec, _index(c, i),
-                                pos, window=window)
+                                pos, window=window,
+                                shards=sub(shards, "body", j), rows=rows)
     x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
     return _lm_logits(p, x, cfg), cache

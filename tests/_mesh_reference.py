@@ -21,7 +21,6 @@ import sys
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import AxisType
 
@@ -47,19 +46,23 @@ def run(case):
     n = case["n"]
     params = port_params(mc.config(case["arch"]), 0, n=n)
     opt = optimizer(case["opt"])
-    ring = jnp.roll(jnp.eye(n, dtype=bool), 1, 1) \
-        | jnp.roll(jnp.eye(n, dtype=bool), -1, 1)
+    ring = np.roll(np.eye(n, dtype=bool), 1, 1) \
+        | np.roll(np.eye(n, dtype=bool), -1, 1)
     _, key = jax.random.split(jax.random.PRNGKey(0))
-    state = jdist.TrainState(params, jax.vmap(opt.init)(params),
-                             init_state(key, ring))
+
+    def build(p):
+        return jdist.TrainState(p, jax.vmap(opt.init)(p),
+                                init_state(key, ring))
     # Auto axes: the partitioner the reference was written for (jax 0.9's
     # make_mesh makes explicit axes by default, under which its vmap over
     # a node-sharded state and an unsharded batch is refused).
     mesh = jax.make_mesh(tuple(case["sizes"]), tuple(case["axes"]),
                          axis_types=(AxisType.Auto,) * len(case["axes"]))
-    sh = jdist.train_state_sharding(mesh, jcfg,
-                                    jax.eval_shape(lambda s: s, state))
-    state = jax.device_put(state, sh)
+    sh = jdist.train_state_sharding(mesh, jcfg, jax.eval_shape(build, params))
+    # The state made by one program, laid out as the step takes it (an
+    # eager vmap of the optimizer's init compiles every op on its own).
+    state = jax.jit(build, out_shardings=sh).lower(params).compile(
+        compiler_options=FAST_XLA)(params)
     batches = mc.batches(mc.config(case["arch"]), n, case["batch"],
                          case["rounds"])
     steps = {topo: jax.jit(jdist.make_train_step(
@@ -67,7 +70,8 @@ def run(case):
         microbatch=case["microbatch"], do_topology=topo),
         in_shardings=(sh, None), out_shardings=(sh, None)).lower(
             state, batches[0]).compile(compiler_options=FAST_XLA)
-        for topo in (True, False)}
+        for topo in {r % case["delta_r"] == 0
+                     for r in range(case["rounds"])}}
     out = {}
     for rnd, batch in enumerate(batches):
         state, m = steps[rnd % case["delta_r"] == 0](state, batch)

@@ -1236,6 +1236,77 @@ def test_cuda_mesh_step_on_four_ranks(cuda_device):
                                    err_msg=k)
 
 
+# The zoo's serve step and prefill on a device mesh (``chip_smoke.py``
+# phase 22) at reduced widths: ``tests/_mesh_serve_cases.py`` on the card,
+# 16 tokens decoded from position 0 and prefilled, 4 requests a node.
+
+SERVE_MESH_BASE = {"n": 2, "b": 4, "steps": 16, "max_len": 16,
+                   "prefill": True, "device": "cuda"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,axes", [
+    ("llama3.2-3b", ("data", "model")),
+    ("jamba-1.5-large-398b", ("pod", "data", "model"))])
+def test_cuda_serve_mesh_on_one_rank_is_the_one_device_step(cuda_device,
+                                                            arch, axes):
+    """Reduced Llama (node_dp) and Jamba without experts (node_fsdp, the
+    scan inside its prefill) on a one-rank NCCL mesh, every axis of size
+    1: the mesh serve step's logits and caches and the mesh prefill bit
+    for bit the one-device step's and prefill's, every kernel launched as
+    often (Jamba's prefill: one scan launch a Mamba layer a node)."""
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch.distributed as dist
+    import _mesh_serve_cases as sc
+    case = dict(SERVE_MESH_BASE, arch=arch, axes=axes,
+                sizes=(1,) * len(axes), experts=False)
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=(Path(tmp) / "store")
+                                .as_uri(), world_size=1, rank=0)
+        try:
+            got = sc.serve(case)
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = False
+    one = sc.one_device(case)
+    assert np.array_equal(got["logits"], one["logits"])
+    assert np.array_equal(got["prefill"], one["prefill"])
+    for k, v in one["cache"].items():
+        assert np.array_equal(got["cache"][k], v), k
+    assert got["launches"] == one["launches"]
+    assert got["prefill_launches"] == one["prefill_launches"]
+    cfg = sc.config(case)
+    mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.num_periods
+    assert got["prefill_launches"]["selective_scan"] == case["n"] * mamba
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "jamba-1.5-large-398b"])
+def test_cuda_serve_mesh_on_four_ranks(cuda_device, arch):
+    """Reduced Llama (node_dp, head_dim over ``model``) and Jamba with its
+    experts (node_fsdp, each node's batch over ``data``) at n = 2 on a
+    (2, 2) mesh of four NCCL ranks (one a card): every rank the same
+    logits; against the one-device step, logits and prefill within 1e-4."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one rank a card")
+    import numpy as np
+    import _mesh_serve_cases as sc
+    from repro_torch.launch import start
+    case = dict(SERVE_MESH_BASE, arch=arch, axes=("data", "model"),
+                sizes=(2, 2), single=True)
+    results = [r[0] for r in start(sc.rank_main, 4, [case]).join()]
+    for other in results[1:]:
+        assert np.array_equal(other["logits"], results[0]["logits"])
+    got, single = results[0], results[0]["single"]
+    np.testing.assert_allclose(got["logits"], single["logits"], atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got["prefill"], single["prefill"],
+                               atol=1e-4, rtol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_fig10_refuses_more_ranks_than_cards(cuda_device, capsys):
     """NCCL takes one rank a card: fig10 stops before starting a child,

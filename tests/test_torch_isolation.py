@@ -28,12 +28,13 @@ from repro_torch.core import (InGraphEpidemicLocalStrategy,  # noqa: E402
 from repro_torch.data import (DeviceDataStream,              # noqa: E402
                               make_image_classification)
 from repro_torch.dlrt import (DecentralizedRunner,          # noqa: E402
-                              RunnerConfig, init_train_state)
+                              RunnerConfig, init_mesh_caches,
+                              init_train_state)
 from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
                                  gram_matrix, ref, selective_scan,
                                  selective_scan_bwd)
-from repro_torch.launch import start                         # noqa: E402
+from repro_torch.launch import MeshLayout, start             # noqa: E402
 from repro_torch.launch import train as train_launcher       # noqa: E402
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
 from repro_torch.netsim import AsyncConfig, AsyncRunner      # noqa: E402
@@ -74,7 +75,7 @@ ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "train-state", "train-launcher", "moe-init-params",
                 "moe-init-cache", "rwkv-init-params", "rwkv-init-cache",
                 "moe-train-launcher", "load-checkpoint",
-                "restore-checkpoint", "start-ranks")
+                "restore-checkpoint", "start-ranks", "mesh-caches")
 
 
 def _checkpoint_file() -> str:
@@ -138,6 +139,10 @@ def _make_entry_point(name):
         "restore-checkpoint": lambda: CheckpointManager(
             str(Path(_checkpoint_file()).parent)).restore(),
         "start-ranks": lambda: start(print, 2),
+        # Raises naming the card before it touches the (absent) mesh.
+        "mesh-caches": lambda: init_mesh_caches(
+            get_config("llama3.2-3b").reduced(), 2, 1, 4,
+            MeshLayout(("data", "model"), (1, 1)), None),
         "async-runner": lambda: AsyncRunner(
             init_fn=lambda g: cnn_params(g, image_size=8, width=4),
             loss_fn=cnn_loss, eval_fn=cnn_loss, optimizer=sgd(0.1),

@@ -5,16 +5,17 @@ shardings on a mesh of the same layout, and against the port's one-device
 step.
 
 The ranks run through ``repro_torch.launch.start`` (one process a rank,
-one thread each): four ranks on a ``("data", "model")`` (2, 2) mesh, eight
-on ``("pod", "data", "model")`` (2, 2, 2), both started together.  The
-reference runs meanwhile in two fresh interpreters with eight XLA CPU
+one thread each): four ranks on a ``("data", "model")`` (2, 2) mesh (and
+four more for Jamba's cases), eight on ``("pod", "data", "model")`` (2, 2,
+2), all started together.  The
+reference runs meanwhile in three fresh interpreters with eight XLA CPU
 devices each (``tests/_mesh_reference.py``), which save an ``.npz`` each;
 this process runs the one-rank layouts.  The ranks' code is
 ``tests/_mesh_cases.py``: reduced configs in f32, every node's parameters
 drawn by the port (``model.init_params(cfg, i)``), the same numpy-made
-batches on both sides, three rounds with topology on rounds 0 and 2, the
-reference's Morph draws replayed (``tests/_jax_draws.py``
-``morph_key_draws``).  Checks:
+batches on both sides, three rounds with topology on rounds 0 and 2 (for
+Jamba two topology rounds), the reference's Morph draws replayed
+(``tests/_jax_draws.py`` ``morph_key_draws``).  Checks:
 
 * ``distribute_train_state`` then ``gather_train_state``: the state bit
   for bit, every local shape the spec's ``shard_shape`` (reduced Llama,
@@ -24,13 +25,17 @@ reference's Morph draws replayed (``tests/_jax_draws.py``
   tolerances), for node_dp (Llama at n = 4, nodes over ``data``; at
   n = 3, the node axis replicated), node_fsdp (Qwen, batch 4 over ``data``
   with ``microbatch=2``; Qwen under a ``chain_clip`` that binds, which a
-  shard-local norm would get wrong) and DeepSeek-MoE on eight ranks;
+  shard-local norm would get wrong), DeepSeek-MoE on eight ranks and
+  Jamba with its experts at n = 2 (node_fsdp: each node's batch of 2
+  over ``data``, so its MoE layers route rows the other rank holds);
 * every rank's edges, similarity estimates, losses and gathered
   parameters bit for bit rank 0's;
 * against the one-device step from the same state and draws: edges
   identical, parameters within 1e-5 (the Grams' and the gradients' sums
   over ranks add in another order), every node's optimizer count advanced
-  on every rank; on a one-rank (1, 1) or (1, 1, 1) layout bit for bit;
+  on every rank, also for Jamba with experts at batch 6 with
+  ``microbatch=2`` (pieces straddling the ranks, each routed whole); on a
+  one-rank (1, 1) or (1, 1, 1) layout bit for bit;
 * without replayed draws the ranks negotiate the same edges;
 * the launcher's ``--mesh`` branch on four ranks (the production mesh
   patched to (2, 2)): exit 0, rank 0's lines, one checkpoint, written by
@@ -74,10 +79,20 @@ CASES = {
                             microbatch=2, **TWO_BY_TWO),
     "qwen-clip": dict(BASE, arch="qwen1.5-110b", opt="clip", **TWO_BY_TWO),
     "deepseek-cube": dict(BASE, arch="deepseek-moe-16b", **CUBE),
+    # node_fsdp with experts: the batch over data, so the MoE layers route
+    # the node's whole batch across the ranks (fault F4 before).
+    # Two topology rounds (the reference compiles one step).
+    "jamba-experts": dict(BASE, arch="jamba-1.5-large-398b", n=2, rounds=2,
+                          delta_r=1, **TWO_BY_TWO),
 }
-# The reference's cases in two interpreters, run at once.
+# Held to the one-device step only: microbatch pieces of 2 rows that
+# straddle the two data ranks' 3 rows each.
+ONE_DEVICE_CASES = {
+    "jamba-microbatch": dict(CASES["jamba-experts"], batch=6, microbatch=2),
+}
+# The reference's cases in three interpreters, run at once.
 REFERENCE_PARTS = (("llama-n4", "llama-n3", "qwen-microbatch"),
-                   ("qwen-clip", "deepseek-cube"))
+                   ("qwen-clip", "deepseek-cube"), ("jamba-experts",))
 ROUNDTRIP_ARCHS = ("llama3.2-3b", "qwen1.5-110b", "deepseek-moe-16b")
 LAYOUTS = {"2x2": TWO_BY_TWO, "2x2x2": CUBE}
 FREE = dict(CASES["llama-n4"], noise=None, single=False)
@@ -110,8 +125,12 @@ def roundtrips(layout):
             for a in ROUNDTRIP_ARCHS]
 
 
-WORLD4 = ([with_draws(c) for k, c in CASES.items() if k != "deepseek-cube"]
-          + [FREE] + roundtrips("2x2"))
+# Jamba's two cases run in a second world of four ranks, beside the first.
+JAMBA_CASES = ["jamba-experts", "jamba-microbatch"]
+WORLD4_CASES = [k for k in CASES if k not in JAMBA_CASES + ["deepseek-cube"]]
+WORLD4 = ([with_draws(CASES[k]) for k in WORLD4_CASES] + [FREE]
+          + roundtrips("2x2"))
+JAMBA4 = [with_draws(dict(CASES, **ONE_DEVICE_CASES)[k]) for k in JAMBA_CASES]
 WORLD8 = [with_draws(CASES["deepseek-cube"])] + roundtrips("2x2x2")
 
 
@@ -152,7 +171,9 @@ def runs(tmp_path_factory):
     try:
         jobs = {4: start(mc.rank_main, 4, WORLD4 + [launch], device="cpu",
                          threads=1),
-                8: start(mc.rank_main, 8, WORLD8, device="cpu", threads=1)}
+                8: start(mc.rank_main, 8, WORLD8, device="cpu", threads=1),
+                "jamba": start(mc.rank_main, 4, JAMBA4, device="cpu",
+                               threads=1)}
         single = {k: one_rank(with_draws(c)) for k, c in ONE_RANK.items()}
         got = {w: job.join() for w, job in jobs.items()}
         for path, proc in refs:
@@ -165,7 +186,8 @@ def runs(tmp_path_factory):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return {"world4": got[4], "world8": got[8], "single": single,
+    return {"world4": got[4], "world8": got[8], "jamba": got["jamba"],
+            "single": single,
             "reference": reference, "ckpt": ckpt}
 
 
@@ -173,7 +195,9 @@ def per_rank(runs, name):
     """Every rank's result of ``CASES[name]``."""
     if name == "deepseek-cube":
         return [rank[0] for rank in runs["world8"]]
-    i = [k for k in CASES if k != "deepseek-cube"].index(name)
+    if name in JAMBA_CASES:
+        return [rank[JAMBA_CASES.index(name)] for rank in runs["jamba"]]
+    i = WORLD4_CASES.index(name)
     return [rank[i] for rank in runs["world4"]]
 
 
@@ -222,9 +246,11 @@ def test_mesh_step_matches_reference(runs, name):
                                    rtol=0, err_msg=path)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(ONE_DEVICE_CASES))
 def test_mesh_step_matches_one_device_step(runs, name):
     results = per_rank(runs, name)
+    if name in ONE_DEVICE_CASES:
+        assert_ranks_agree(results)
     got, single = results[0], results[0]["single"]
     for rnd, (a, b) in enumerate(zip(got["record"], single["record"])):
         assert np.array_equal(a["edges"], b["edges"]), rnd
@@ -234,8 +260,9 @@ def test_mesh_step_matches_one_device_step(runs, name):
         np.testing.assert_allclose(got["params"][path], v,
                                    atol=ONE_DEVICE_ATOL, rtol=0,
                                    err_msg=path)
+    rounds = dict(CASES, **ONE_DEVICE_CASES)[name]["rounds"]
     for rank in results:
-        assert (rank["count"] == CASES[name]["rounds"]).all()
+        assert (rank["count"] == rounds).all()
 
 
 def test_ranks_agree_without_replayed_draws(runs):
