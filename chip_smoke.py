@@ -334,6 +334,17 @@ Phases, each a hard failure (non-zero exit) when it does not hold:
    n = 1, with a prefill of 2 x 2,048 tokens (7 scan launches a prefill);
    (c) RWKV-6 7B at published widths, 2 of 32 layers, n = 2;
    ``launches_serve_mesh`` in every kernel row counts the mesh runs;
+23. the sweep farm on an ``("exp", "data")`` mesh
+   (``SweepSuperstep(mesh=make_sweep_mesh(1, 1))``, a one-rank NCCL group
+   the mesh starts and closes) against the meshless sweep, deterministic
+   cuDNN, each pair from the same parameters and draws: (a) GN-LeNet
+   CIFAR-10 at full width, n = 50, E = 4, five rounds and an evaluation,
+   Morph and Static; (b) the tiny MLP at n = 6, E = 4, under a
+   ``SweepNetwork`` of mixed ring depths, eleven rounds; edges, records,
+   comm bytes, network counters and every experiment's parameters bit for
+   bit, every kernel launched as often (none of the meshless run's kernels
+   left out), ms a round of both; ``launches_sweep_mesh`` in every kernel
+   row counts the mesh runs;
 
 17(f), 18(g), 19(g) and 20(b) run last, their eight launcher processes
 started together; then one JSON line with every kernel's numbers, the card line, and the
@@ -6188,6 +6199,146 @@ def serve_mesh_path(dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the sweep farm on an ("exp", "data") mesh.
+# ---------------------------------------------------------------------------
+
+SWEEP_MESH_ROUNDS = 5                 # 23(a): a negotiation at round 0
+
+
+def tiny_net_sweep(dev, mesh=None):
+    """23(b)'s sweep: the tiny MLP, n = 6, E = 4 Morph experiments under a
+    ``SweepNetwork`` of ideal, WAN, LAN and WAN at round_s 0.05 (rings of
+    other depths), eleven rounds, batch slots keyed on the host."""
+    from repro_torch import core, fold_seed
+    from repro_torch.bench.common import tiny_mlp_experiment
+    from repro_torch.data import DeviceDataStream
+    from repro_torch.dlrt import RunnerConfig, SweepSpec, SweepSuperstep
+    from repro_torch.models import mlp_loss, mlp_params
+    from repro_torch.netsim import DenseNetwork, SweepNetwork
+    from repro_torch.netsim import profiles as prof
+    from repro_torch.optim import sgd
+    n, seeds = 6, (0, 1, 2, 3)
+    tr, parts, _, test = tiny_mlp_experiment(n)
+
+    class HostSlots(DeviceDataStream):
+        def slots(self, rnd):
+            gen = torch.Generator().manual_seed(fold_seed(self.seed, rnd))
+            sizes = self.sizes.cpu()[:, None]
+            u = torch.rand((self.n, self.batch), generator=gen)
+            return torch.minimum((u * sizes).long(), sizes - 1).to(dev)
+
+    nets = [DenseNetwork(prof.get_profile(p, n, 10 + e), round_s=0.05,
+                         max_staleness=4)
+            for e, p in enumerate(("ideal", "wan", "lan", "wan"))]
+    return SweepSuperstep(
+        spec=SweepSpec(seeds=seeds), init_fn=mlp_params, loss_fn=mlp_loss,
+        eval_fn=mlp_loss, optimizer=sgd(0.05),
+        streams=[HostSlots(tr, parts, 4, seed=s, device=dev) for s in seeds],
+        test_batch=test,
+        strategies=[core.InGraphMorphStrategy(n=n, k=2, view_size=4, seed=s,
+                                              delta_r=2, device=dev)
+                    for s in seeds],
+        cfg=RunnerConfig(n_nodes=n, rounds=11, eval_every=5),
+        net=SweepNetwork(nets), mesh=mesh, device=dev)
+
+
+def sweep_mesh_run(build, rounds, run_all):
+    """One side of a 23 pair: the sweep ``build()`` makes, its counts set
+    to 0 just before its rounds and read just after; ``run_all`` runs it
+    with its evaluations (``run``), else ``rounds`` rounds and one
+    evaluation.  Returns ``(sweep, launches, ms a round, records)``."""
+    from repro_torch import kernels
+    eng = build()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if run_all:
+        eng.run()
+        rounds = eng.cfg.rounds
+    else:
+        eng.run_steps(rounds)
+        eng.evaluate(rounds - 1, np.stack([h[-1] for h in eng.edge_history]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / rounds * 1e3
+    got = launch_counts()
+    recs = [[(r.rnd, r.comm_bytes, r.isolated, r.mean_accuracy, r.mean_loss,
+              r.per_node_accuracy.tolist()) for r in log.records]
+            for log in eng.log]
+    return eng, got, ms, recs
+
+
+def sweep_mesh_pair(label, meshless, meshed, rounds=SWEEP_MESH_ROUNDS,
+                    run_all=False):
+    """23's check of one pair: the mesh run against the meshless one, bit
+    for bit, with the same launches; returns the mesh run's launches."""
+    a, want, ms_a, recs_a = sweep_mesh_run(meshless, rounds, run_all)
+    b, got, ms_b, recs_b = sweep_mesh_run(meshed, rounds, run_all)
+    params = b.logical_params()
+    same = (all(torch.equal(a.params[k], params[k]) for k in a.params)
+            and all(len(x) == len(y) and all(np.array_equal(u, v)
+                                             for u, v in zip(x, y))
+                    for x, y in zip(a.edge_history, b.edge_history))
+            and recs_a == recs_b
+            and [a.comm_bytes(e) for e in range(a.E)]
+            == [b.comm_bytes(e) for e in range(b.E)])
+    if a.net is not None:
+        same = same and all(
+            np.array_equal(u, v) for x, y in zip(a.delivered_history,
+                                                 b.delivered_history)
+            for u, v in zip(x, y)) and all(
+            (s["delivered"], s["dropped"], s["staleness_sum"],
+             s["staleness_hist"].tolist())
+            == (w["delivered"], w["dropped"], w["staleness_sum"],
+                w["staleness_hist"].tolist())
+            for s, w in zip(a.net_stats, b.net_stats))
+    if not same:
+        raise AssertionError(f"23 {label}: the mesh run is not the meshless "
+                             "run bit for bit")
+    if got != want or not any(want.values()):
+        raise AssertionError(f"23 {label}: launches {got} != the meshless "
+                             f"run's {want}")
+    for p in params.values():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"23 {label}: non-finite parameters")
+    log(f"phase 23: {label} E={b.E} on a {dict(b.mesh.shape)} mesh == "
+        f"meshless bit for bit; " + json.dumps(dict(
+            launches=got, mesh_ms_per_round=ms_b, meshless_ms_per_round=ms_a,
+            comm_bytes=[b.comm_bytes(e) for e in range(b.E)],
+            accuracy=[log_.records[-1].mean_accuracy for log_ in b.log])))
+    return got
+
+
+def sweep_mesh_path(dev):
+    """Phase 23: :func:`sweep_mesh_pair` for GN-LeNet at full width (Morph,
+    Static) and the tiny MLP under a network, on a 1 x 1 NCCL mesh;
+    returns the mesh runs' launches."""
+    from repro_torch.launch import make_sweep_mesh
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+    seeds = tuple(range(SWEEP_SEEDS))
+    mesh = make_sweep_mesh(1, 1)
+    try:
+        with deterministic_cudnn():
+            for name in ("morph", "static"):
+                sweep, _ = sweep_fixture(MAIN_N, dev, seeds, name=name)
+                _add(totals, sweep_mesh_pair(
+                    f"(a) GN-LeNet {name} n={MAIN_N}", sweep,
+                    lambda: sweep(mesh=mesh)))
+            _add(totals, sweep_mesh_pair(
+                "(b) tiny MLP under a network n=6",
+                lambda: tiny_net_sweep(dev), lambda: tiny_net_sweep(dev, mesh),
+                run_all=True))
+    finally:
+        mesh.close()
+    for name in ("gram_matrix", "graph_mix", "graph_mix_masked"):
+        if totals[name] == 0:
+            raise AssertionError(f"phase 23: {name} never launched")
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(totals)}")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6260,6 +6411,7 @@ def main():
     ckpt_counts = checkpoint_path(dev)
     mesh_counts = mesh_path(dev)
     serve_mesh_counts = serve_mesh_path(dev)
+    sweep_mesh_counts = sweep_mesh_path(dev)
     launcher_path(dev)
     for name in ("graph_mix", "graph_mix_masked"):
         times[name]["sweep_per_row_w"] = {
@@ -6310,6 +6462,7 @@ def main():
             "launches_checkpoint": ckpt_counts[name],
             "launches_mesh": mesh_counts[name],
             "launches_serve_mesh": serve_mesh_counts.get(name, 0),
+            "launches_sweep_mesh": sweep_mesh_counts.get(name, 0),
             "max_abs_err": worst[name]["float32"],
             "max_abs_err_bf16": worst[name]["bfloat16"],
             "tol": tolerance(name, smallest_n, False, K)[0],

@@ -19,10 +19,15 @@ shows where the contest collapses).  Rows written to
 * ``acceptance/bytes_ge_4x_n8`` — 1 when ``int8+topk0.75`` moves at least
   4x fewer bytes than ``none``;
 * ``acceptance/acc_within_2pts_n8`` — 1 when its final accuracy is within
-  2 points of ``none``'s.
-
-Left out: the reference's compile-only ``sharded/`` rows, which need the
-multi-GPU engine, not yet ported.
+  2 points of ``none``'s;
+* ``sharded/<spec>_n8`` (with ``--hlo-devices N``, N > 1, the reference's
+  default 2) — the collective bytes of one round of the spec's run
+  through the sharded engine under ``collective="gather"``, counted on N
+  gloo ranks as fig3's ``sharded/`` row is
+  (:func:`~repro_torch.bench.fig3.sharded_bytes`): under a codec the
+  gather moves the codec's wire arrays, so the frontier shows in the
+  traffic.  Like fig3's, the row is the traffic itself, not XLA's
+  compile-only cost model of the reference's row.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import argparse
 from .. import resolve_device
 from ..configs import get_cnn_config
 from . import harness
-from .fig3 import build, deterministic, record_final, timed_run
+from .fig3 import (build, deterministic, record_final, record_sharded,
+                   sharded_bytes, timed_run)
 
 DEFAULT_SPECS = ("none", "int8", "fp8", "int8+topk0.75", "int8+topk0.25")
 STAR = "int8+topk0.75"
@@ -96,6 +102,8 @@ def parse_args(argv=None):
     ap.add_argument("--compress", nargs="+", default=list(DEFAULT_SPECS),
                     help="codec specs ('none' anchors the derived and "
                          "acceptance rows)")
+    ap.add_argument("--hlo-devices", type=int, default=2,
+                    help="gloo ranks of the sharded/ rows (none at 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -110,6 +118,12 @@ def main(argv=None):
     bench = harness.Bench("torch_fig13_compress",
                           resolve_device(args.device).type)
     finals, _ = run_frontier(args, bench)
+    if args.hlo_devices > 1:
+        n = args.nodes
+        for spec, got in sharded_bytes(args, n, "gather",
+                                       args.compress).items():
+            record_sharded(bench, f"sharded/{slug(spec)}_n{n}", args, got,
+                           compress=spec, collective="gather")
     bench.finish()
     return finals
 

@@ -22,20 +22,30 @@ sparse engine.  Rows written to ``$BENCH_DIR/BENCH_torch_fig3_accuracy.json``
 * ``acceptance/morph_ge_baselines_n50`` — 1 when Morph's final accuracy is
   at least Static's and EL-Oracle's (recorded, not raised, as in the
   reference);
-* ``derived/morph_minus_static_n50`` and ``derived/morph_minus_el_n50``.
+* ``derived/morph_minus_static_n50`` and ``derived/morph_minus_el_n50``;
+* ``sharded/morph_n50`` (with ``--hlo-devices N``, N > 1, the reference's
+  default 2) — the collective bytes of one round of the Morph row through
+  the sharded engine under ``collective="psum"`` (:func:`sharded_bytes`):
+  N gloo ranks on the host, whatever ``--device``, and the bytes rank 0
+  moves through ``torch.distributed`` (:class:`~.harness.CollectiveBytes`:
+  each call counted by its largest tensor).  The reference's row is
+  XLA's compile-only ``collective_bytes`` of one ``eval_every``-round scan
+  (each collective's result bytes, weighted by kind and trip count), so
+  the two count the same traffic in other units and over other spans: the
+  port's row is the traffic itself, not a number to hold to the
+  reference's.
 
 Each final is printed beside the reference's
 (``benchmarks/results/BENCH_fig3_accuracy_n50.json``).  The port draws its
 own random numbers (``torch.Generator``, not ``jax.random``), so its
 finals are another sample of the same experiment, not the reference's
-numbers.  Left out: the reference's compile-only ``sharded/`` row, which
-needs the multi-GPU engine, not yet ported.  On the card the run fixes
-cuDNN to deterministic algorithms, so that two runs can give the same
-bits.
+numbers.  On the card the run fixes cuDNN to deterministic algorithms,
+so that two runs can give the same bits.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import time
 from collections import OrderedDict
 from typing import Dict, Optional
@@ -50,6 +60,7 @@ from ..data import (DeviceDataStream, dirichlet_partition,
 from ..dlrt import DecentralizedRunner, RunnerConfig
 from ..models import cnn_loss, cnn_params
 from ..optim import sgd
+from ..launch import spawn
 from ..sparse import SparseMorphStrategy
 from . import harness
 from .common import ExpConfig, make_ingraph_strategy
@@ -81,9 +92,12 @@ def experiment(args, n: int, device):
 
 
 def build(args, n: int, name: str, engine: str = "dense",
-          mix_chunk_d: Optional[int] = None, compress="none"
+          mix_chunk_d: Optional[int] = None, compress="none",
+          devices: Optional[int] = None, collective: str = "gather"
           ) -> DecentralizedRunner:
-    """One row's runner (not run) on ``args.device``."""
+    """One row's runner (not run) on ``args.device``; ``devices`` shards
+    its nodes over that many ranks of the default process group (the
+    sharded engine, under ``collective``)."""
     device = resolve_device(args.device)
     cfg = args.dataset
     if engine == "sparse":
@@ -104,9 +118,47 @@ def build(args, n: int, name: str, engine: str = "dense",
         cfg=RunnerConfig(n_nodes=n, rounds=args.rounds,
                          eval_every=args.eval_every, seed=args.seed,
                          engine=engine, mix_chunk_d=mix_chunk_d,
-                         compress=compress,
+                         compress=compress, mesh_devices=devices,
+                         collective=collective,
                          eval_batch_chunk=args.eval_batch_chunk),
         device=device)
+
+
+def sharded_round(args, n: int, collective: str, specs) -> Dict[str, int]:
+    """One rank of :func:`sharded_bytes`: for each codec spec, the Morph
+    row's first round through the sharded engine, and the bytes of the
+    collectives this rank made in it."""
+    import torch.distributed as dist
+    out = {}
+    for spec in specs:
+        engine = build(args, n, "morph",
+                       mix_chunk_d=getattr(args, "mix_chunk_d", None),
+                       compress=spec, devices=dist.get_world_size(),
+                       collective=collective)._make_engine()
+        with harness.CollectiveBytes() as counted:
+            engine.run_steps(1)
+        out[spec] = counted.total
+    return out
+
+
+def sharded_bytes(args, n: int, collective: str, specs=("none",)
+                  ) -> Dict[str, int]:
+    """The collective bytes of one round of the Morph row on
+    ``args.hlo_devices`` gloo ranks (whatever ``args.device``), as rank 0
+    counts them, for each codec spec."""
+    ranks = copy.copy(args)
+    ranks.device = "cpu"
+    return spawn(sharded_round, args.hlo_devices, ranks, n, collective,
+                 tuple(specs), device="cpu", threads=1)[0]
+
+
+def record_sharded(bench: harness.Bench, key: str, args, nbytes: int,
+                   **knobs):
+    """A ``sharded/`` row: one round's collective bytes (the reference's
+    value format) with the knobs it ran under."""
+    return bench.record(key, f"{nbytes:.3e}", collective_bytes=nbytes,
+                        rounds=1, knobs={"devices": args.hlo_devices,
+                                         **knobs})
 
 
 def params_equal(a: Dict[str, torch.Tensor],
@@ -226,6 +278,8 @@ def parse_args(argv=None):
     ap.add_argument("--sim-row-chunk", type=int, default=None)
     ap.add_argument("--strategies", nargs="+", default=list(STRATEGIES),
                     choices=STRATEGIES)
+    ap.add_argument("--hlo-devices", type=int, default=2,
+                    help="gloo ranks of the sharded/ row (none at 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -248,6 +302,11 @@ def main(argv=None):
     bench = harness.Bench("torch_fig3_accuracy",
                           resolve_device(args.device).type)
     out = run_contest(args, bench)
+    if args.hlo_devices > 1:
+        for n in args.nodes:
+            got = sharded_bytes(args, n, "psum")["none"]
+            record_sharded(bench, f"sharded/morph_n{n}", args, got,
+                           collective="psum", mix_chunk_d=args.mix_chunk_d)
     bench.finish()
     return out["finals"]
 

@@ -17,7 +17,9 @@ File schema (``schema_version`` = :data:`SCHEMA_VERSION`)::
                   "fidelity": {...}}, ...]}                          # opt
 
 The reference writes ``"jax": <version>`` where this writes ``"torch"``,
-and its HLO-cost columns have no counterpart here.
+and its HLO-cost columns have no counterpart here.  Its compile-only
+``collective_bytes`` of a sharded program are counted here, in
+:class:`CollectiveBytes`, from the collectives a sharded run makes.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .. import collectives
 
 SCHEMA_VERSION = 1
 
@@ -171,3 +176,55 @@ def reset_peak_memory(device) -> None:
     """Start a new peak-memory window on the card."""
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+
+
+class CollectiveBytes:
+    """The bytes of every collective made while it is on (a ``with``
+    block): ``all_reduce`` and ``broadcast`` of ``torch.distributed`` and
+    the two primitives of :mod:`repro_torch.collectives`, through which
+    the port's engines gather and reduce-scatter, each call counted by the
+    largest tensor it is given (a gather's output, a reduce-scatter's
+    input).  ``records`` holds ``(stage, call, bytes)``, the stage the one
+    :meth:`stage` runs at the time (a ``stage`` hook of the engines), and
+    ``total`` their bytes."""
+
+    CALLS = ((dist, "all_reduce"), (dist, "broadcast"),
+             (collectives, "all_gather_into"),
+             (collectives, "reduce_scatter_into"))
+
+    def __init__(self):
+        self.records: list = []
+        self.stage_name: Optional[str] = None
+        self._saved: list = []
+
+    @property
+    def total(self) -> int:
+        return sum(b for _, _, b in self.records)
+
+    def stage(self, name: str, fn):
+        """Run ``fn`` with its collectives counted under ``name``."""
+        self.stage_name = name
+        try:
+            return fn()
+        finally:
+            self.stage_name = None
+
+    def __enter__(self):
+        for module, name in self.CALLS:
+            f = getattr(module, name)
+            self._saved.append((module, name, f))
+            setattr(module, name, self._wrap(name, f))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, f in self._saved:
+            setattr(module, name, f)
+        self._saved.clear()
+
+    def _wrap(self, name, f):
+        def call(*args, **kw):
+            sizes = [a.numel() * a.element_size() for a in args
+                     if isinstance(a, torch.Tensor)]
+            self.records.append((self.stage_name, name, max(sizes)))
+            return f(*args, **kw)
+        return call

@@ -14,13 +14,14 @@ from .mixing import (apply_consensus_correction, apply_mixing,
                      tensordot_mix_leaf, uniform_weights,
                      uniform_weights_torch)
 from .morph import (MorphGraphState, MorphNoise, draw_noise, init_state,
-                    update_topology)
+                    mix_round, update_topology)
 from .protocol import (ConnectAccept, ConnectReject, ConnectRequest,
                        GossipDigest, MorphConfig, MorphNodeState,
                        MorphProtocol, NegotiationPlan)
 from .selection import (NEG_INF, random_injection, sample_gumbel_topk,
                         sample_sequential, scatter_or, softmax_logits,
-                        stable_topk, update_wanted_senders_host)
+                        stable_topk, update_wanted_senders,
+                        update_wanted_senders_host)
 from .similarity import (HISTORY_DEPTH, SimilarityHistory, SimilarityReport,
                          angular_bound, dissimilarity, layer_cosine,
                          model_similarity, node_row, pair_similarity_numpy,
@@ -40,11 +41,12 @@ __all__ = [
     "fully_connected_weights", "is_doubly_stochastic", "is_row_stochastic",
     "metropolis_hastings_weights", "mix_numpy", "tensordot_mix_leaf",
     "uniform_weights", "uniform_weights_torch", "MorphGraphState",
-    "MorphNoise", "draw_noise", "init_state", "update_topology",
+    "MorphNoise", "draw_noise", "init_state", "mix_round",
+    "update_topology",
     "ConnectAccept", "ConnectReject", "ConnectRequest", "GossipDigest",
     "MorphConfig", "MorphNodeState", "MorphProtocol", "NegotiationPlan",
     "NEG_INF", "random_injection", "sample_gumbel_topk", "sample_sequential",
-    "scatter_or", "softmax_logits", "stable_topk",
+    "scatter_or", "softmax_logits", "stable_topk", "update_wanted_senders",
     "update_wanted_senders_host", "HISTORY_DEPTH", "SimilarityHistory",
     "SimilarityReport", "angular_bound", "dissimilarity", "layer_cosine",
     "model_similarity", "node_row", "pair_similarity_numpy",

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import torch
 
 from .matching import match_dense
+from .mixing import apply_mixing, uniform_weights_torch
 from .selection import (gumbel, random_injection, sample_gumbel_topk,
                         scatter_or)
 
@@ -170,3 +171,9 @@ def update_topology(state: MorphGraphState, sim: torch.Tensor, k: int,
 
     return MorphGraphState(known=known, sim=sim, sim_valid=sim_valid,
                            edges=edges, generator=state.generator)
+
+
+def mix_round(state: MorphGraphState, stacked_params):
+    """Between negotiations: uniform mixing over the current edges (Alg. 2
+    keeps a node's senders for ``delta_r`` rounds)."""
+    return apply_mixing(uniform_weights_torch(state.edges), stacked_params)

@@ -9,7 +9,8 @@ its Gumbel noise as an optional tensor and otherwise draws from the given
 ``jax.random`` draws.  :func:`sample_sequential` and
 :func:`update_wanted_senders_host` are the paper-faithful host loop of
 Alg. 3 for the message-faithful protocol, a copy of the reference's: the
-same numpy ``Generator`` gives the same draws.
+same numpy ``Generator`` gives the same draws.  :func:`update_wanted_senders`
+is its tensor twin, the reference's jit-safe view mask.
 """
 from __future__ import annotations
 
@@ -92,6 +93,33 @@ def random_injection(pool_mask: torch.Tensor, count: int, *,
     valid = pool_mask.gather(-1, idx) \
         & (rank < pool_mask.sum(-1, keepdim=True))
     return idx, valid
+
+
+def update_wanted_senders(sim: torch.Tensor, local_candidates: torch.Tensor,
+                          full_candidates: torch.Tensor, k: int,
+                          view_size: int, beta: float, *,
+                          select_noise: Optional[torch.Tensor] = None,
+                          inject_noise: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """Alg. 3 as tensor code: the boolean view ``V`` of up to ``view_size``
+    wanted senders, ``k`` diversity-sampled from C_A (``local_candidates``,
+    the peers with a usable estimate in ``sim``) and ``view_size - k``
+    uniformly random ones from the rest of C (``full_candidates``).  The
+    Gumbel noise of the two picks (``select_noise``, ``inject_noise``,
+    each shaped like ``sim``) is drawn from ``generator`` where not given;
+    leading dimensions of ``sim`` and the masks are batch dimensions."""
+    n = sim.shape[-1]
+    idx, valid = sample_gumbel_topk(sim, local_candidates, k, beta,
+                                    noise=select_noise, generator=generator)
+    view = scatter_or(idx, valid, n)
+    pool = full_candidates & ~local_candidates & ~view
+    r = min(max(view_size - k, 0), n)
+    if r > 0:
+        ridx, rvalid = random_injection(pool, r, noise=inject_noise,
+                                        generator=generator)
+        view = view | scatter_or(ridx, rvalid, n)
+    return view
 
 
 # ---------------------------------------------------------------------------

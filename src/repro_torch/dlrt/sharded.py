@@ -64,7 +64,8 @@ from typing import Callable, List, Mapping
 import numpy as np
 import torch
 
-from ..collectives import packed_all_gather, reduce_scatter_into
+from .. import collectives
+from ..collectives import packed_all_gather
 from ..compress import CompressConfig, decode_wire_tree
 from ..core.mixing import uniform_weights_torch
 from ..kernels import ops
@@ -85,6 +86,21 @@ def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def embed_w(w: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """``[..., n, n] -> [..., n_pad, n_pad]`` f32 with an identity tail:
+    padded rows keep their own model and never reach a real row."""
+    n = w.shape[-1]
+    w = w.float()
+    if n_pad == n:
+        return w
+    wp = torch.zeros(w.shape[:-2] + (n_pad, n_pad), dtype=torch.float32,
+                     device=w.device)
+    wp[..., :n, :n] = w
+    tail = torch.arange(n, n_pad, device=w.device)
+    wp[..., tail, tail] = 1.0
+    return wp
 
 
 def _rebuild(tree, it):
@@ -217,18 +233,8 @@ class ShardedSuperstep(Superstep):
         return OrderedDict((k, self.hat[k] + v) for k, v in dec.items())
 
     def _embed_w(self, w: torch.Tensor) -> torch.Tensor:
-        """``[n, n] -> [n_pad, n_pad]`` f32 with an identity tail: padded
-        rows keep their own model and never reach a real row."""
-        n, n_pad = self.cfg.n_nodes, self.n_pad
-        w = w.float()
-        if n_pad == n:
-            return w
-        wp = torch.zeros((n_pad, n_pad), dtype=torch.float32,
-                         device=w.device)
-        wp[:n, :n] = w
-        tail = torch.arange(n, n_pad, device=w.device)
-        wp[tail, tail] = 1.0
-        return wp
+        """``[n, n] -> [n_pad, n_pad]``: :func:`embed_w`."""
+        return embed_w(w, self.n_pad)
 
     def _embed_w_stal(self, w_stal: torch.Tensor) -> torch.Tensor:
         """``[n, n, S] -> [n_pad, n_pad S]``: an identity tail at staleness
@@ -282,7 +288,7 @@ class ShardedSuperstep(Superstep):
         nl = self.n_local
         recv = torch.empty(nl * sum(ds), dtype=torch.float32,
                            device=self.device)
-        stage("reduce", lambda: reduce_scatter_into(recv, send))
+        stage("reduce", lambda: collectives.reduce_scatter_into(recv, send))
         out, at = OrderedDict(), 0
         for k, d in zip(keys, ds):
             own = recv[at:at + nl * d].view(nl, d)

@@ -35,9 +35,32 @@ object for every experiment, so a Static sweep over several seeds mixes
 every experiment over experiment 0's graph; here each experiment keeps
 its own (ROADMAP queue 3).
 
-Scope, as the reference's: the dense engine without a codec, on one
-device.  Sparse strategies, compressed gossip, partition windows and the
-``("exp", "data")`` mesh are refused.
+Scope, as the reference's: the dense engine without a codec.  Sparse
+strategies, compressed gossip and partition windows are refused.
+
+**The ``("exp", "data")`` mesh** (:func:`repro_torch.launch.make_sweep_mesh`,
+one ``torch.distributed`` rank a card): every rank is given the whole
+spec, streams, strategies and network, and keeps block ``exp`` of ``E /
+exp_devices`` consecutive experiments (their parameters, optimizer state,
+index tables, strategy state, Eq.-3 cache and network ring).  With
+``data`` = d > 1 their node axis is padded to ``n_pad = ceil(n / d) d`` by
+repeating the last node, and the rank keeps rows ``[c n_local, (c + 1)
+n_local)``; a round is then the batch of its own nodes, the local step
+over its ``[E_local n_local]`` stack, one packed gather over the ``data``
+group, the Eq.-3 refresh on the gathered logical rows (the Gram kernel),
+the controller (every ``data`` rank of an experiment makes the same
+draws) and this rank's row block of each experiment's W, embedded at
+``n_pad`` with an identity tail, over the gathered population (one
+grouped ``graph_mix`` launch).  With d = 1 the population is the rank's
+own rows and the mix is the meshless one (a uniform strategy through the
+masked kernel).  At each decode the edges, delivered masks and counters
+are gathered over ``exp``, so every rank ends with the same logs,
+histories, comm bytes and ``net_stats`` for all E experiments.  The
+refusals are the reference's: ``E % exp_devices``, node sharding under a
+network model, a mesh without both axes.  The row block sums over the
+nodes in the order the whole contraction does, so on the CPU a tiny-MLP
+sweep is bit for bit the meshless one; a split ``exp`` axis changes no
+bits on any device.
 """
 from __future__ import annotations
 
@@ -50,14 +73,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..collectives import packed_all_gather
 from ..compress import CompressConfig
+from ..core.mixing import uniform_weights_torch
 from ..data.pipeline import stack_streams
 from ..kernels import ops
 from ..tree import stack
 from .metrics import MetricsLog, RoundRecord, net_staleness_mean
-from .runtime import (RunnerConfig, _unstaged, evaluate_record,
-                      make_evaluator, make_local_step, stacked_model_bytes,
-                      to_device)
+from .runtime import (RunnerConfig, _unstaged, make_evaluator,
+                      make_local_step, make_round_record,
+                      stacked_model_bytes, to_device)
+from .sharded import embed_w
 from .superstep import (eval_boundaries, net_effective, net_observed,
                         net_push, net_select)
 
@@ -168,6 +194,12 @@ class SweepSuperstep:
       ``eval_every``, ``sim_every``, ``mix_chunk_d``,
       ``eval_batch_chunk``; ``spec.seeds`` supersede ``cfg.seed``);
     * ``net`` — an optional :class:`repro_torch.netsim.SweepNetwork`;
+    * ``mesh`` — an optional ``("exp", "data")`` mesh
+      (:func:`repro_torch.launch.make_sweep_mesh`; the module docstring):
+      the run's device is then the mesh's, ``params`` and ``opt_state``
+      are this rank's experiments (and rows), :meth:`logical_params`
+      gathers every experiment's, and the logs, histories and counters
+      cover all E on every rank;
     * ``chunk`` — rounds buffered on the device between host decodes.
 
     The local step runs over the ``[E n]`` stack in one call: each
@@ -185,10 +217,6 @@ class SweepSuperstep:
                  net=None, mesh=None, chunk: Optional[int] = None,
                  device="cuda"):
         E = len(spec)
-        if mesh is not None:
-            raise ValueError(
-                "the ('exp', 'data') sweep mesh is not ported: it goes "
-                "with ROADMAP queue 1's multi-GPU node sharding item")
         if len(streams) != E:
             raise ValueError(f"{len(streams)} data streams for {E} "
                              "experiments")
@@ -233,79 +261,193 @@ class SweepSuperstep:
             if st.n != cfg.n_nodes:
                 raise ValueError(f"data stream covers {st.n} nodes, "
                                  f"config says {cfg.n_nodes}")
+        exp_world = data_world = 1
+        if mesh is not None:
+            shape = getattr(mesh, "shape", None) or {}
+            if "exp" not in shape or "data" not in shape:
+                raise ValueError("sweep mesh needs ('exp', 'data') axes — "
+                                 "build it with launch.mesh.make_sweep_mesh")
+            exp_world, data_world = shape["exp"], shape["data"]
+            if E % exp_world != 0:
+                raise ValueError(f"E={E} experiments do not divide over "
+                                 f"exp_devices={exp_world}")
+            if data_world > 1 and net is not None:
+                raise ValueError(
+                    "the sweep's network model keeps its snapshot ring "
+                    "per-experiment; node-axis sharding is a no-net "
+                    "configuration (use exp_devices only)")
 
-        self.device = dev = resolve_device(device)
+        self.device = dev = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.spec, self.cfg, self.E = spec, cfg, E
-        self.strategy = first
+        self.mesh, self.exp_world, self.data_world = \
+            mesh, exp_world, data_world
+        n = cfg.n_nodes
+        # This rank's experiments [lo, lo + E_local) and node rows
+        # [offset, offset + n_local) of the padded axis; a padded row
+        # repeats the last real node (edge padding).
+        self.E_local = E // exp_world
+        lo = mesh.coords["exp"] * self.E_local if mesh is not None else 0
+        self.experiments = range(lo, lo + self.E_local)
+        mine = slice(lo, lo + self.E_local)
+        self.n_pad = -(-n // data_world) * data_world
+        self.n_local = self.n_pad // data_world
+        self.offset = mesh.coords["data"] * self.n_local \
+            if mesh is not None else 0
+        self._src_rows = torch.arange(
+            self.offset, self.offset + self.n_local, device=dev).clamp(
+                max=n - 1)
+        self.strategy = strategies[lo]
         self.chunk = chunk
         self.log: List[MetricsLog] = [MetricsLog() for _ in range(E)]
         self.edge_history: List[list] = [[] for _ in range(E)]
         self.delivered_history: List[list] = [[] for _ in range(E)]
         self._comm_bytes = [0] * E
         self.test_batch = to_device(test_batch, dev)
-        n = cfg.n_nodes
         if params is None:
             params = []
-            for seed in spec.seeds:
+            for seed in spec.seeds[mine]:
                 gen = torch.Generator().manual_seed(int(seed))
                 params.append(stack(init_fn(gen) for _ in range(n)))
-        if len(params) != E:
+        elif len(params) != E:
             raise ValueError(f"{len(params)} parameter sets for {E} "
                              "experiments")
+        else:
+            params = params[mine]
         self.params = OrderedDict(
-            (k, torch.stack([p[k] for p in params]).to(dev))
-            for k in params[0])                               # [E, n, ...]
+            (k, self._rows(torch.stack([p[k] for p in params]).to(dev)))
+            for k in params[0])                   # [E_local, n_local, ...]
         self._opt = optimizer
         self._opt_state = optimizer.init(_flat(self.params))
         self._model_bytes = cfg.model_bytes \
             or stacked_model_bytes(params[0], n)
 
         self.streams = list(streams)
-        (self._data, self._index, self._sizes, _,
-         self._batch_size) = stack_streams(self.streams)
-        self._hp = dict(delta_r=spec.delta_r, beta=spec.beta) \
-            if hp_axis else None
+        self._streams = self.streams[mine]
+        self._data, index, self._sizes, _, self._batch_size = \
+            stack_streams(self.streams)
+        self._index = self._rows(index[mine])
+        self._hp = None if not hp_axis else {
+            name: None if axis is None else axis[mine]
+            for name, axis in (("delta_r", spec.delta_r),
+                               ("beta", spec.beta))}
 
         self.net = net
         self.net_stats: Optional[List[Dict]] = None
         if net is not None:
+            # The ring is the whole sweep's depth on every rank, so an
+            # experiment contracts the columns it does without a mesh.
             self.net_S = S = net.depth(self._model_bytes)
-            up, step = net.round_masks(cfg.rounds, n)
+            self._net = net.experiments(lo, lo + self.E_local)
+            up, step = self._net.round_masks(cfg.rounds, n)
             self._net_up = torch.as_tensor(up, device=dev)      # [E, R, n]
             self._net_step = torch.as_tensor(step, device=dev)
             self.hist = OrderedDict(
                 (k, v[:, :, None].repeat((1, 1, S) + (1,) * (v.dim() - 2)))
                 for k, v in self.params.items())           # [E, n, S, ...]
-            self.lhist = torch.full((E, n, S), -1, dtype=torch.int32,
-                                    device=dev)
+            self.lhist = torch.full((self.E_local, n, S), -1,
+                                    dtype=torch.int32, device=dev)
             self.net_stats = [{"delivered": 0, "dropped": 0,
                                "staleness_hist": np.zeros(S, np.int64),
                                "staleness_sum": 0} for _ in range(E)]
 
-        self.gstate = first.sweep_graph_state(strategies)
-        self.sim = torch.zeros((E, n, n), dtype=torch.float32, device=dev) \
-            if first.needs_sim else None
+        self.gstate = self.strategy.sweep_graph_state(strategies[mine])
+        self.sim = torch.zeros((self.E_local, n, n), dtype=torch.float32,
+                               device=dev) if first.needs_sim else None
         self._local_step = make_local_step(loss_fn, optimizer)
         self._evaluate = make_evaluator(eval_fn,
                                         batch_chunk=cfg.eval_batch_chunk)
 
     @property
     def opt_state(self) -> list:
-        """Each experiment's optimizer state (shared counters shared)."""
-        split = _split(self._opt_state, self.E)
-        return [_index_tree(split, e, self.E) for e in range(self.E)]
+        """Each of this rank's experiments' optimizer state (its rows under
+        a ``data`` split; shared counters shared)."""
+        E = self.E_local
+        split = _split(self._opt_state, E)
+        return [_index_tree(split, e, E) for e in range(E)]
 
     def experiment_params(self, e: int) -> "OrderedDict[str, torch.Tensor]":
-        """Experiment ``e``'s node-stacked parameters (views)."""
-        return OrderedDict((k, v[e]) for k, v in self.params.items())
+        """Experiment ``e``'s node-stacked parameters: views without a
+        mesh; under one, from :meth:`logical_params` (so every rank calls
+        it together)."""
+        if self.mesh is None:
+            return OrderedDict((k, v[e]) for k, v in self.params.items())
+        return OrderedDict((k, v[e]) for k, v in self.logical_params().items())
+
+    def logical_params(self) -> "OrderedDict[str, torch.Tensor]":
+        """Every experiment's parameters at logical n, ``[E, n, ...]``, the
+        same on every rank: one packed gather over the whole mesh (the
+        parameters themselves without one)."""
+        if self.mesh is None:
+            return self.params
+        ex, d, E_l, n_l = (self.exp_world, self.data_world, self.E_local,
+                           self.n_local)
+        keys = list(self.params)
+        got = packed_all_gather([self.params[k] for k in keys], ex * d)
+        out = OrderedDict()
+        for k, g in zip(keys, got):
+            tail = g.shape[3:]
+            g = g.reshape((ex, d, E_l, n_l) + tail).transpose(1, 2)
+            out[k] = g.reshape((self.E, self.n_pad) + tail)[
+                :, :self.cfg.n_nodes]
+        return out
+
+    # -- layout and collectives ----------------------------------------------
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of an ``[E_local, n, ...]`` tensor."""
+        if self.data_world == 1:
+            return x
+        return x.index_select(1, self._src_rows.to(x.device))
+
+    def _logical(self, tree):
+        """The logical nodes ``[:, :n]`` of an ``[E_local, n_pad, ...]``
+        population."""
+        n = self.cfg.n_nodes
+        if self.n_pad == n:
+            return tree
+        return OrderedDict((k, v[:, :n]) for k, v in tree.items())
+
+    def _population(self, stage: Callable = _unstaged):
+        """Every node of this rank's experiments, ``[E_local, n_pad,
+        ...]``: its own rows on one ``data`` rank, else one packed gather
+        of every leaf over the ``data`` group."""
+        if self.data_world == 1:
+            return self.params
+
+        def gather():
+            keys = list(self.params)
+            got = packed_all_gather([self.params[k] for k in keys],
+                                    self.data_world,
+                                    self.mesh.group(("data",)))
+            return OrderedDict(
+                (k, g.transpose(0, 1).reshape(
+                    (self.E_local, self.n_pad) + g.shape[3:]))
+                for k, g in zip(keys, got))
+        return stage("gather", gather)
+
+    def _gather_experiments(self, tensors: List[torch.Tensor], axis: int
+                            ) -> List[torch.Tensor]:
+        """Each tensor's ``E_local`` experiments at dim ``axis`` gathered
+        over the ``exp`` group into all E, bit for bit (as they are without
+        a mesh)."""
+        if self.mesh is None:
+            return tensors
+        got = packed_all_gather(tensors, self.exp_world,
+                                self.mesh.group(("exp",)))
+        return [g.movedim(0, axis).reshape(
+                    t.shape[:axis] + (self.E,) + t.shape[axis + 1:])
+                for t, g in zip(tensors, got)]
+
 
     # -- one round ----------------------------------------------------------
 
     def _batch(self, rnd: int) -> Dict[str, torch.Tensor]:
-        """Round ``rnd``'s ``[E, n, b, ...]`` batch: each experiment's own
-        slots, through the stacked index tables over the one dataset."""
-        take = torch.stack([st.slots(rnd).to(self.device)
-                            for st in self.streams])             # [E, n, b]
+        """Round ``rnd``'s ``[E, n, b, ...]`` batch of this rank's
+        experiments and rows: each experiment's own slots, through the
+        stacked index tables over the one dataset."""
+        take = self._rows(torch.stack([st.slots(rnd).to(self.device)
+                                       for st in self._streams]))
         sel = self._index.gather(2, take)
         return {k: v[sel] for k, v in self._data.items()}
 
@@ -315,13 +457,14 @@ class SweepSuperstep:
         return self._local_step(_flat(self.params), self._opt_state,
                                 _flat(batch))
 
-    def _graph_round(self, rnd: int, stage: Callable):
-        """The Eq.-3 refresh on its cadence, then the stacked graph round:
-        ``(edges [E, n, n], W [E, n, n] or None)``."""
+    def _graph_round(self, rnd: int, population, stage: Callable):
+        """The Eq.-3 refresh of ``population``'s logical nodes on its
+        cadence, then the stacked graph round: ``(edges [E, n, n], W [E,
+        n, n] or None)``."""
         first = self.strategy
         if first.needs_sim and rnd % self.cfg.sim_every == 0:
             self.sim = stage("similarity", lambda: ops.model_pairwise_cosine(
-                self.params, experiments=True))
+                self._logical(population), experiments=True))
         if self._hp is None:
             fn = lambda: first.stacked_graph_round(self.gstate, rnd,
                                                    self.sim)
@@ -338,26 +481,37 @@ class SweepSuperstep:
         controller, mix), so a caller can time them."""
         if self.net is not None:
             return self.net_round(rnd, stage)
-        E = self.E
         batch = stage("batch", lambda: self._batch(rnd))
         flat, self._opt_state = stage("local_step",
                                       lambda: self._step(batch))
-        self.params = _split(flat, E)
-        edges, w = self._graph_round(rnd, stage)
-        chunk_d = self.cfg.mix_chunk_d
-        if self.strategy.uniform_mixing:
-            mix = lambda: ops.mix_masked_pytree(edges, self.params, chunk_d)
-        else:
-            mix = lambda: ops.mix_pytree(w, self.params, chunk_d)
-        self.params = stage("mix", mix)
+        self.params = _split(flat, self.E_local)
+        full = self._population(stage)
+        edges, w = self._graph_round(rnd, full, stage)
+        self.params = stage("mix", lambda: self._mix(edges, w, full))
         return edges
+
+    def _mix(self, edges, w, full):
+        """This rank's rows of each experiment's ``W full``: the whole W
+        on one ``data`` rank (a uniform strategy's from its edges, through
+        the masked kernel), else this rank's row block of the embedded W
+        over the gathered population."""
+        chunk_d = self.cfg.mix_chunk_d
+        uniform = self.strategy.uniform_mixing
+        if self.data_world == 1:
+            if uniform:
+                return ops.mix_masked_pytree(edges, full, chunk_d)
+            return ops.mix_pytree(w, full, chunk_d)
+        w_pad = embed_w(uniform_weights_torch(edges) if uniform else w,
+                        self.n_pad)
+        a = self.offset
+        return ops.mix_pytree(w_pad[:, a:a + self.n_local], full, chunk_d)
 
     def net_round(self, rnd: int, stage: Callable = _unstaged):
         """One round under the network model: ``(edges [E, n, n],
         delivered [E, n, n], stale_counts [E, S], obs_sum [E])``; stages
         batch, local_step, masks, push, similarity, controller,
         delivery_plan and mix, as the solo engine's ``net_round``."""
-        E, n, S, dev = self.E, self.cfg.n_nodes, self.net_S, self.device
+        E, n, S, dev = self.E_local, self.cfg.n_nodes, self.net_S, self.device
         r = min(rnd, self.cfg.rounds - 1)
         up, step = self._net_up[:, r], self._net_step[:, r]      # [E, n]
         batch = stage("batch", lambda: self._batch(rnd))
@@ -392,10 +546,10 @@ class SweepSuperstep:
 
         flat, self._opt_state = stage("local_step", local_step)
         self.params = _split(flat, E)
-        stal, drop = stage("masks", lambda: self.net.round_matrices(
+        stal, drop = stage("masks", lambda: self._net.round_matrices(
             rnd, n, self._model_bytes, device=dev))
         self.hist, self.lhist = stage("push", push)
-        edges, w = self._graph_round(rnd, stage)
+        edges, w = self._graph_round(rnd, self.params, stage)
         delivered, w_stal, stale_counts, obs_sum = stage("delivery_plan",
                                                          plan)
         self.params = stage("mix", mix)
@@ -405,13 +559,16 @@ class SweepSuperstep:
 
     def _run_chunk(self, start: int, end: int) -> np.ndarray:
         """Rounds ``[start, end]`` of every experiment, buffered on the
-        device and decoded into the per-experiment histories at the end;
-        returns the ``[K, E, n, n]`` negotiated edges."""
+        device, gathered over ``exp`` and decoded into the per-experiment
+        histories at the end; returns the ``[K, E, n, n]`` negotiated
+        edges."""
         E, n, k, dev = self.E, self.cfg.n_nodes, end - start + 1, self.device
-        edges = torch.empty((k, E, n, n), dtype=torch.bool, device=dev)
+        E_l = self.E_local
+        edges = torch.empty((k, E_l, n, n), dtype=torch.bool, device=dev)
         if self.net is None:
             for i, rnd in enumerate(range(start, end + 1)):
                 edges[i] = self.round(rnd)
+            edges, = self._gather_experiments([edges], 1)
             edges_np = edges.cpu().numpy()
             sums = edges_np.sum(axis=(0, 2, 3))
             for e in range(E):
@@ -419,11 +576,13 @@ class SweepSuperstep:
                 self._comm_bytes[e] += int(sums[e]) * self._model_bytes
             return edges_np
         delivered = torch.empty_like(edges)
-        stale = torch.empty((k, E, self.net_S), dtype=torch.int32,
+        stale = torch.empty((k, E_l, self.net_S), dtype=torch.int32,
                             device=dev)
-        obs = torch.empty((k, E), dtype=torch.int32, device=dev)
+        obs = torch.empty((k, E_l), dtype=torch.int32, device=dev)
         for i, rnd in enumerate(range(start, end + 1)):
             edges[i], delivered[i], stale[i], obs[i] = self.net_round(rnd)
+        edges, delivered, stale, obs = self._gather_experiments(
+            [edges, delivered, stale, obs], 1)
         edges_np, delivered_np = edges.cpu().numpy(), delivered.cpu().numpy()
         edge_sums = edges_np.sum(axis=(0, 2, 3))
         del_sums = delivered_np.sum(axis=(0, 2, 3))
@@ -452,16 +611,27 @@ class SweepSuperstep:
         """Experiment ``e``'s cumulative communication bytes."""
         return self._comm_bytes[e]
 
+    @torch.no_grad()
     def evaluate(self, rnd: int, edges: np.ndarray) -> List[RoundRecord]:
         """Evaluate every experiment's nodes on the shared test set after
-        round ``rnd`` (experiment by experiment, the solo evaluator's
-        bits) and append one record an experiment (``edges``: the
-        ``[E, n, n]`` last-round stack)."""
+        round ``rnd`` (this rank's experiments one by one on their logical
+        parameters, the solo evaluator's bits, then gathered over ``exp``)
+        and append one record an experiment (``edges``: the ``[E, n, n]``
+        last-round stack)."""
+        pop = self._logical(self._population())
+        outs = [self._evaluate(OrderedDict((k, v[i]) for k, v in pop.items()),
+                               self.test_batch) for i in range(self.E_local)]
+        keys = list(outs[0][1])
+        got = self._gather_experiments(
+            [torch.stack([o[0] for o in outs])]
+            + [torch.stack([o[1][k] for o in outs]) for k in keys], 0)
+        losses, metrics = got[0].cpu().numpy(), [m.cpu().numpy()
+                                                 for m in got[1:]]
         recs = []
         for e in range(self.E):
-            rec = evaluate_record(self._evaluate, self.experiment_params(e),
-                                  self.test_batch, rnd, self._comm_bytes[e],
-                                  edges[e])
+            rec = make_round_record(
+                rnd, losses[e], {k: m[e] for k, m in zip(keys, metrics)},
+                self._comm_bytes[e], edges[e])
             self.log[e].add(rec)
             recs.append(rec)
         return recs

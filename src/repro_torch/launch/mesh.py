@@ -30,8 +30,11 @@ where a process group of that many ranks runs, and :class:`MeshGroups`
 gives a rank its coordinates on it and the process group over any set of
 its axes: what the zoo's train step on the mesh
 (``repro_torch.dlrt.mesh_step``) meets the other ranks in.
-``make_sweep_mesh`` (the sweep's ``("exp", "data")`` mesh) is not ported
-(ROADMAP queue 1 item 6).
+
+The sweep's 2-D ``("exp", "data")`` mesh (:func:`make_sweep_mesh`, a
+:class:`SweepMesh`) is a ``DeviceMesh`` over the default process group in
+the same three cases: ``SweepSuperstep(mesh=...)`` splits its experiments
+over ``exp`` and, optionally, their nodes over ``data``.
 """
 from __future__ import annotations
 
@@ -221,9 +224,86 @@ def make_superstep_mesh(num_devices: Optional[int] = None, *,
             f"--nproc-per-node {num_devices} (or repro_torch.launch.spawn), "
             "which initialise the default group, and build the mesh in "
             "each")
+    return NodeMesh(1, 0, rank_device(dev, 0), owned=True,
+                    _store_dir=_one_rank_group(want, timeout))
+
+
+def _one_rank_group(backend: str, timeout: timedelta) -> str:
+    """Start a one-rank default group on a ``file://`` store in a fresh
+    temporary directory; returns the directory."""
     store = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     dist.init_process_group(
-        want, init_method=(Path(store) / "store").as_uri(), world_size=1,
+        backend, init_method=(Path(store) / "store").as_uri(), world_size=1,
         rank=0, timeout=timeout)
-    return NodeMesh(1, 0, rank_device(dev, 0), owned=True,
-                    _store_dir=store)
+    return store
+
+
+class SweepMesh(MeshGroups):
+    """The sweep's ``("exp", "data")`` mesh on this rank (a
+    :class:`MeshGroups` over its ``DeviceMesh``): ``shape`` as the
+    reference's ``Mesh.shape`` gives it (``{"exp": e, "data": d}``), this
+    rank's ``coords`` and the group along each axis (``group(("exp",))``),
+    its ``device``, and :meth:`close`, which destroys the default group if
+    :func:`make_sweep_mesh` started it."""
+
+    def __init__(self, device_mesh, device: torch.device,
+                 node: NodeMesh):
+        super().__init__(device_mesh, flattened=False)
+        self.device = device
+        self._node = node
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        return self.layout.shape
+
+    def close(self) -> None:
+        """Destroy the default group if this mesh started it (a group it
+        was given stays); a second call does nothing."""
+        self._node.close()
+
+
+def make_sweep_mesh(exp_devices: int, node_devices: int = 1, *,
+                    device="cuda",
+                    timeout: timedelta = DEFAULT_TIMEOUT) -> SweepMesh:
+    """The sweep engine's 2-D ``("exp", "data")`` mesh (DESIGN.md §14):
+    experiments split over ``exp`` (each trajectory is independent, so the
+    split changes no bits) and their nodes over ``data`` (the gather
+    schedule of the sharded engine).  It is the default process group,
+    which must have ``exp_devices * node_devices`` ranks; with none, a 1 x
+    1 mesh starts a one-rank group of its own (NCCL for a CUDA
+    ``device``, gloo for the CPU), which :meth:`SweepMesh.close` destroys,
+    and a larger one raises and says how to start the ranks.  Rank ``r``
+    works on ``cuda:(r % torch.cuda.device_count())`` on the card."""
+    dev = resolve_device(device)
+    if exp_devices < 1 or node_devices < 1:
+        raise ValueError("exp_devices and node_devices must be >= 1")
+    want = backend_for(dev)
+    ranks = exp_devices * node_devices
+    layout = MeshLayout(("exp", "data"), (exp_devices, node_devices))
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if world != ranks:
+            raise ValueError(
+                f"a {dict(layout.shape)} sweep mesh needs {ranks} ranks and "
+                f"the process group has {world}: start {ranks} with "
+                f"torchrun --nproc-per-node {ranks}")
+        got = dist.get_backend()
+        if got != want:
+            raise ValueError(
+                f"the process group runs {got}, and a {dev.type} mesh "
+                f"takes {want}")
+        node = NodeMesh(world, dist.get_rank(),
+                        rank_device(dev, dist.get_rank()))
+    elif ranks == 1:
+        node = NodeMesh(1, 0, rank_device(dev, 0), owned=True,
+                        _store_dir=_one_rank_group(want, timeout))
+    else:
+        raise ValueError(
+            f"a {dict(layout.shape)} sweep mesh needs {ranks} ranks and no "
+            f"process group is initialised: start them with torchrun "
+            f"--nproc-per-node {ranks} (or repro_torch.launch.spawn), which "
+            "initialise the default group, and build the mesh in each")
+    if node.device.type == "cuda":
+        torch.cuda.set_device(node.device)
+    return SweepMesh(layout.device_mesh(node.device.type), node.device,
+                     node)

@@ -106,3 +106,10 @@ def cnn_loss(p: Dict[str, torch.Tensor], batch
     loss = -logp.gather(1, labels[:, None])[:, 0].mean()
     acc = (logits.argmax(-1) == labels).float().mean()
     return loss, {"loss": loss, "accuracy": acc}
+
+
+def cnn_accuracy(p: Dict[str, torch.Tensor], images: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """The share of ``images`` whose largest logit is their label (the
+    first largest on ties, as the reference's ``argmax``)."""
+    return (cnn_forward(p, images).argmax(-1) == labels).float().mean()

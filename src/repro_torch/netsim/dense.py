@@ -29,6 +29,7 @@ the sweep engine (:class:`repro_torch.dlrt.SweepSuperstep`).
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -176,6 +177,15 @@ class SweepNetwork:
 
     def __len__(self) -> int:
         return len(self.nets)
+
+    def experiments(self, lo: int, hi: int) -> "SweepNetwork":
+        """Experiments ``[lo, hi)`` as a stack of their own, of this
+        class (a subclass's draws kept): what a rank of the sweep's
+        ``exp`` axis draws.  Its :meth:`depth` is theirs, not the whole
+        stack's."""
+        out = copy.copy(self)
+        out.nets = self.nets[lo:hi]
+        return out
 
     def depth(self, model_bytes: int) -> int:
         """The shared ring's depth: the deepest experiment's

@@ -128,6 +128,23 @@ def pad_adjacency(adj: SparseAdjacency, n_pad: int) -> SparseAdjacency:
                                               device=dev)]))
 
 
+def renormalize_drops(adj: SparseAdjacency, drop: torch.Tensor
+                      ) -> SparseAdjacency:
+    """Loss renormalization (Alg. 2 l. 12): the slots whose transfer the
+    network dropped (``drop [n, k]``) fold their weight into the
+    receiver's self-weight, so every row keeps its total mass, and are
+    parked on the receiver's own row with weight 0 (the dense network
+    path's rule, slot by slot)."""
+    drop = drop.bool() & adj.mask
+    zero = torch.zeros((), dtype=adj.w.dtype, device=adj.w.device)
+    lost = torch.where(drop, adj.w, zero).sum(dim=1)
+    mask = adj.mask & ~drop
+    return SparseAdjacency(
+        idx=torch.where(mask, adj.idx, _rows(adj.n, adj.idx.device)),
+        w=torch.where(mask, adj.w, zero), w_self=adj.w_self + lost,
+        mask=mask)
+
+
 def _host(adj: SparseAdjacency):
     return (adj.idx.cpu().numpy(), adj.w.cpu().numpy().astype(np.float64),
             adj.w_self.cpu().numpy().astype(np.float64),

@@ -85,10 +85,13 @@ def mlp_runner_factory(n: int, *, batch: int = 4, rounds: int = 10 ** 9,
 
 def sweep_runner_factory(n: int, sweep: int, *, batch: int = 4,
                          seed: int = 0, k: int = 3, sim_every: int = 5,
-                         device="cuda") -> Callable[[Candidate], object]:
+                         device="cuda", mesh=None
+                         ) -> Callable[[Candidate], object]:
     """``make_runner(candidate)`` for the sweep-shaped tiny-MLP Morph
     workload: ``sweep`` seed-varied experiments stacked in one
-    :class:`~repro_torch.dlrt.SweepSuperstep`.
+    :class:`~repro_torch.dlrt.SweepSuperstep`, on ``mesh`` (an ``("exp",
+    "data")`` mesh, :func:`repro_torch.launch.make_sweep_mesh`) where
+    given.
 
     The sweep's only knob is ``chunk`` (it runs the dense engine), so
     drive :func:`repro_torch.tune.tune` with an explicit ``TuneShape(...,
@@ -123,6 +126,6 @@ def sweep_runner_factory(n: int, sweep: int, *, batch: int = 4,
                 spec=spec, init_fn=mlp_params, loss_fn=mlp_loss,
                 eval_fn=mlp_loss, optimizer=sgd(0.05), streams=streams,
                 test_batch=test, strategies=strategies, cfg=cfg,
-                chunk=self.chunk, device=device)
+                mesh=mesh, chunk=self.chunk, device=device)
 
     return lambda cand: _SweepAdapter(cand.chunk)

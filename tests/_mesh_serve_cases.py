@@ -30,6 +30,7 @@ from repro_torch.dlrt import (cache_sharding, distribute_cache,
                               init_mesh_caches, init_node_caches,
                               make_prefill_step, make_serve_step,
                               params_sharding, serve_kv_spec, shard_shape)
+from repro_torch.bench.harness import CollectiveBytes
 from repro_torch.launch import MeshLayout
 from repro_torch.launch.dryrun import per_card_bytes
 from repro_torch.models import model
@@ -148,51 +149,6 @@ def roundtrip(cfg, case, layout, device_mesh, params):
                          if any(p.is_shard() for p in v.placements))}
 
 
-class Collectives:
-    """Every collective's (stage, call, bytes) while it is on: the
-    ``torch.distributed`` calls the port's mesh code makes, each counted
-    by the largest tensor it is given (a gather's output)."""
-
-    CALLS = (("dist", "all_reduce"), ("dist", "broadcast"),
-             ("collectives", "all_gather_into"),
-             ("collectives", "reduce_scatter_into"))
-
-    def __init__(self):
-        import torch.distributed as dist
-        from repro_torch import collectives
-        self.modules = {"dist": dist, "collectives": collectives}
-        self.stage_name = None
-        self.records = []
-
-    def stage(self, name, fn):
-        self.stage_name = name
-        try:
-            return fn()
-        finally:
-            self.stage_name = None
-
-    def __enter__(self):
-        self.saved = []
-        for mod, name in self.CALLS:
-            module = self.modules[mod]
-            f = getattr(module, name)
-            self.saved.append((module, name, f))
-            setattr(module, name, self._wrap(name, f))
-        return self
-
-    def __exit__(self, *exc):
-        for module, name, f in self.saved:
-            setattr(module, name, f)
-
-    def _wrap(self, name, f):
-        def call(*args, **kw):
-            sizes = [a.numel() * a.element_size() for a in args
-                     if isinstance(a, torch.Tensor)]
-            self.records.append((self.stage_name, name, max(sizes)))
-            return f(*args, **kw)
-        return call
-
-
 def device_of(case) -> torch.device:
     """The case's device: the CPU unless it says ``"cuda"`` (then this
     rank's card)."""
@@ -240,7 +196,7 @@ def serve(case):
     out["logits"] = np.stack(logits)
     out["cache"] = numpy_flat(gather_tree(cache))
     if case.get("count"):
-        counter = Collectives()
+        counter = CollectiveBytes()
         with counter:
             step(dparams, cache, toks[..., :1], steps, stage=counter.stage)
         attn = [v.to_local() for k, v in flatten(cache).items()

@@ -1236,6 +1236,63 @@ def test_cuda_mesh_step_on_four_ranks(cuda_device):
                                    err_msg=k)
 
 
+# The sweep farm on an ("exp", "data") mesh (``chip_smoke.py`` phase 23 runs
+# the 1 x 1 mesh): ``tests/_sweep_mesh_cases.py`` on four NCCL ranks.
+SWEEP_MESH_WORLDS = {(4, 1): ("mlp-morph-net", "cnn-morph-dr"),
+                     (2, 2): ("cnn-morph-dr", "cnn-static", "mlp-morph-dr"),
+                     (1, 4): ("cnn-static", "mlp-morph-dr")}
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_mesh_on_four_ranks(cuda_device):
+    """The sweep on four NCCL ranks (one a card) as (4, 1) under a network
+    and as (2, 2) and (1, 4) without one, the tiny MLP and the reduced
+    GN-LeNet, deterministic cuDNN: every rank the same; against the
+    meshless sweep on card 0, edges, comm bytes and network counters
+    identical, parameters and records bit for bit where only the
+    experiments split (each experiment's stacked step keeps its bits,
+    phase 14(a)), parameters within 1e-5 where the nodes split over
+    ``data`` (grouped convolutions over fewer nodes)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one rank a card")
+    import numpy as np
+    import _sweep_mesh_cases as sc
+    from repro_torch.launch import start
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = {name: sc.run_case(sc.CASES[name], None, None,
+                                   device=cuda_device)
+                 for name in sorted({k for v in SWEEP_MESH_WORLDS.values()
+                                     for k in v})}
+        for sizes, names in SWEEP_MESH_WORLDS.items():
+            jobs = [(k, sc.CASES[k], None, None) for k in names]
+            per_rank = [r[0] for r in start(sc.rank_main, 4, sizes, jobs,
+                                             (), "cuda").join()]
+            for name in names:
+                got, want = per_rank[0][name], alone[name]
+                for other in per_rank[1:]:
+                    np.testing.assert_array_equal(other[name]["edges"],
+                                                  got["edges"])
+                    for k, v in got["params"].items():
+                        assert np.array_equal(other[name]["params"][k], v)
+                    assert other[name]["records"] == got["records"]
+                np.testing.assert_array_equal(got["edges"], want["edges"])
+                assert got["comm_bytes"] == want["comm_bytes"]
+                assert got["net_stats"] == want["net_stats"]
+                tol = 0.0 if sizes[1] == 1 else 1e-5
+                for k, v in want["params"].items():
+                    np.testing.assert_allclose(got["params"][k], v, atol=tol,
+                                               rtol=0, err_msg=(sizes, k))
+                if tol == 0.0:
+                    assert got["records"] == want["records"], (sizes, name)
+                else:
+                    assert [[r[:3] for r in log] for log in got["records"]] \
+                        == [[r[:3] for r in log]
+                            for log in want["records"]], (sizes, name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 # The zoo's serve step and prefill on a device mesh (``chip_smoke.py``
 # phase 22) at reduced widths: ``tests/_mesh_serve_cases.py`` on the card,
 # 16 tokens decoded from position 0 and prefilled, 4 requests a node.

@@ -11,7 +11,8 @@ mixing math, and the port's two benchmark scripts at smoke depth.
   the reference's within 1e-5, and the gamma = 1 association exactly.
 * ``python -m repro_torch.bench.fig3`` and ``...fig13`` at smoke depth on
   the CPU write schema-1 JSON with the reference's keys and the right
-  acceptance arithmetic, without loading JAX.
+  acceptance arithmetic, without loading JAX, and their ``sharded/`` rows
+  from two gloo ranks.
 """
 import json
 import os
@@ -192,6 +193,10 @@ def test_bench_scripts_write_schema_and_gate(tmp_path):
     for key, other in (("static", "static"), ("el", "el-oracle")):
         assert rec[f"derived/morph_minus_{key}_n{n}"]["value"] == \
             float(f"{finals['morph'] - finals[other]:.4f}")
+    row = rec[f"sharded/morph_n{n}"]
+    assert row["collective_bytes"] > 0 and row["rounds"] == 1
+    assert row["knobs"] == {"devices": 2, "collective": "psum",
+                            "mix_chunk_d": 1024}
 
     rec = _records(tmp_path / "BENCH_torch_fig13_compress.json")
     specs = ("none", "int8", "fp8", "int8_topk0_75", "int8_topk0_25")
@@ -208,4 +213,13 @@ def test_bench_scripts_write_schema_and_gate(tmp_path):
         int(nbytes["none"] / nbytes[star] >= 4.0)
     assert rec[f"acceptance/acc_within_2pts_n{n}"]["value"] == \
         int(acc[star] >= acc["none"] - 0.02)
-    assert not any(k.startswith("sharded/") for k in rec)
+    # The sharded/ rows (the scripts' default --hlo-devices 2): one round's
+    # collective bytes on two gloo ranks, compressed specs below none's.
+    sharded = {k: r for k, r in rec.items() if k.startswith("sharded/")}
+    assert sorted(sharded) == sorted(f"sharded/{s}_n{n}" for s in specs)
+    for r in sharded.values():
+        assert r["collective_bytes"] > 0 and r["rounds"] == 1
+        assert r["knobs"]["devices"] == 2
+        assert r["knobs"]["collective"] == "gather"
+    assert sharded[f"sharded/int8_n{n}"]["collective_bytes"] < \
+        sharded[f"sharded/none_n{n}"]["collective_bytes"]

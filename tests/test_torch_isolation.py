@@ -34,7 +34,8 @@ from repro_torch.kernels import (cuda, graph_mix,            # noqa: E402
                                  graph_mix_masked, graph_mix_sparse,
                                  gram_matrix, ref, selective_scan,
                                  selective_scan_bwd)
-from repro_torch.launch import MeshLayout, start             # noqa: E402
+from repro_torch.launch import (MeshLayout, make_sweep_mesh,  # noqa: E402
+                                start)
 from repro_torch.launch import train as train_launcher       # noqa: E402
 from repro_torch.models import cnn_loss, cnn_params          # noqa: E402
 from repro_torch.netsim import AsyncConfig, AsyncRunner      # noqa: E402
@@ -75,7 +76,8 @@ ENTRY_POINTS = ("runner", "host-loop-runner", "run-experiment", "morph",
                 "train-state", "train-launcher", "moe-init-params",
                 "moe-init-cache", "rwkv-init-params", "rwkv-init-cache",
                 "moe-train-launcher", "load-checkpoint",
-                "restore-checkpoint", "start-ranks", "mesh-caches")
+                "restore-checkpoint", "start-ranks", "mesh-caches",
+                "sweep-mesh")
 
 
 def _checkpoint_file() -> str:
@@ -139,6 +141,8 @@ def _make_entry_point(name):
         "restore-checkpoint": lambda: CheckpointManager(
             str(Path(_checkpoint_file()).parent)).restore(),
         "start-ranks": lambda: start(print, 2),
+        # Raises naming the card before it looks for a process group.
+        "sweep-mesh": lambda: make_sweep_mesh(1, 1),
         # Raises naming the card before it touches the (absent) mesh.
         "mesh-caches": lambda: init_mesh_caches(
             get_config("llama3.2-3b").reduced(), 2, 1, 4,

@@ -675,7 +675,7 @@ def test_batched_update_topology_is_each_solo_call():
 
 def test_refusals():
     spec = SweepSpec(seeds=(0, 1))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'exp', 'data'"):
         _sweep("morph", "mlp", spec, mesh=object())
     sparse = tcore.InGraphMorphStrategy(n=N, k=K, device="cpu")
     sparse.sparse = True
